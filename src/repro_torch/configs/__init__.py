@@ -1,0 +1,16 @@
+"""Architecture registry of the port: ``get_config(arch_id)``."""
+
+from . import codeqwen15_7b, olmo_1b
+from .base import ModelConfig
+
+REGISTRY: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (codeqwen15_7b, olmo_1b)}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[arch_id]
+
+
+__all__ = ["REGISTRY", "ModelConfig", "get_config"]

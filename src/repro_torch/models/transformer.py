@@ -1,0 +1,338 @@
+"""Dense decoder-only transformer (codeqwen1.5-7b, olmo-1b), in PyTorch.
+
+Counterpart of the dense family of ``repro.models.transformer``. Block
+params are stacked on a leading layer axis as in the reference; the
+reference's ``lax.scan`` over layers is a Python loop here, with each
+layer's KV pool a view ``k_pages[l]`` updated in place.
+
+Weights: the reference keeps f32 params and casts each matrix to bf16 at
+every use. The port's loaders (``init_params``, ``convert``) cast once
+and keep only the bf16 copy of matrices, embeddings and biases, which
+gives the same numbers and halves the weight bytes every step reads; the
+norm scales stay f32 (the norms compute in f32).
+
+Attention: causal attention over a contiguous cache (``forward``, the
+static and paged prefill, the static decode over its cache prefix) goes
+through ``ops.flash_attention``; paged decode through
+``ops.paged_decode_attention``. The prefix-shared prefill keeps the
+plain masked attention, as the reference does: its mask (ragged prefix |
+causal suffix) is not the flash kernel's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .. import resolve_device
+from ..kernels import ops
+from . import layers as L
+
+# params kept in f32; every other leaf is stored in bf16
+F32_PARAMS = frozenset({"ln1", "ln2", "ln_f"})
+
+
+# --- params ----------------------------------------------------------------------
+
+def init_params(cfg, seed: int = 0, device="cuda"):
+    """Random weights from a ``torch.Generator`` seeded with ``seed``:
+    the reference's distributions (truncated normal, std 1/sqrt(d_in)
+    for matrices, 0.02 for the embedding), drawn on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, F, V, Lc = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    Q, KV = cfg.q_dim, cfg.kv_dim
+    norm_init, _ = L.make_norm(cfg)
+    cd = L.COMPUTE_DTYPE
+
+    def matrix(d_in, d_out, std=None):
+        w = torch.empty((d_in, d_out), dtype=L.PARAM_DTYPE, device=dev)
+        return L.trunc_normal_(w, gen, std or 1.0 / math.sqrt(d_in)).to(cd)
+
+    def stacked(d_in, d_out):
+        out = torch.empty((Lc, d_in, d_out), dtype=cd, device=dev)
+        for i in range(Lc):             # one f32 layer at a time
+            out[i] = matrix(d_in, d_out)
+        return out
+
+    blocks = {
+        "ln1": torch.stack([norm_init(D, dev)] * Lc),
+        "ln2": torch.stack([norm_init(D, dev)] * Lc),
+        "wq": stacked(D, Q), "wk": stacked(D, KV), "wv": stacked(D, KV),
+        "wo": stacked(Q, D), "w_gate": stacked(D, F), "w_up": stacked(D, F),
+        "w_down": stacked(F, D),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", Q), ("bk", KV), ("bv", KV)):
+            blocks[name] = torch.zeros((Lc, n), dtype=cd, device=dev)
+    params = {"embed": matrix(V, D, std=0.02), "blocks": blocks,
+              "ln_f": norm_init(D, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = matrix(D, V)
+    return params
+
+
+def _layer(params, i: int) -> dict:
+    return {k: w[i] for k, w in params["blocks"].items()}
+
+
+# --- block -----------------------------------------------------------------------
+
+def _qkv(cfg, p, x, rope):
+    """Pre-norm, projections, bias and RoPE: (q, k, v) in (B, S, heads, dh).
+    ``rope`` is the forward's (cos, sin) from ``layers.rope_cos_sin``."""
+    _, norm = L.make_norm(cfg)
+    B, S, _ = x.shape
+    h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
+    q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = L.rotate(q.view(B, S, cfg.num_heads, cfg.head_dim), *rope)
+    k = L.rotate(k.view(B, S, cfg.num_kv_heads, cfg.head_dim), *rope)
+    return q, k, v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+
+
+def _finish(cfg, p, x, attn):
+    """Output projection, residual, pre-norm SwiGLU FFN, residual."""
+    _, norm = L.make_norm(cfg)
+    B, S, _ = x.shape
+    y = x + (attn.reshape(B, S, cfg.q_dim) @ p["wo"]).to(x.dtype)
+    h2 = norm(y, p["ln2"]).to(L.COMPUTE_DTYPE)
+    return y + L.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]).to(x.dtype)
+
+
+# --- embedding / head ---------------------------------------------------------------
+
+def _embed(params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def _head(cfg, params, x):
+    _, norm = L.make_norm(cfg)
+    h = norm(x, params["ln_f"]).to(L.COMPUTE_DTYPE)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ w).float()
+
+
+def _rope(cfg, positions):
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _trunk(cfg, params, batch, return_kv: bool):
+    """The blocks over the whole sequence with causal flash attention.
+    Returns (hidden (B, S, D), (k, v) each (L, B, S, KV, dh) or None)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    rope = _rope(cfg, batch.get("positions", torch.arange(
+        S, device=tokens.device).expand(B, S)))
+    x = _embed(params, tokens)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(cfg, p, x, rope)
+        x = _finish(cfg, p, x, ops.flash_attention(q, k, v, causal=True))
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+
+
+def _last(x, lengths):
+    """Row ``lengths[b] - 1`` of each sequence: (B, S, D) -> (B, 1, D)."""
+    idx = (lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    return torch.gather(x, 1, idx)
+
+
+# --- full-sequence forward ---------------------------------------------------------
+
+def forward(cfg, params, batch):
+    """Logits (B, S, V) f32 for batch["tokens"] (B, S)."""
+    x, _ = _trunk(cfg, params, batch, return_kv=False)
+    return _head(cfg, params, x)
+
+
+# --- static decode -------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DecodeState:
+    k: torch.Tensor        # (L, B, T, KV, dh)
+    v: torch.Tensor
+    pos: int               # next write offset (lockstep over the batch)
+
+
+def prefill(cfg, params, batch, cache_len: int):
+    """Run the full prompt, materialize the dense KV cache, return the
+    last position's logits (B, V) and the DecodeState."""
+    B, S = batch["tokens"].shape
+    x, (k, v) = _trunk(cfg, params, batch, return_kv=True)
+    logits = _head(cfg, params, x[:, -1:])[:, 0]
+    pad = (0, 0, 0, 0, 0, cache_len - S)        # pad the position axis
+    return logits, DecodeState(k=torch.nn.functional.pad(k, pad),
+                               v=torch.nn.functional.pad(v, pad), pos=S)
+
+
+def decode_step(cfg, params, state: DecodeState, tokens):
+    """One token for the whole batch, tokens (B,). Writes the new K/V
+    into the cache in place and advances ``state.pos``; returns (logits
+    (B, V), state). The query attends the cache prefix [0, pos] — the
+    reference's ``kj <= pos`` mask — through the same flash op as the
+    prefill, so both round alike."""
+    B = tokens.shape[0]
+    pos = state.pos
+    rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
+    x = _embed(params, tokens[:, None])
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(cfg, p, x, rope)
+        state.k[i, :, pos] = k[:, 0]
+        state.v[i, :, pos] = v[:, 0]
+        x = _finish(cfg, p, x, ops.flash_attention(
+            q, state.k[i, :, :pos + 1], state.v[i, :, :pos + 1],
+            causal=True))
+    state.pos = pos + 1
+    return _head(cfg, params, x)[:, 0], state
+
+
+# --- paged decode (continuous batching) -----------------------------------------
+
+
+@dataclasses.dataclass
+class PagedDecodeState:
+    k_pages: torch.Tensor  # (L, KV, P, page, dh); page 0 = trash page
+    v_pages: torch.Tensor
+
+
+def init_paged_decode_state(cfg, num_pages: int, page_size: int,
+                            dtype=L.COMPUTE_DTYPE, device="cpu"
+                            ) -> PagedDecodeState:
+    k, v = L.paged_cache_init(cfg.num_layers, num_pages, page_size,
+                              cfg.num_kv_heads, cfg.head_dim, dtype, device)
+    return PagedDecodeState(k_pages=k, v_pages=v)
+
+
+def paged_prefill(cfg, params, batch, lengths):
+    """Forward the (padded) prompts; return each sequence's last-live-
+    token logits (B, V) plus the per-layer KV (L, B, S, KV, dh) for the
+    page scatter. Causality keeps pad positions past ``lengths`` from
+    touching live ones; the head runs on the last live rows only."""
+    x, kv = _trunk(cfg, params, batch, return_kv=True)
+    return _head(cfg, params, _last(x, lengths))[:, 0], kv
+
+
+def write_prefill_pages(cfg, state: PagedDecodeState, kv, page_ids) -> None:
+    """Scatter one prefilled request's KV into its pages, in place. kv:
+    (k, v) each (L, S, KV, dh), S a page multiple; page_ids (S/page,)
+    with dead entries pointing at the trash page."""
+    k, v = kv
+    L.paged_cache_write_prompt(state.k_pages, k, page_ids)
+    L.paged_cache_write_prompt(state.v_pages, v, page_ids)
+
+
+def copy_kv_page(state: PagedDecodeState, src: int, dst: int) -> None:
+    """Duplicate one physical page (all layers, K and V) in place — the
+    copy-on-write step before a shared page takes a divergence write."""
+    state.k_pages[:, :, dst] = state.k_pages[:, :, src]
+    state.v_pages[:, :, dst] = state.v_pages[:, :, src]
+
+
+def paged_prefill_shared(cfg, params, state: PagedDecodeState, batch,
+                         lengths, prefix_pages, prefix_len):
+    """Prefill only the suffix past a shared prefix already resident in
+    the page pool.
+
+    tokens (B, S) hold the suffix (padded past ``lengths``);
+    ``prefix_pages`` (B, Mp) are the full pages holding each row's shared
+    prefix (dead entries -> trash page) and ``prefix_len`` (B,) its token
+    count (a page multiple). The cached prefix KV was RoPE'd at its
+    absolute positions, so suffix queries attend it directly while their
+    own positions are offset by ``prefix_len``. Returns last-live-suffix-
+    token logits plus the suffix KV (L, B, S, KV, dh).
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    page = state.k_pages.shape[3]
+    Mp = prefix_pages.shape[1]
+    Tp = Mp * page
+    KV, dh = cfg.num_kv_heads, cfg.head_dim
+    dev = tokens.device
+    prefix_len = prefix_len.long()
+    rope = _rope(cfg, prefix_len[:, None] + torch.arange(S, device=dev))
+    x = _embed(params, tokens)
+
+    # keys per layer: [gathered prefix (Tp) | suffix (S)]; prefix entries
+    # valid below prefix_len, suffix causal
+    qi = torch.arange(S, device=dev)[None, :, None]
+    kj = torch.arange(Tp + S, device=dev)[None, None, :]
+    mask = torch.where(kj < Tp, kj < prefix_len[:, None, None],
+                       kj - Tp <= qi)[:, None, None]
+    pages = prefix_pages.long()
+
+    def gather(pool):                   # (KV, P, pg, dh) -> (B, Tp, KV, dh)
+        return pool[:, pages].reshape(KV, B, Tp, dh).permute(1, 2, 0, 3)
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(cfg, p, x, rope)
+        ck = torch.cat([gather(state.k_pages[i]), k], dim=1)
+        cv = torch.cat([gather(state.v_pages[i]), v], dim=1)
+        x = _finish(cfg, p, x, L.gqa_attention(q, ck, cv, mask=mask))
+        ks.append(k)
+        vs.append(v)
+    last = _head(cfg, params, _last(x, lengths))[:, 0]
+    return last, (torch.stack(ks), torch.stack(vs))
+
+
+def _paged_block(cfg, p, x, rope, k_pages, v_pages, page_table,
+                 page_ids, offsets, attn_lengths):
+    """One decoder block over a paged cache, S == 1. k/v_pages (KV, P,
+    page, dh) are this layer's pool views; the new token is appended at
+    (page_ids, offsets) in place before attention reads it."""
+    q, k, v = _qkv(cfg, p, x, rope)
+    L.paged_cache_append(k_pages, k[:, 0], page_ids, offsets)
+    L.paged_cache_append(v_pages, v[:, 0], page_ids, offsets)
+    attn = ops.paged_decode_attention(q[:, 0], k_pages, v_pages, page_table,
+                                      attn_lengths)
+    return _finish(cfg, p, x, attn[:, None])
+
+
+def paged_decode_step(cfg, params, state: PagedDecodeState, tokens,
+                      page_table, lengths, active):
+    """One token per slot against the paged cache; returns logits (B, V)
+    and appends each active slot's K/V to the pool in place.
+
+    tokens (B,) int; page_table (B, M) int32; lengths (B,) int32 live
+    context per slot; active (B,) bool — inactive slots write to the
+    trash page and read zero-length caches. The caller advances lengths.
+    """
+    page = state.k_pages.shape[3]
+    lengths = lengths.to(torch.int32)
+    active = active.to(torch.bool)
+    x = _embed(params, tokens[:, None])
+    slot = (lengths // page)[:, None].long()
+    page_ids = torch.gather(page_table, 1, slot)[:, 0]
+    page_ids = torch.where(active, page_ids, 0)              # trash page
+    offsets = torch.where(active, lengths % page, 0)
+    attn_lengths = torch.where(active, lengths + 1, 0)       # incl. new token
+    rope = _rope(cfg, lengths[:, None])
+    for i in range(cfg.num_layers):
+        x = _paged_block(cfg, _layer(params, i), x, rope,
+                         state.k_pages[i], state.v_pages[i], page_table,
+                         page_ids, offsets, attn_lengths)
+    return _head(cfg, params, x)[:, 0]
+
+
+def paged_decode_multi(cfg, params, state: PagedDecodeState, pending,
+                       lengths, remaining, page_table, mask, h: int, *,
+                       hmax: int, teacher=None):
+    """Up to ``h`` fused ``paged_decode_step``s with greedy sampling on
+    the device (layers.multi_step_decode); the loop tensors advance in
+    place. The engine clamps ``h`` at page boundaries, so the page table
+    is constant for the whole run. Returns the (hmax, B) tokens."""
+    def step(toks, pt, lens, act):
+        return paged_decode_step(cfg, params, state, toks, pt, lens, act)
+    return L.multi_step_decode(step, hmax, pending, lengths, remaining,
+                               page_table, mask, h, teacher)

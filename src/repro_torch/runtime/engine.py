@@ -1,0 +1,731 @@
+"""Continuous-batching decode engine over a paged KV cache (port of the
+dense path of ``repro.runtime.engine``).
+
+The static path (``run_static``) prefills one lockstep batch and decodes
+until the longest request finishes, holding a dense ``batch x max_len``
+cache. The engine keeps every slot busy instead:
+
+  * an admission queue (scheduler.py) feeds free slots as requests arrive;
+  * each slot advances its own request at its own length (per-slot RoPE
+    positions and attention lengths, transformer.paged_decode_step);
+  * the KV cache is a shared page pool (kv_pager.py) addressed through
+    int32 page tables, so cache bytes track live tokens;
+  * finished slots are recycled at once and their pages returned;
+  * on page exhaustion the youngest request is preempted (pages freed,
+    request requeued) rather than stalling the whole batch;
+  * with prefix sharing, admission maps prompt prefixes already in the
+    pool onto refcounted pages and copies a shared page on its first
+    divergent write.
+
+Decode runs in fused horizons: one ``decode_fused`` call advances up to
+``horizon`` steps on the device with greedy argmax there, and the host
+syncs once per horizon. The schedule, and so every count the report
+keeps, is the reference's step for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..models import transformer as T
+from .device_state import DeviceLoopState
+from .kv_pager import TRASH_PAGE, PageAllocator, PagerConfig
+from .prefix_index import PrefixIndex
+from .scheduler import Request, Scheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    num_slots: int = 8
+    page_size: int = 16
+    num_pages: int = 257               # incl. the trash page
+    max_pages_per_seq: int = 16
+    prefill_bucket: int = 32           # prompt pad quantum (page multiple)
+    greedy: bool = True
+    temperature: float = 0.8
+    seed: int = 0
+    max_steps: int = 200_000
+    # cross-request KV prefix sharing (radix index over token ids,
+    # refcounted shared pages, copy-on-write at the first divergent write)
+    prefix_sharing: bool = False
+    # cap on the decode steps one fused dispatch may advance (the engine
+    # shrinks it so no schedulable event lands mid-horizon); 1 keeps the
+    # per-step dispatch, and non-greedy sampling always runs per step
+    horizon: int = 32
+
+    def __post_init__(self):
+        assert self.prefill_bucket % self.page_size == 0, \
+            "prefill bucket must be a page multiple"
+        assert self.horizon >= 1
+
+    @property
+    def pager(self) -> PagerConfig:
+        return PagerConfig(self.num_pages, self.page_size,
+                           self.max_pages_per_seq)
+
+
+# --- sampling and reports --------------------------------------------------------
+
+
+def make_batch_sampler(rng: np.random.Generator, greedy: bool,
+                       temperature: float):
+    """Host-side batch sampler shared by the engine and the static
+    baseline. Greedy argmaxes the (N, V) block; the temperature path
+    draws ONE uniform per row and inverts the softmax CDF, so a seeded
+    run is deterministic."""
+    def sample_batch(rows: np.ndarray) -> np.ndarray:
+        rows = np.asarray(rows)
+        if rows.ndim == 1:
+            rows = rows[None]
+        if rows.shape[0] == 0:
+            return np.zeros((0,), np.int64)
+        if greedy:
+            return np.argmax(rows, axis=-1)
+        z = rows.astype(np.float64) / temperature
+        z -= z.max(axis=-1, keepdims=True)
+        p = np.exp(z)
+        cdf = np.cumsum(p, axis=-1)
+        u = rng.random(rows.shape[0]) * cdf[:, -1]
+        return np.minimum((cdf < u[:, None]).sum(axis=-1),
+                          rows.shape[-1] - 1)
+    return sample_batch
+
+
+def _charge_wall(rep, seen: set, key, dt: float) -> None:
+    """Charge ``dt`` for one decode dispatch: the first dispatch of each
+    kind pays the kernels' build and warm-up, so it lands in
+    ``compile_wall_s`` and every later one in ``decode_wall_s``."""
+    if key in seen:
+        rep.decode_wall_s += dt
+    else:
+        seen.add(key)
+        rep.compile_wall_s += dt
+
+
+@dataclasses.dataclass
+class EngineReport:
+    name: str
+    num_slots: int
+    decode_steps: int = 0
+    slot_steps: int = 0                # actual batch width summed per step
+    useful_slot_steps: int = 0
+    prefill_calls: int = 0
+    prefill_tokens: int = 0            # computed (padded) prefill tokens
+    preemptions: int = 0
+    completed: list[Request] = dataclasses.field(default_factory=list)
+    peak_live_pages: int = 0
+    shared_page_hits: int = 0          # pages admitted by reference
+    cow_copies: int = 0                # divergence-write page copies
+    prefill_tokens_saved: int = 0      # bucketed tokens NOT recomputed
+    peak_demand_pages: int = 0         # live minus index-only cache
+    page_bytes: int = 0                # 0 -> dense (static) cache
+    cache_bytes_alloc: int = 0         # full backing allocation
+    wall_s: float = 0.0
+    decode_wall_s: float = 0.0         # steady state (see _charge_wall)
+    compile_wall_s: float = 0.0
+    prefill_wall_s: float = 0.0        # host clock around each prefill
+    # decode-loop host<->device traffic (prefill excluded)
+    device_dispatches: int = 0
+    host_syncs: int = 0
+    page_table_upload_bytes: int = 0
+
+    @property
+    def new_tokens(self) -> int:
+        return sum(len(r.generated) for r in self.completed)
+
+    @property
+    def prefill_equiv_steps(self) -> float:
+        """Prefill compute in decode-step units (T computed prefill tokens
+        occupy ~T/num_slots steps); re-prefill after preemption counts."""
+        return self.prefill_tokens / max(self.num_slots, 1)
+
+    @property
+    def decode_tokens_per_step(self) -> float:
+        return self.new_tokens / max(self.decode_steps, 1)
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Generated tokens per decode-equivalent step, prefill included."""
+        return self.new_tokens / max(
+            self.decode_steps + self.prefill_equiv_steps, 1.0)
+
+    @property
+    def wasted_slot_fraction(self) -> float:
+        return 1.0 - self.useful_slot_steps / max(self.slot_steps, 1)
+
+    @property
+    def kv_bytes_peak(self) -> int:
+        """Peak cache bytes holding live tokens (paged) or the full dense
+        allocation (static)."""
+        if self.page_bytes:
+            return self.peak_live_pages * self.page_bytes
+        return self.cache_bytes_alloc
+
+    @property
+    def kv_demand_bytes_peak(self) -> int:
+        """Peak cache bytes some request references (shared pages once,
+        index-only warm cache excluded)."""
+        if self.page_bytes:
+            return self.peak_demand_pages * self.page_bytes
+        return self.cache_bytes_alloc
+
+    def latency_percentiles(self, qs=(50, 95)) -> dict[str, float]:
+        lats = [r.latency_steps for r in self.completed] or [0]
+        return {f"p{q}": float(np.percentile(lats, q)) for q in qs}
+
+    def summary(self) -> dict:
+        return {
+            "name": self.name,
+            "requests": len(self.completed),
+            "new_tokens": self.new_tokens,
+            "decode_steps": self.decode_steps,
+            "prefill_tokens": self.prefill_tokens,
+            "tokens_per_step": round(self.tokens_per_step, 3),
+            "decode_tokens_per_step": round(self.decode_tokens_per_step, 3),
+            "wasted_slot_fraction": round(self.wasted_slot_fraction, 3),
+            "kv_bytes_peak": self.kv_bytes_peak,
+            "kv_demand_bytes_peak": self.kv_demand_bytes_peak,
+            "shared_page_hits": self.shared_page_hits,
+            "cow_copies": self.cow_copies,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+            "preemptions": self.preemptions,
+            "prefill_calls": self.prefill_calls,
+            **{k: round(v, 1)
+               for k, v in self.latency_percentiles().items()},
+            "wall_s": round(self.wall_s, 3),
+            "decode_wall_s": round(self.decode_wall_s, 4),
+            "compile_wall_s": round(self.compile_wall_s, 4),
+            "prefill_wall_s": round(self.prefill_wall_s, 4),
+            "device_dispatches": self.device_dispatches,
+            "host_syncs": self.host_syncs,
+            "page_table_upload_bytes": self.page_table_upload_bytes,
+            "tokens_per_s": round(self.new_tokens / self.decode_wall_s, 1)
+            if self.decode_wall_s > 0 else 0.0,
+        }
+
+
+def _host(t) -> np.ndarray:
+    """Device tensor -> numpy (a host sync)."""
+    return t.float().cpu().numpy() if t.is_floating_point() \
+        else t.cpu().numpy()
+
+
+def _state_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# --- backend -------------------------------------------------------------------
+
+
+def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int]
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a prompt to its prefill bucket and build the page-scatter ids:
+    prompt page i maps to ``pages[i]``, every pad page to the trash page."""
+    plen = len(ctx)
+    bucket = -(-plen // ecfg.prefill_bucket) * ecfg.prefill_bucket
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :plen] = ctx
+    pids = np.full((bucket // ecfg.page_size,), TRASH_PAGE, np.int32)
+    pids[:len(pages)] = pages
+    return toks, pids
+
+
+class PagedTransformerBackend:
+    """Dense family: a paged KV cache read by the paged-decode kernel,
+    prompts prefilled through the flash kernel. Every call updates the
+    pool in place (the reference donates it).
+
+    The reference splits this class into mixins its other backend
+    families share (``_FusedDecode``, ``_PagedBackendBase``,
+    ``_LinearPagedMixin``); with one family ported they are one class."""
+
+    def __init__(self, cfg, params, ecfg: EngineConfig):
+        self.cfg, self.params, self.ecfg = cfg, params, ecfg
+        self.device = params["embed"].device
+        self.page_bytes = ecfg.pager.page_bytes(cfg)
+        self.state = T.init_paged_decode_state(
+            cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+
+    def _tensor(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    # -- geometry: the page table grows with the context
+    def can_ever_fit(self, pgr, prompt_len: int, max_new_tokens: int,
+                     ctx_len: int) -> bool:
+        return pgr.can_ever_fit(prompt_len, max_new_tokens, ctx_len,
+                                pgr.num_pages)
+
+    def admission_rows(self, pgr, ctx_len: int) -> list[int]:
+        return list(range(pgr.pages_for(ctx_len)))
+
+    # -- prefill
+    def prefill(self, ctx: np.ndarray, page_ids: list[int]) -> np.ndarray:
+        """Prefill one request (padded to its bucket), scatter its KV into
+        ``page_ids``, return the last live token's logits (V,)."""
+        toks, pids = _bucket_prompt(ctx, self.ecfg, page_ids)
+        last, (k, v) = T.paged_prefill(
+            self.cfg, self.params, {"tokens": self._tensor(toks)},
+            self._tensor([len(ctx)]))
+        T.write_prefill_pages(self.cfg, self.state, (k[:, 0], v[:, 0]),
+                              self._tensor(pids))
+        return _host(last[0])
+
+    def prefill_shared(self, ctx: np.ndarray, page_ids: list[int],
+                       prefix_pages: list[int], prefix_tokens: int
+                       ) -> np.ndarray:
+        """Prefill only the suffix past ``prefix_tokens`` (a page
+        multiple) whose KV already sits in ``prefix_pages``; scatter the
+        suffix KV into ``page_ids``, return last-live-token logits. The
+        prefix-page operand is padded to the table width, as in the
+        reference."""
+        suffix = ctx[prefix_tokens:]
+        toks, pids = _bucket_prompt(suffix, self.ecfg, page_ids)
+        pref = np.full((1, self.ecfg.max_pages_per_seq), TRASH_PAGE,
+                       np.int32)
+        pref[0, :len(prefix_pages)] = prefix_pages
+        last, (k, v) = T.paged_prefill_shared(
+            self.cfg, self.params, self.state,
+            {"tokens": self._tensor(toks)}, self._tensor([len(suffix)]),
+            self._tensor(pref), self._tensor([prefix_tokens]))
+        T.write_prefill_pages(self.cfg, self.state, (k[:, 0], v[:, 0]),
+                              self._tensor(pids))
+        return _host(last[0])
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate page ``src`` into ``dst``."""
+        T.copy_kv_page(self.state, src, dst)
+
+    # -- decode
+    def decode(self, tokens, page_table, lengths, active) -> np.ndarray:
+        """One decode step from host arrays; logits come back to the host."""
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+        return _host(T.paged_decode_step(
+            self.cfg, self.params, self.state, dev(tokens), dev(page_table),
+            dev(lengths), dev(active)))
+
+    def decode_fused(self, pending, lengths, remaining, page_table, mask,
+                     h: int, teacher=None):
+        """Advance the engine's persistent loop tensors (DeviceLoopState)
+        by up to ``h`` decode steps in one call, greedy sampling on the
+        device; returns the (hmax, B) token buffer. ``teacher`` (hmax, B)
+        forces the sampled tokens (fused replay of a recorded sequence)."""
+        return T.paged_decode_multi(
+            self.cfg, self.params, self.state, pending, lengths, remaining,
+            page_table, torch.as_tensor(mask, device=self.device), h,
+            hmax=self.ecfg.horizon,
+            teacher=None if teacher is None else torch.as_tensor(
+                teacher, dtype=torch.int32, device=self.device))
+
+
+# --- prefix sharing -------------------------------------------------------------
+
+
+class _PrefixSharing:
+    """The radix index plus the admission plan (which leading pages to
+    map by reference instead of recomputing)."""
+
+    def __init__(self, pgr: PagerConfig):
+        self.pgr = pgr
+        self.index = PrefixIndex(pgr.page_size)
+
+    def plan(self, req: Request, ctx) -> tuple[list[int], int]:
+        """-> (pages, tokens): the leading ``tokens`` of ``ctx`` are
+        already resident in ``pages`` and need no prefill.
+
+        A FRESH request always recomputes the page holding its last
+        prompt token (the prefill must produce that token's logits), so
+        coverage caps at the last page boundary strictly below len(ctx).
+        A RE-ADMITTED request needs no logits, so full coverage is
+        admissible, including a partial-tail match; a later decode write
+        into that shared tail page copies-on-write first."""
+        P = self.pgr.page_size
+        tokens = [int(t) for t in ctx]
+        pages, covered = self.index.match(
+            tokens, allow_tail=bool(req.generated))
+        if not req.generated:
+            n = min(len(pages), (len(tokens) - 1) // P)
+            pages, covered = pages[:n], n * P
+        return pages, covered
+
+    def record(self, alloc, ctx, lengths: int, row) -> int:
+        """Index the full pages of a request's written context so later
+        prompts can map them (after prefill, and again at preempt/finish)."""
+        n_full = int(lengths) // self.pgr.page_size
+        if n_full <= 0:
+            return 0
+        toks = [int(t) for t in ctx[:n_full * self.pgr.page_size]]
+        return self.index.insert(alloc, toks,
+                                 [int(p) for p in row[:n_full]])
+
+
+# --- engine --------------------------------------------------------------------
+
+
+class Engine:
+    """Host-driven continuous-batching loop around the paged backend."""
+
+    def __init__(self, cfg, params, ecfg: EngineConfig | None = None):
+        if cfg.family != "dense":
+            raise ValueError(f"{cfg.name!r} (family {cfg.family!r}) has no "
+                             f"engine backend; the port serves 'dense'")
+        self.cfg = cfg
+        self.ecfg = ecfg or EngineConfig()
+        self.backend = PagedTransformerBackend(cfg, params, self.ecfg)
+        self.rng = np.random.default_rng(self.ecfg.seed)
+        self._sample_batch = make_batch_sampler(
+            self.rng, self.ecfg.greedy, self.ecfg.temperature)
+        # greedy sampling is pure argmax, so it can run on the device
+        # inside the fused horizon; the host RNG's temperature draw cannot
+        self._fused = self.ecfg.greedy and self.ecfg.horizon > 1
+        self._dispatched: set = set()  # dispatch kinds already warmed up
+
+    def run(self, requests: list[Request]) -> EngineReport:
+        e, pgr = self.ecfg, self.ecfg.pager
+        B, M, page = e.num_slots, pgr.max_pages_per_seq, pgr.page_size
+        sched = Scheduler(requests)
+        # one allocator over the whole pool: the reference's single-tenant
+        # arena lease (all num_pages - 1 usable pages)
+        alloc = PageAllocator(e.num_pages)
+        sharer = _PrefixSharing(pgr) if e.prefix_sharing else None
+
+        slots: list[Request | None] = [None] * B
+        page_table = np.zeros((B, M), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        pending = np.zeros((B,), np.int32)      # next decode input token
+        remaining = np.zeros((B,), np.int32)    # token budget left
+        ds = DeviceLoopState(B, M, self.backend.device)
+
+        st = self.backend.state
+        rep = EngineReport(
+            name=f"engine/{self.cfg.name}", num_slots=B,
+            page_bytes=self.backend.page_bytes,
+            cache_bytes_alloc=_state_bytes(st.k_pages, st.v_pages))
+        t_run = time.monotonic()
+        step = 0
+
+        def clear_slot(s: int) -> None:
+            req = slots[s]
+            if sharer is not None:
+                # index the pages this request completed BEFORE dropping
+                # its refs: the neutral refs keep the prefix warm
+                sharer.record(alloc, req.context_tokens, lengths[s],
+                              page_table[s])
+            slots[s] = None
+            page_table[s, :] = TRASH_PAGE
+            lengths[s] = 0
+            pending[s] = 0
+            remaining[s] = 0
+            ds.touch(s)
+            alloc.free_owner(req.rid)
+
+        def finish(s: int) -> None:
+            slots[s].done_step = step
+            rep.completed.append(slots[s])
+            clear_slot(s)
+
+        def preempt(s: int) -> None:
+            req = slots[s]
+            clear_slot(s)
+            sched.requeue(req)
+
+        while True:
+            sched.release_arrivals(step)
+
+            # -- admission into free slots -------------------------------
+            admitting = True
+            for s in range(B):
+                # retry the same slot until it is filled (rejected or
+                # finished-at-prefill requests must not waste the slot)
+                while admitting and slots[s] is None:
+                    req = sched.peek_ready()
+                    if req is None:
+                        admitting = False
+                        break
+                    ctx = req.context_tokens
+                    assert len(ctx) >= 1, "empty prompts are not admissible"
+                    rows = self.backend.admission_rows(pgr, len(ctx))
+                    if not self.backend.can_ever_fit(
+                            pgr, len(req.prompt), req.max_new_tokens,
+                            len(ctx)):
+                        sched.pop_ready()       # can never fit: fail fast
+                        req.truncated = True
+                        req.done_step = step
+                        rep.completed.append(req)
+                        continue
+                    sh_pages, sh_tokens = (
+                        sharer.plan(req, ctx) if sharer is not None
+                        else ([], 0))
+                    need = len(rows) - len(sh_pages)
+                    if not alloc.can_alloc(need) and sharer is not None:
+                        # index-only pages are cache: reclaim them before
+                        # making the request wait
+                        sharer.index.evict_lru(
+                            alloc, need - alloc.free_count,
+                            protect=set(sh_pages))
+                    if not alloc.can_alloc(need):
+                        admitting = False       # FCFS: wait for free pages
+                        break
+                    sched.pop_ready()
+                    if sh_pages:
+                        alloc.share(req.rid, sh_pages)
+                        req.shared_pages += len(sh_pages)
+                        rep.shared_page_hits += len(sh_pages)
+                    pages = alloc.alloc(req.rid, need)
+                    page_table[s, :] = TRASH_PAGE
+                    page_table[s, rows] = sh_pages + pages
+                    t0 = time.monotonic()
+                    if sh_tokens >= len(ctx):
+                        logits = None           # fully cached re-admission
+                    elif sh_tokens:
+                        logits = self.backend.prefill_shared(
+                            ctx, pages, sh_pages, sh_tokens)
+                    else:
+                        logits = self.backend.prefill(ctx, pages)
+                    rep.prefill_wall_s += time.monotonic() - t0
+                    full = (-(-len(ctx) // e.prefill_bucket)
+                            * e.prefill_bucket)
+                    computed = 0 if sh_tokens >= len(ctx) else (
+                        -(-(len(ctx) - sh_tokens) // e.prefill_bucket)
+                        * e.prefill_bucket)
+                    rep.prefill_tokens += computed
+                    rep.prefill_tokens_saved += full - computed
+                    if computed:
+                        rep.prefill_calls += 1
+                        req.prefills += 1
+                    if sharer is not None:
+                        sharer.record(alloc, ctx, len(ctx), page_table[s])
+                    req.admitted_step = step
+                    slots[s] = req
+                    lengths[s] = len(ctx)
+                    if req.generated:   # re-admission after preemption
+                        pending[s] = req.generated[-1]
+                        remaining[s] = (req.max_new_tokens
+                                        - len(req.generated))
+                        ds.touch(s)
+                    else:
+                        assert logits is not None
+                        tok = int(self._sample_batch(logits[None])[0])
+                        req.generated.append(tok)
+                        pending[s] = tok
+                        remaining[s] = req.max_new_tokens - 1
+                        ds.touch(s)
+                        if req.done:
+                            finish(s)   # slot freed: while re-admits
+
+            active = [s for s in range(B) if slots[s] is not None]
+
+            # -- page growth / CoW / preemption --------------------------
+            if active:
+                def claim_one(s: int) -> bool:
+                    """Free one page for slot ``s``: index cache first,
+                    then victim preemption. False if ``s`` itself was
+                    preempted."""
+                    while not alloc.can_alloc(1):
+                        if sharer is not None \
+                                and sharer.index.evict_lru(alloc, 1):
+                            continue
+                        victim = Scheduler.pick_victim(
+                            [(v, slots[v]) for v in active
+                             if slots[v] is not None], exclude=s)
+                        if victim is None or victim[0] == s:
+                            preempt(s)
+                            active.remove(s)
+                            return False
+                        preempt(victim[0])
+                        active.remove(victim[0])
+                    return True
+
+                for s in list(active):
+                    if slots[s] is None:
+                        continue
+                    if lengths[s] % page != 0:
+                        # mid-page: if the tail page is still shared (a
+                        # re-admission mapped a cached tail), copy-on-
+                        # write exactly that page before the next append
+                        if sharer is None:
+                            continue
+                        row_i = lengths[s] // page
+                        old = int(page_table[s, row_i])
+                        if alloc.refcount(old) < 2:
+                            continue
+                        if not claim_one(s):
+                            continue
+                        new = alloc.alloc(slots[s].rid, 1)
+                        self.backend.copy_page(old, new[0])
+                        alloc.free_page(slots[s].rid, old)
+                        page_table[s, row_i] = new[0]
+                        ds.touch(s)
+                        slots[s].cow_copies += 1
+                        rep.cow_copies += 1
+                        continue
+                    pi = lengths[s] // page
+                    if pi >= M:                 # table row full: stop
+                        slots[s].truncated = True
+                        finish(s)
+                        active.remove(s)
+                        continue
+                    if not claim_one(s):
+                        continue
+                    new = alloc.alloc(slots[s].rid, 1)
+                    page_table[s, pi] = new[0]
+                    ds.touch(s)
+
+            # -- decode: one fused horizon, or one per-step dispatch -----
+            if active:
+                act = np.zeros((B,), bool)
+                act[active] = True
+                if self._fused:
+                    # safe horizon: no schedulable event may land inside
+                    # it, so h device steps equal h iterations of this loop
+                    h = e.horizon
+                    nxt = sched.next_arrival()
+                    if nxt is not None:
+                        h = min(h, nxt - step)     # arrival -> admission
+                    if sched.peek_ready() is not None and \
+                            any(slots[s] is None for s in range(B)):
+                        h = 1   # a free slot retries admission per step
+                    for s in active:
+                        h = min(h, int(remaining[s]),   # finish at budget
+                                pgr.steps_to_boundary(int(lengths[s])))
+                    h = max(1, h)
+                    ds.sync(page_table, lengths, pending, remaining)
+                    t0 = time.monotonic()
+                    out = self.backend.decode_fused(
+                        ds.pending, ds.lengths, ds.remaining, ds.table,
+                        act, h)
+                    toks_h = _host(out)    # ONE host sync per horizon
+                    _charge_wall(rep, self._dispatched, "fused",
+                                 time.monotonic() - t0)
+                    ds.count(dispatches=1, syncs=1)
+                    rep.decode_steps += h
+                    rep.slot_steps += B * h
+                    rep.useful_slot_steps += len(active) * h
+                    step += h - 1   # bookkeeping lands at horizon end
+                    lengths[active] += h
+                    remaining[active] -= h
+                    for s in active:
+                        req = slots[s]
+                        req.generated.extend(int(t) for t in toks_h[:h, s])
+                        pending[s] = int(toks_h[h - 1, s])
+                        if req.done:
+                            finish(s)
+                else:
+                    t0 = time.monotonic()
+                    logits = self.backend.decode(pending, page_table,
+                                                 lengths, act)
+                    _charge_wall(rep, self._dispatched, "decode",
+                                 time.monotonic() - t0)
+                    ds.count(dispatches=1, syncs=1,
+                             upload_bytes=page_table.nbytes)
+                    rep.decode_steps += 1
+                    rep.slot_steps += B    # the batch always runs full
+                    rep.useful_slot_steps += len(active)
+                    lengths[active] += 1
+                    remaining[active] -= 1
+                    toks = self._sample_batch(logits[active])
+                    for i, s in enumerate(active):
+                        req = slots[s]
+                        tok = int(toks[i])
+                        req.generated.append(tok)
+                        pending[s] = tok
+                        if req.done:
+                            finish(s)
+                rep.peak_live_pages = max(rep.peak_live_pages,
+                                          alloc.live_count)
+                rep.peak_demand_pages = max(rep.peak_demand_pages,
+                                            alloc.demand_count)
+            elif not sched.exhausted:
+                nxt = sched.next_arrival()
+                if nxt is not None and nxt > step:
+                    step = nxt          # idle: fast-forward to next arrival
+                    continue
+            else:
+                break
+
+            step += 1
+            if step > e.max_steps:
+                raise RuntimeError("engine exceeded max_steps")
+
+        if sharer is not None:          # drop the index's neutral refs
+            sharer.index.release_all(alloc)
+        alloc.check()
+        assert alloc.live_count == 0, "pages leaked past completion"
+        rep.preemptions = sched.preemptions
+        rep.device_dispatches = ds.device_dispatches
+        rep.host_syncs = ds.host_syncs
+        rep.page_table_upload_bytes = ds.page_table_upload_bytes
+        rep.wall_s = time.monotonic() - t_run
+        return rep
+
+
+# --- static lockstep baseline --------------------------------------------------
+
+
+def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
+               greedy: bool = True, temperature: float = 0.8,
+               seed: int = 0) -> EngineReport:
+    """The lockstep baseline: requests are taken in arrival order in
+    fixed batches; each batch prefills together and decodes until the
+    *longest* generation in the group finishes, over a dense cache of
+    batch x (max prompt + max gen). Mixed prompt lengths are left-padded
+    with no pad masking, as in the reference; the metrics are structural
+    (steps and bytes), not a quality reference."""
+    dev = params["embed"].device
+    requests = sorted(requests, key=lambda r: r.arrival)
+    rep = EngineReport(name=f"static/{cfg.name}", num_slots=num_slots)
+    sample_batch = make_batch_sampler(np.random.default_rng(seed), greedy,
+                                      temperature)
+    dispatched: set = set()            # decode shapes already warmed up
+
+    t_run = time.monotonic()
+    step = 0
+    for i in range(0, len(requests), num_slots):
+        group = requests[i:i + num_slots]
+        step = max(step, max(r.arrival for r in group))
+        plen = max(len(r.prompt) for r in group)
+        gen = max(r.max_new_tokens for r in group)
+        cache_len = plen + gen
+        toks = np.zeros((len(group), plen), np.int32)
+        for b, r in enumerate(group):
+            toks[b, plen - len(r.prompt):] = r.prompt   # left-pad
+        t0 = time.monotonic()
+        logits, state = T.prefill(cfg, params,
+                                  {"tokens": torch.as_tensor(toks, device=dev)},
+                                  cache_len)
+        toks0 = sample_batch(_host(logits))
+        rep.prefill_wall_s += time.monotonic() - t0
+        for b, r in enumerate(group):
+            r.admitted_step = step
+            r.generated.append(int(toks0[b]))
+        rep.prefill_calls += 1
+        rep.prefill_tokens += plen * len(group)   # padded compute is paid
+        rep.cache_bytes_alloc = max(rep.cache_bytes_alloc,
+                                    _state_bytes(state.k, state.v))
+        for _ in range(gen - 1):        # lockstep drain to the longest
+            tok = torch.as_tensor([r.generated[-1] for r in group],
+                                  dtype=torch.int32, device=dev)
+            t0 = time.monotonic()
+            logits, state = T.decode_step(cfg, params, state, tok)
+            logits = _host(logits)
+            _charge_wall(rep, dispatched, ("static", cache_len, len(group)),
+                         time.monotonic() - t0)
+            rep.decode_steps += 1
+            rep.slot_steps += len(group)
+            step += 1
+            toks = sample_batch(logits)
+            for b, r in enumerate(group):
+                if not r.done:
+                    r.generated.append(int(toks[b]))
+                    rep.useful_slot_steps += 1
+        del state
+        for r in group:
+            r.done_step = step          # results return with the batch
+            rep.completed.append(r)
+    rep.wall_s = time.monotonic() - t_run
+    return rep

@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither jax nor the reference
+package, and its entry points refuse to run without a card unless the
+caller asks for the CPU."""
+
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+RUN_WITHOUT_JAX = """
+import sys
+from repro_torch import convert, kernels  # noqa: F401
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops  # noqa: F401
+from repro_torch.launch import serve  # noqa: F401
+from repro_torch.models import transformer as T
+from repro_torch.runtime import Engine, EngineConfig, poisson_trace, run_static
+
+cfg = get_config("olmo-1b").reduced()
+params = T.init_params(cfg, seed=0, device="cpu")
+trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
+                      gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
+ecfg = EngineConfig(num_slots=2, page_size=8, num_pages=17,
+                    max_pages_per_seq=8, prefill_bucket=8)
+assert len(Engine(cfg, params, ecfg).run(trace).completed) == 3
+trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
+                      gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
+assert len(run_static(cfg, params, trace, num_slots=2).completed) == 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_port_runs_without_importing_jax_or_the_reference():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
+    r = subprocess.run([sys.executable, "-c", RUN_WITHOUT_JAX], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr
+
+
+def test_no_port_source_imports_jax_or_the_reference():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in pat.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    """No card and no explicit CPU request: raise, never fall back."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--mode", "engine"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--mode", "static"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(get_config("olmo-1b").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"embed": [[0.0]]})
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result both here (no
+    card) and alone in a directory without the rest of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs for real")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    r = subprocess.run([sys.executable, str(tmp_path / "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=tmp_path)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
