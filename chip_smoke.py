@@ -17,7 +17,19 @@ into build/repro_torch/), then:
       forward to check they are its greedy choices;
   (b') profiles one decode step and one 512-token prefill: host enqueue,
       wall and device busy time, and the top kernels;
-  (c) runs the static lockstep baseline on the first 8 requests.
+  (c) runs the static lockstep baseline on the first 8 requests;
+  (d1) holds the packed-canvas kernels (fp, fused epilogue, int8/int4
+      dequant, with and without the epilogue) against their plain
+      versions at full width: one codeqwen1.5-7b decoder layer's seven
+      projections packed on one plane (R 25728, C 59648, 14,176 blocks),
+      whisper-tiny's 24 projections, and each activation on a small
+      layout; times each against its bound and, where one PyTorch call
+      computes the same function, that call;
+  (d2) runs the packing entry point ``repro_torch.launch.pack`` on the
+      card (the paper's case studies, the canvas rows and end-to-end
+      passes through all four packed-canvas kernels) and its check(),
+      with the packed-canvas kernels' launch counters zeroed just before
+      and read just after.
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -37,9 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 
-# peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores
-# and HBM3 bandwidth
+# peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores,
+# f32 outside the tensor cores, and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 kernel vs its f32-internal plain version, both rounding the output
 # to bf16: a couple of bf16 quanta at |out| ~ 1-4, as tests/test_kernels.py
@@ -61,15 +74,16 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def compare(torch, got, want, what: str) -> float:
+def compare(torch, got, want, what: str, tol=None) -> float:
     err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), **TOL,
+    torch.testing.assert_close(got.float(), want.float(), **(tol or TOL),
                                msg=lambda m: f"{what}: {m}")
     return err
 
@@ -311,6 +325,217 @@ def phase_static(rt, cfg, params, trace):
     return rep
 
 
+# f32 kernel vs its f32 plain version: summation order only (as
+# tests/test_kernels.py's f32 TOL)
+TOL_F32 = dict(rtol=1e-4, atol=2e-4)
+
+
+def codeqwen_layer_mats(WM, cfg):
+    """One decoder layer's seven projections at the published widths:
+    q/k/v share an input, gate/up share one, down (d_ff rows) folds."""
+    D, F = cfg.d_model, cfg.d_ff
+    return [WM("q", D, cfg.q_dim, share_group="qkv"),
+            WM("k", D, cfg.kv_dim, share_group="qkv"),
+            WM("v", D, cfg.kv_dim, share_group="qkv"),
+            WM("o", cfg.q_dim, D),
+            WM("gate", D, F, share_group="gu"),
+            WM("up", D, F, share_group="gu"),
+            WM("down", F, D)]
+
+
+def canvas_problem(torch, mats, batch, seed):
+    """Seeded weights (std 1/sqrt(rows)) and inputs drawn on the card;
+    share-group members get one input."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    weights, inputs, shared = {}, {}, {}
+    for m in mats:
+        weights[m.name] = torch.randn((m.rows, m.cols), generator=gen,
+                                      device=DEV) / m.rows ** 0.5
+        x = torch.randn((batch, m.rows), generator=gen, device=DEV)
+        inputs[m.name] = shared.setdefault(m.share_group, x) \
+            if m.share_group else x
+    return weights, inputs
+
+
+def canvas_cost(torch, x, w, scales, out, G, c_blocks, bias=None,
+                residual=None):
+    """(flops, bytes, peak): each input read once and the output written
+    once; f32 x runs at the f32 rate, bf16 x at the bf16 tensor rate."""
+    B = x.shape[0]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x, w, scales, out, bias, residual) if t is not None)
+    nbytes += G * 4 + (c_blocks + 1) * 4          # each block's kb, run offsets
+    peak = PEAK_F32_FLOPS if x.dtype == torch.float32 else PEAK_BF16_FLOPS
+    return 2 * B * G * 128 * 128, nbytes, peak
+
+
+def canvas_case(torch, ops, ref, label, x, w, meta, *, precision=None,
+                scales=None, tol=None, library=None, **epi):
+    """One kernel call against its plain version, timed, with its bound."""
+    if precision is None:
+        def run(impl="kernel"):
+            return ops.packed_canvas_matmul(x, w, meta, impl=impl, **epi)
+    else:
+        def run(impl="kernel"):
+            return ops.packed_canvas_matmul_dq(
+                x, w, scales, meta, precision=precision, impl=impl, **epi)
+    got = run()
+    want = run("ref")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all(), f"{label}: non-finite output"
+    err = compare(torch, got, want, label, tol)
+    ms = cuda_ms(torch, run)
+    plain = cuda_ms(torch, lambda: run("ref"), iters=5)
+    lib = cuda_ms(torch, library, iters=10) if library else None
+    G, c_blocks = meta.shape[1], got.shape[1] // 128
+    flops, nbytes, peak = canvas_cost(torch, x, w, scales, got, G, c_blocks,
+                                      epi.get("bias"), epi.get("residual"))
+    b_ms, b_by = bound(flops, nbytes, peak)
+    lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+    print(f"  {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+          f"{plain:.4f} ms  library {lib_txt}  bound {b_ms:.4f} ms "
+          f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, max_abs_err=err)
+
+
+def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
+    """(d1) the packed-canvas kernels against their plain versions at full
+    width. Returns the four kernels' records (launches filled in later)."""
+    import numpy as np
+
+    print("== (d1) packed-canvas kernels vs plain versions", flush=True)
+    bf16 = torch.bfloat16
+    cfg = get_config("codeqwen1.5-7b")
+    mats = codeqwen_layer_mats(WM, cfg)
+    layout = pack_canvas(mats)
+    meta = layout.block_meta()
+    G = layout.num_blocks
+    runs = np.bincount(meta[1])
+    print(f"  codeqwen1.5-7b layer: R {layout.R} C {layout.C} G {G} "
+          f"({G * 128 * 128 * 2 / 1e6:.1f} MB bf16), runs {min(runs)}-"
+          f"{max(runs)} blocks", flush=True)
+    # published widths are 128-multiples: the plane packs losslessly
+    assert layout.density == 1.0, layout.density
+    weights, inputs = canvas_problem(torch, mats, 128, seed=1)
+    wb = layout.build_w_blocks(weights, dtype=bf16, device=DEV)
+    xp = layout.build_x_packed(inputs, 128, dtype=bf16, device=DEV)
+    wv = layout.build_w_virtual(weights, dtype=bf16, device=DEV)
+    per_matrix = {m.name: weights[m.name].to(bf16) for m in mats}
+    xs = {m.name: inputs[m.name].to(bf16) for m in mats}
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    bias = torch.randn((layout.C,), generator=gen, device=DEV).to(bf16)
+    res = torch.randn((128, layout.C), generator=gen, device=DEV).to(bf16)
+    q8, s8 = ref.quantize_blocks(wb, "int8")
+    q4, s4 = ref.quantize_blocks(wb, "int4")
+    rec = {k: [] for k in ("fp", "epi", "dq", "dq_epi")}
+
+    for B in (8, 128):
+        x = xp[:B]
+        loop = cuda_ms(torch, lambda: [xs[n][:B] @ w
+                                       for n, w in per_matrix.items()],
+                       iters=10)
+        rec["fp"].append(canvas_case(
+            torch, ops, ref, f"fp bf16 codeqwen layer B={B} (per-matrix "
+            f"cuBLAS loop, 7 calls: {loop:.4f} ms)", x, wb, meta,
+            library=lambda x=x: torch.matmul(x, wv)))
+        for name, q, s in (("int8", q8, s8), ("int4", q4, s4)):
+            rec["dq"].append(canvas_case(
+                torch, ops, ref, f"{name} codeqwen layer B={B}", x, q, meta,
+                precision=name, scales=s))
+    x = xp[:8]
+    rec["epi"].append(canvas_case(
+        torch, ops, ref, "epilogue bias+silu+residual bf16 codeqwen B=8", x,
+        wb, meta, bias=bias, residual=res[:8], activation="silu"))
+    rec["dq_epi"].append(canvas_case(
+        torch, ops, ref, "int4 epilogue bias+gelu+residual codeqwen B=8", x,
+        q4, meta, precision="int4", scales=s4, bias=bias, residual=res[:8],
+        activation="gelu"))
+    main = {k: v[0] for k, v in rec.items()}   # codeqwen B=8 rows
+    del wb, xp, wv, per_matrix, xs, q8, s8, q4, s4, weights, inputs, res
+    torch.cuda.empty_cache()
+
+    # whisper-tiny's full layout: f32 at the example's batch, bf16 at a
+    # batch that is a multiple of no tile
+    mats = pack.whisper_mats()
+    layout = pack_canvas(mats)
+    meta = layout.block_meta()
+    for B, dt, tol in ((64, torch.float32, TOL_F32), (200, bf16, None)):
+        weights, inputs = canvas_problem(torch, mats, B, seed=3)
+        wb = layout.build_w_blocks(weights, dtype=dt, device=DEV)
+        xp = layout.build_x_packed(inputs, B, dtype=dt, device=DEV)
+        wv = layout.build_w_virtual(weights, dtype=dt, device=DEV)
+        rec["fp"].append(canvas_case(
+            torch, ops, ref, f"fp {str(dt)[6:]} whisper-tiny 24 projections "
+            f"(R {layout.R} C {layout.C} G {layout.num_blocks}) B={B}", xp,
+            wb, meta, tol=tol, library=lambda xp=xp, wv=wv: xp @ wv))
+        if dt == torch.float32:     # the example's check, every matrix
+            y = layout.gather_outputs(ops.packed_canvas_matmul(xp, wb, meta))
+            err = max((y[m.name] - inputs[m.name] @ weights[m.name]).abs()
+                      .max().item() for m in mats)
+            print(f"  whisper f32 B=64 per-matrix max |err| {err:.3e}")
+            assert err < 1e-3, err
+
+    # each activation once, fp and dequant epilogues, on a small layout
+    mats = pack.rwkv_mixer_mats()
+    layout = pack_canvas(mats)
+    meta = layout.block_meta()
+    weights, inputs = canvas_problem(torch, mats, 8, seed=4)
+    wb = layout.build_w_blocks(weights, dtype=bf16, device=DEV)
+    xp = layout.build_x_packed(inputs, 8, dtype=bf16, device=DEV)
+    q8, s8 = ref.quantize_blocks(wb, "int8")
+    bias = torch.randn((layout.C,), generator=gen, device=DEV).to(bf16)
+    res = torch.randn((8, layout.C), generator=gen, device=DEV).to(bf16)
+    for act in ("none", "relu", "silu", "gelu"):
+        rec["epi"].append(canvas_case(
+            torch, ops, ref, f"epilogue {act} rwkv6 mixers B=8", xp, wb,
+            meta, bias=bias, residual=res, activation=act))
+        rec["dq_epi"].append(canvas_case(
+            torch, ops, ref, f"int8 epilogue {act} rwkv6 mixers B=8", xp, q8,
+            meta, precision="int8", scales=s8, bias=bias, activation=act))
+
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import packed_canvas as pc
+    out = []
+    for key, name, counter, replaces in (
+            ("fp", "packed_canvas_matmul", pc._packed_canvas_matmul,
+             "src/repro/kernels/packed_canvas.py:196"),
+            ("epi", "packed_canvas_epilogue", pc._packed_canvas_epilogue,
+             "src/repro/kernels/packed_canvas.py:216"),
+            ("dq", "matmul_dq", dq._matmul_dq,
+             "src/repro/kernels/dequant.py:200"),
+            ("dq_epi", "matmul_dq_epilogue", dq._matmul_dq_epilogue,
+             "src/repro/kernels/dequant.py:220")):
+        row = dict(main[key])
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rec[key])
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/packed_canvas.cu",
+                        replaces=replaces, counter=counter, **row))
+    return out
+
+
+def phase_pack(torch, pack, kernels):
+    """(d2) the packing entry point on the card, counting the launches."""
+    print("== (d2) repro_torch.launch.pack on the card", flush=True)
+    for k in kernels:
+        k["counter"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows = pack.run(DEV)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for k in kernels:
+        k["launches"] = k.pop("counter").launches
+    for r in rows:
+        if r["name"].startswith(("pack/lm", "pack/canvas", "kernels/")):
+            print("  " + json.dumps(r))
+    pack.check(rows)
+    print(f"  {len(rows)} rows in {wall:.2f} s, check() passed", flush=True)
+    for k in kernels:
+        print(f"  launches {k['name']}: {k['launches']}")
+        assert k["launches"] > 0, f"{k['name']} never ran on the main path"
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -327,6 +552,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as T
     from repro_torch import runtime as rt
+    from repro_torch import resolve_device
+    from repro_torch.kernels import ref
+    from repro_torch.launch import pack
+    from repro_torch.planner import WeightMatrix, pack_canvas
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -358,6 +587,14 @@ def main() -> int:
     phase_engine(torch, T, rt, cfg, params, trace, kernels)
     phase_breakdown(torch, T, cfg, params)
     phase_static(rt, cfg, params, trace)
+    del params
+    torch.cuda.empty_cache()
+
+    resolve_device(DEV)         # full f32 matmuls in the f32 plain versions
+    canvas = phase_canvas(torch, ops, ref, pack, WeightMatrix, pack_canvas,
+                          get_config)
+    phase_pack(torch, pack, canvas)
+    kernels += canvas
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")
 

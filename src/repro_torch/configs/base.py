@@ -1,9 +1,11 @@
-"""Model configuration for the port's dense family.
+"""Model configuration of the port.
 
-A copy of the dense-family part of ``repro.configs.base.ModelConfig``:
-the port imports nothing of the JAX package, so it keeps its own. The
-fields, derived sizes and ``reduced()`` match the reference exactly, so
-a reduced config names the same shapes in both packages.
+A copy of part of ``repro.configs.base.ModelConfig``: the port imports
+nothing of the JAX package, so it keeps its own. The fields, derived
+sizes and ``reduced()`` of the dense family match the reference exactly,
+so a reduced config names the same shapes in both packages. The
+``encdec`` (whisper) and ``ssm`` (rwkv6) configs carry their widths for
+the packing path; their models are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,11 +13,29 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+Family = Literal["dense", "ssm", "encdec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrentConfig:
+    """RG-LRU / RWKV-style recurrence parameters."""
+    lru_width: int = 0             # 0 -> d_model
+    conv_width: int = 4
+    window: int = 2048             # local-attention window (hybrid archs)
+    block_pattern: tuple[str, ...] = ("rec", "rec", "attn")  # griffin 2:1
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower for enc-dec (whisper) / vision stub (vlm)."""
+    num_layers: int = 4
+    seq_len: int = 1500            # precomputed frame/patch embeddings (stub)
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense"]
+    family: Family
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,9 +44,12 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0              # 0 -> d_model // num_heads
     norm: Literal["rmsnorm", "layernorm", "nonparametric"] = "rmsnorm"
+    use_bias: bool = False
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    recurrent: RecurrentConfig | None = None
+    encoder: EncoderConfig | None = None
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -1,0 +1,15 @@
+"""whisper-tiny [audio] — arXiv:2212.04356, encoder-decoder.
+
+4L d_model=384 6H (kv=6) d_ff=1536 vocab=51865; conv frontend is a STUB —
+input_specs() provides precomputed frame embeddings (B, 1500, 384).
+"""
+
+from .base import EncoderConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="whisper-tiny", family="encdec",
+    num_layers=4, d_model=384, num_heads=6, num_kv_heads=6,
+    d_ff=1536, vocab_size=51865, head_dim=64,
+    norm="layernorm", use_bias=True, qkv_bias=True,
+    encoder=EncoderConfig(num_layers=4, seq_len=1500),
+)

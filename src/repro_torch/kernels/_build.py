@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_decode_attention", "flash_attention")
+SOURCES = ("paged_decode_attention", "flash_attention", "packed_canvas")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

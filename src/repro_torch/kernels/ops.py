@@ -1,4 +1,4 @@
-"""Attention ops in the model layout, dispatched on the tensors' device.
+"""The port's kernel ops, dispatched on the tensors' device.
 
 A CUDA tensor launches the Hopper kernel (or the kernel wrapper raises);
 a CPU tensor takes the plain PyTorch version in ``ref``. ``impl="ref"``
@@ -9,7 +9,9 @@ asks for the plain version on any device — the tests and
 from __future__ import annotations
 
 from . import decode_attention as _dec
+from . import dequant as _dq
 from . import flash_attention as _fa
+from . import packed_canvas as _pc
 from . import ref
 
 
@@ -49,3 +51,48 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         q.contiguous().view(B, KV, H // KV, dh), k_pages, v_pages,
         page_table, lengths, scale=scale)
     return out.view(B, H, dh)
+
+
+# --- packed canvas -------------------------------------------------------------------
+
+def packed_canvas_matmul(x_packed, w_blocks, meta, *, impl: str = "kernel",
+                         bb=128, bias=None, residual=None, activation=None):
+    """Block-compacted multi-layer MVM; meta from build_block_meta.
+
+    Both the kernel and its plain version touch just the stored blocks.
+    The optional epilogue ``y = act(y + bias) + residual`` runs on the
+    f32 accumulator before the one rounding, as the kernel does it.
+    """
+    if (activation or "none") not in _pc.ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if _plain(impl, x_packed):
+        runs = _pc.canvas_runs(meta, x_packed.device)
+        return ref.packed_canvas_blocks(
+            x_packed, w_blocks, runs.meta, runs.c_blocks, bias=bias,
+            residual=residual, activation=activation)
+    return _pc.packed_canvas_matmul(x_packed, w_blocks, meta, bb=bb,
+                                    bias=bias, residual=residual,
+                                    activation=activation)
+
+
+def packed_canvas_matmul_dq(x_packed, wq_blocks, scales, meta, *,
+                            precision: str, impl: str = "kernel", bb=128,
+                            bias=None, residual=None, activation=None):
+    """Packed-canvas MVM over quantized blocks: int8/int4 payload plus
+    per-channel scales from ``ref.quantize_blocks``, dequantized in f32
+    inside the block loop. The plain version dequantizes the blocks and
+    takes the fp plain version in f32, the kernel's arithmetic.
+    """
+    if (activation or "none") not in _pc.ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if _plain(impl, x_packed):
+        runs = _pc.canvas_runs(meta, x_packed.device)
+        return ref.packed_canvas_dq(x_packed, wq_blocks, scales, runs.meta,
+                                    runs.c_blocks, precision, bias=bias,
+                                    residual=residual, activation=activation)
+    return _dq.packed_canvas_matmul_dq(
+        x_packed, wq_blocks, scales, meta, precision=precision, bb=bb,
+        bias=bias, residual=residual, activation=activation)
+
+
+build_block_meta = _pc.build_block_meta

@@ -12,8 +12,118 @@ import math
 
 import torch
 
-NEG_INF = -1e30
+from .packed_canvas import ACTIVATIONS, BLK, META_CB, META_KB
 
+NEG_INF = -1e30
+#: symmetric integer range per precision
+QMAX = {"int8": 127, "int4": 7}
+
+
+# --- packed canvas (multi-layer block-packed MVM) -------------------------------
+
+def _epilogue(y, dtype, bias, residual, activation):
+    """The kernels' flush on an f32 accumulator: + bias, activation,
+    + residual, then one rounding to ``dtype``."""
+    if bias is not None:
+        y = y + bias.float()
+    y = ACTIVATIONS[activation or "none"](y)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(dtype)
+
+
+def packed_canvas(x_packed, w_virtual, *, bias=None, residual=None,
+                  activation=None):
+    """y = act(x_packed (B, R) @ W_virtual (R, C) + bias) + residual over
+    the dense virtual plane (zeros outside the tiles): the oracle. f32
+    product, then the epilogue in the kernel's order and one rounding to
+    x's dtype; without bias, residual and activation the plain product.
+    """
+    return _epilogue(x_packed.float() @ w_virtual.float(), x_packed.dtype,
+                     bias, residual, activation)
+
+
+def packed_canvas_blocks(x_packed, w_blocks, meta, c_blocks: int, *,
+                         bias=None, residual=None, activation=None):
+    """The packed-canvas kernels' plain version: the same function as
+    ``packed_canvas`` over ``blocks_to_dense``, computed over the stored
+    blocks only (memory in proportion to the blocks, not the plane).
+    Each block's (B, 128) product in f32, summed into its output block,
+    then the epilogue and one rounding."""
+    meta = torch.as_tensor(meta).to(x_packed.device, torch.long)
+    B, R = x_packed.shape
+    xb = x_packed.float().reshape(B, R // BLK, BLK)[:, meta[META_KB]]
+    prod = torch.einsum("bgk,gkn->bgn", xb, w_blocks.float())
+    y = torch.zeros((B, c_blocks, BLK), dtype=torch.float32,
+                    device=x_packed.device)
+    y.index_add_(1, meta[META_CB], prod)
+    return _epilogue(y.view(B, c_blocks * BLK), x_packed.dtype, bias,
+                     residual, activation)
+
+
+def blocks_to_dense(w_blocks, meta, R: int, C: int):
+    """Reconstruct W_virtual (R, C) in f32 from compacted blocks + meta
+    (4, G) (numpy or a tensor), on w_blocks' device: the inverse of the
+    planner's build_w_blocks."""
+    dev = w_blocks.device
+    meta = torch.as_tensor(meta).to(dev, torch.long)
+    w = torch.zeros((R // BLK, C // BLK, BLK, BLK), dtype=torch.float32,
+                    device=dev)
+    w[meta[META_KB], meta[META_CB]] = w_blocks.float()
+    return w.permute(0, 2, 1, 3).reshape(R, C)
+
+
+# --- int8 / int4 block quantization (the dequant kernels' encoding) -------------
+
+def quantize_blocks(w_blocks, precision: str):
+    """(G, 128, 128) fp blocks -> (payload, scales (G, 128) f32), bit for
+    bit the reference's encoding: per-(block, column) scale amax / qmax
+    (never below 1e-12), round half to even, clip, and for int4 the +8
+    bias with row pairs (2r, 2r+1) in the (low, high) nibbles of one
+    byte. payload: int8 (G, 128, 128) or uint8 (G, 64, 128).
+    """
+    if precision not in QMAX:
+        raise ValueError(f"unknown precision {precision!r}")
+    if w_blocks.ndim != 3 or w_blocks.shape[1:] != (BLK, BLK):
+        raise ValueError(f"need (G, {BLK}, {BLK}) blocks, got "
+                         f"{tuple(w_blocks.shape)}")
+    w = w_blocks.float()
+    qmax = QMAX[precision]
+    scales = torch.clamp_min(w.abs().amax(dim=-2) / qmax, 1e-12)
+    q = torch.round(w / scales[:, None, :])
+    q = torch.clamp(q, -qmax - 1 if precision == "int4" else -qmax, qmax)
+    if precision == "int8":
+        return q.to(torch.int8), scales
+    biased = (q + 8).to(torch.uint8)               # [-8, 7] -> [0, 15]
+    lo, hi = biased[:, 0::2, :], biased[:, 1::2, :]
+    return lo | (hi << 4), scales
+
+
+def dequantize_blocks(payload, scales, precision: str):
+    """Inverse of ``quantize_blocks`` -> f32 (G, 128, 128)."""
+    if precision not in QMAX:
+        raise ValueError(f"unknown precision {precision!r}")
+    s = scales.float()[:, None, :]
+    if precision == "int8":
+        return payload.float() * s
+    lo = (payload & 0xF).float() - 8.0
+    hi = ((payload >> 4) & 0xF).float() - 8.0
+    G = payload.shape[0]
+    return torch.stack([lo, hi], dim=2).reshape(G, BLK, BLK) * s
+
+
+def packed_canvas_dq(x_packed, wq_blocks, scales, meta, c_blocks: int,
+                     precision: str, *, bias=None, residual=None,
+                     activation=None):
+    """The dequant kernels' plain version: blocks dequantized in f32,
+    then ``packed_canvas_blocks`` in f32 (the weights are never rounded
+    to x's dtype, as in the kernel)."""
+    return packed_canvas_blocks(
+        x_packed, dequantize_blocks(wq_blocks, scales, precision), meta,
+        c_blocks, bias=bias, residual=residual, activation=activation)
+
+
+# --- attention -------------------------------------------------------------------
 
 def mha_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, S, H, dh); k/v: (B, T, KV, dh); grouped-query; f32 softmax.

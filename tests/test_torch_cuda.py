@@ -6,7 +6,9 @@ fixture, so every pytest worker collects the same tests). On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 bf16 in and out: kernel and plain version both round the f32 result to
-bf16, so they agree within tests/test_kernels.py's bf16 TOL (2e-2).
+bf16, so they agree within tests/test_kernels.py's bf16 TOL (2e-2); f32
+in and out (the packed canvas) within its f32 TOL (rtol 1e-4, atol
+2e-4: summation order only).
 """
 
 import numpy as np
@@ -114,3 +116,118 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
         gap = (rows.max(-1).values
                - rows.gather(1, torch.tensor(r.generated)[:, None])[:, 0])
         assert gap.max().item() <= 0.0625, (r.rid, gap.max().item())
+
+
+# --- packed canvas (fp and int8/int4, with and without the epilogue) -----------
+
+# (kb, cb) cover with runs of 1, 3, 5 and 2 blocks: odd runs, unsorted input
+CANVAS_BLOCKS = [(4, 1), (0, 0), (2, 1), (5, 2), (0, 1), (1, 2), (3, 2),
+                 (0, 2), (2, 2), (5, 3), (1, 3)]
+
+
+def _canvas_case(rng, B, x_dtype, dev):
+    from repro_torch.kernels.packed_canvas import build_block_meta
+    meta, _ = build_block_meta(np.asarray(CANVAS_BLOCKS))
+    G, R, C = len(CANVAS_BLOCKS), 6 * 128, 4 * 128
+    x = torch.tensor(rng.standard_normal((B, R)), dtype=torch.float32,
+                     device=dev).to(x_dtype)
+    w = torch.tensor(rng.standard_normal((G, 128, 128)) / 16,
+                     dtype=torch.float32, device=dev)
+    bias = torch.tensor(rng.standard_normal(C), dtype=torch.float32,
+                        device=dev).to(x_dtype)
+    res = torch.tensor(rng.standard_normal((B, C)), dtype=torch.float32,
+                       device=dev).to(x_dtype)
+    return meta, x, w, bias, res
+
+
+def _close(got, want):
+    tol = TOL if got.dtype == torch.bfloat16 else dict(rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("B,x_dtype,w_dtype", [
+    (200, torch.bfloat16, torch.bfloat16),      # rows past every tile size
+    (8, torch.bfloat16, torch.bfloat16),
+    (64, torch.float32, torch.float32),
+    (33, torch.float32, torch.bfloat16),
+    (1, torch.bfloat16, torch.float32),
+])
+def test_packed_canvas_kernel_matches_plain(dev, B, x_dtype, w_dtype):
+    from repro_torch.kernels import packed_canvas as pc
+    meta, x, w, _, _ = _canvas_case(np.random.default_rng(B), B, x_dtype,
+                                    dev)
+    w = w.to(w_dtype)
+    n0 = pc._packed_canvas_matmul.launches
+    got = ops.packed_canvas_matmul(x, w, meta)
+    assert pc._packed_canvas_matmul.launches == n0 + 1
+    assert got.shape == (B, 512) and got.dtype == x_dtype
+    _close(got, ops.packed_canvas_matmul(x, w, meta, impl="ref"))
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "silu", "gelu"])
+@pytest.mark.parametrize("B,x_dtype,with_bias,with_res", [
+    (200, torch.bfloat16, True, True),
+    (8, torch.float32, True, False),
+    (70, torch.float32, False, True),
+])
+def test_packed_canvas_epilogue_kernel_matches_plain(
+        dev, activation, B, x_dtype, with_bias, with_res):
+    from repro_torch.kernels import packed_canvas as pc
+    meta, x, w, bias, res = _canvas_case(np.random.default_rng(3), B,
+                                         x_dtype, dev)
+    w = w.to(x_dtype)
+    kw = dict(bias=bias if with_bias else None,
+              residual=res if with_res else None, activation=activation)
+    n0 = pc._packed_canvas_epilogue.launches
+    got = ops.packed_canvas_matmul(x, w, meta, **kw)
+    assert pc._packed_canvas_epilogue.launches == n0 + 1
+    _close(got, ops.packed_canvas_matmul(x, w, meta, impl="ref", **kw))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("B,x_dtype", [(200, torch.bfloat16), (8,
+                                        torch.bfloat16), (65, torch.float32)])
+def test_dequant_kernel_matches_plain(dev, precision, B, x_dtype):
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import ref
+    meta, x, w, _, _ = _canvas_case(np.random.default_rng(5), B, x_dtype,
+                                    dev)
+    payload, scales = ref.quantize_blocks(w, precision)
+    n0 = dq._matmul_dq.launches
+    got = ops.packed_canvas_matmul_dq(x, payload, scales, meta,
+                                      precision=precision)
+    assert dq._matmul_dq.launches == n0 + 1
+    _close(got, ops.packed_canvas_matmul_dq(x, payload, scales, meta,
+                                            precision=precision, impl="ref"))
+
+
+@pytest.mark.parametrize("precision,activation", [
+    ("int8", "silu"), ("int4", "gelu"), ("int4", "relu"), ("int8", "none")])
+@pytest.mark.parametrize("B,x_dtype", [(200, torch.bfloat16),
+                                       (9, torch.float32)])
+def test_dequant_epilogue_kernel_matches_plain(dev, precision, activation, B,
+                                               x_dtype):
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import ref
+    meta, x, w, bias, res = _canvas_case(np.random.default_rng(7), B,
+                                         x_dtype, dev)
+    payload, scales = ref.quantize_blocks(w, precision)
+    kw = dict(precision=precision, bias=bias, residual=res,
+              activation=activation)
+    n0 = dq._matmul_dq_epilogue.launches
+    got = ops.packed_canvas_matmul_dq(x, payload, scales, meta, **kw)
+    assert dq._matmul_dq_epilogue.launches == n0 + 1
+    _close(got, ops.packed_canvas_matmul_dq(x, payload, scales, meta,
+                                            impl="ref", **kw))
+
+
+def test_packing_entry_point_on_the_card(dev):
+    """launch.pack on the card: every row, its check(), all four kernels."""
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import packed_canvas as pc
+    from repro_torch.launch import pack
+    counters = (pc._packed_canvas_matmul, pc._packed_canvas_epilogue,
+                dq._matmul_dq, dq._matmul_dq_epilogue)
+    before = [c.launches for c in counters]
+    pack.check(pack.run("cuda"))
+    assert all(c.launches > n for c, n in zip(counters, before))

@@ -16,10 +16,10 @@ PORT = REPO / "src" / "repro_torch"
 
 RUN_WITHOUT_JAX = """
 import sys
-from repro_torch import convert, kernels  # noqa: F401
+from repro_torch import convert, core, kernels, planner  # noqa: F401
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops  # noqa: F401
-from repro_torch.launch import serve  # noqa: F401
+from repro_torch.kernels import dequant, ops, packed_canvas  # noqa: F401
+from repro_torch.launch import pack, serve  # noqa: F401
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Engine, EngineConfig, poisson_trace, run_static
 
@@ -33,6 +33,11 @@ assert len(Engine(cfg, params, ecfg).run(trace).completed) == 3
 trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
                       gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
 assert len(run_static(cfg, params, trace, num_slots=2).completed) == 3
+pack.check([pack.lm_packing(), pack.canvas_case(
+    "lora_adapters_48x48", pack.lora_adapter_mats()), pack.canvas_case(
+    "whisper_tiny_blocks", pack.whisper_mats()), pack.tpu_canvas("cpu"),
+    pack.end_to_end("lora_int4", pack.lora_adapter_mats(), 4, "cpu", seed=0,
+                    precision="int4", bias=True, activation="gelu")])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -61,8 +66,8 @@ def test_no_port_source_imports_jax_or_the_reference():
 def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     """No card and no explicit CPU request: raise, never fall back."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import params_from_jax
-    from repro_torch.launch import serve
+    from repro_torch.convert import canvas_from_jax, params_from_jax
+    from repro_torch.launch import pack, serve
     from repro_torch.models import transformer as T
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -74,6 +79,10 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         T.init_params(get_config("olmo-1b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pack.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        canvas_from_jax(None, [[0], [0], [1], [1]])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -3,8 +3,11 @@
 Same inputs (numpy, seeded) through the JAX function and the port's
 plain PyTorch version, in f32 within ``tests/test_kernels.py``'s f32
 ``TOL`` (rtol 1e-4, atol 2e-4: blocked-reduction order differences
-against a one-shot einsum). The Pallas paged-decode kernel runs in
-interpret mode, as the reference's own tests run it on the CPU.
+against a one-shot einsum) and in bf16 within its bf16 tolerance (2e-2:
+both round the f32 result to bf16 once). The Pallas kernels run in
+interpret mode, as the reference's own tests run them on the CPU; the
+packed-canvas ones only at batch sizes that are multiples of their
+128-row tile, where the reference computes every row.
 """
 
 import importlib
@@ -14,17 +17,30 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import dequant as jdq
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as JL
 from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import dequant as tdq
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import packed_canvas as tpc
 from repro_torch.models import layers as L
 
 # the module, not the function that repro.kernels re-exports under its name
 jdec = importlib.import_module("repro.kernels.decode_attention")
 
 TOL = dict(rtol=1e-4, atol=2e-4)
+TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)        # tiny CPU ops: no thread-pool contention
+    yield
+    torch.set_num_threads(n)
 
 
 def _rand(rng, *shape):
@@ -161,3 +177,205 @@ def test_ops_dispatch_rules():
             torch.ones((1,), dtype=torch.int32))
     assert tfa.flash_attention.launches == 0
     assert tdec.paged_decode_attention.launches == 0
+
+
+# --- packed canvas and its dequant twin ----------------------------------------
+
+# (kb, cb) cover with runs of 1, 3, 5 and 2 blocks, given unsorted
+CANVAS_BLOCKS = np.asarray([(4, 1), (0, 0), (2, 1), (5, 2), (0, 1), (1, 2),
+                            (3, 2), (0, 2), (2, 2), (5, 3), (1, 3)])
+R_CANVAS, C_CANVAS = 6 * 128, 4 * 128
+
+
+def _canvas(seed, B, scale=1.0):
+    rng = np.random.default_rng(seed)
+    meta, _ = tpc.build_block_meta(CANVAS_BLOCKS)
+    x = _rand(rng, B, R_CANVAS)
+    w = _rand(rng, len(CANVAS_BLOCKS), 128, 128) * np.float32(scale)
+    bias = _rand(rng, C_CANVAS)
+    res = _rand(rng, B, C_CANVAS)
+    return meta, x, w, bias, res
+
+
+def _to(dtype_name, *arrays):
+    """numpy f32 -> (jax, torch) pairs holding the same values."""
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype_name]
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    return [(jnp.asarray(a, jdt), torch.tensor(a).to(tdt)) for a in arrays]
+
+
+EPILOGUES = [  # (bias, residual, activation)
+    (False, False, None), (True, False, None), (False, True, None),
+    (True, True, "none"), (True, True, "relu"), (True, False, "silu"),
+    (False, True, "gelu"), (True, True, "gelu")]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_bias,with_res,activation", EPILOGUES)
+def test_packed_canvas_plain_matches_pallas_interpret(dtype, with_bias,
+                                                      with_res, activation):
+    meta, x, w, bias, res = _canvas(6, 128, scale=0.1)
+    (jx, tx), (jw, tw), (jb, tb), (jr, tr) = _to(dtype, x, w, bias, res)
+    want = jops.packed_canvas_matmul(
+        jx, jw, jnp.asarray(meta), impl="interpret",
+        bias=jb if with_bias else None, residual=jr if with_res else None,
+        activation=activation)
+    got = ops.packed_canvas_matmul(
+        tx, tw, meta, bias=tb if with_bias else None,
+        residual=tr if with_res else None, activation=activation)
+    assert got.dtype == tx.dtype and got.shape == (128, C_CANVAS)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(TOL if dtype == "f32" else TOL_BF16))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_dequant_plain_matches_pallas_interpret(precision, dtype, epilogue):
+    meta, x, w, bias, res = _canvas(7, 128, scale=0.1)
+    jq, js = jdq.quantize_blocks(jnp.asarray(w), precision)
+    tq, ts = ref.quantize_blocks(torch.tensor(w), precision)
+    (jx, tx), (jb, tb), (jr, tr) = _to(dtype, x, bias, res)
+    kw = dict(activation="silu") if epilogue else {}
+    want = jops.packed_canvas_matmul_dq(
+        jx, jq, js, jnp.asarray(meta), precision=precision,
+        impl="interpret", bias=jb if epilogue else None,
+        residual=jr if epilogue else None, **kw)
+    got = ops.packed_canvas_matmul_dq(
+        tx, tq, ts, meta, precision=precision,
+        bias=tb if epilogue else None, residual=tr if epilogue else None,
+        **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(TOL if dtype == "f32" else TOL_BF16))
+
+
+def _dense(meta, w):
+    """The virtual plane in f64 from blocks, independently of the port."""
+    wd = np.zeros((R_CANVAS, C_CANVAS))
+    for g in range(meta.shape[1]):
+        kb, cb = meta[0, g], meta[1, g]
+        wd[kb * 128:(kb + 1) * 128, cb * 128:(cb + 1) * 128] = w[g]
+    return wd
+
+
+@pytest.mark.parametrize("B", [200, 1, 130])
+def test_packed_canvas_plain_at_ragged_batch_matches_dense_oracle(B):
+    """Every row is computed at any B (the reference's interpret path
+    leaves rows past the last full 128-row tile unwritten, so the port is
+    held against the dense product here)."""
+    meta, x, w, bias, res = _canvas(8, B)
+    wd = _dense(meta, w)
+    y = x.astype(np.float64) @ wd
+    got = ops.packed_canvas_matmul(torch.tensor(x), torch.tensor(w), meta)
+    np.testing.assert_allclose(got.numpy(), y, **TOL)
+    got = ops.packed_canvas_matmul(
+        torch.tensor(x), torch.tensor(w), meta, bias=torch.tensor(bias),
+        residual=torch.tensor(res), activation="relu")
+    np.testing.assert_allclose(got.numpy(), np.maximum(y + bias, 0) + res,
+                               **TOL)
+    for precision in ("int8", "int4"):
+        q, s = ref.quantize_blocks(torch.tensor(w), precision)
+        wq = _dense(meta, ref.dequantize_blocks(q, s, precision).numpy())
+        got = ops.packed_canvas_matmul_dq(torch.tensor(x), q, s, meta,
+                                          precision=precision)
+        np.testing.assert_allclose(got.numpy(), x.astype(np.float64) @ wq,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_canvas_oracles_match_jax_ref(dtype):
+    meta, x, w, _, _ = _canvas(9, 16)
+    (jx, tx), (jw, tw) = _to(dtype, x, w)
+    jd = jref.blocks_to_dense(jw, meta, R_CANVAS, C_CANVAS)
+    td = ref.blocks_to_dense(tw, meta, R_CANVAS, C_CANVAS)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(
+        ref.packed_canvas(tx, td.to(tx.dtype)).float().numpy(),
+        np.asarray(jref.packed_canvas(jx, jd.astype(jx.dtype)), np.float32),
+        **(TOL if dtype == "f32" else TOL_BF16))
+
+
+def _quant_inputs():
+    """Random blocks plus columns that probe the encoding's edges: exact
+    halves (round half to even), the clip range, an all-zero column."""
+    rng = np.random.default_rng(10)
+    w = _rand(rng, 3, 128, 128)
+    w[0, :, 0] = 0.0
+    w[0, :4, 1] = [127.0, 2.5, -3.5, 0.5]      # int8 scale 1: 2, -4, 0
+    w[0, 4:, 1] = 0.0
+    w[1, :4, 2] = [7.0, -7.5, 2.5, -0.5]       # int4 scale 1: -8 clip
+    w[1, 4:, 2] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_blocks_bit_identical_to_jax(precision, dtype):
+    ((jw, tw),) = _to(dtype, _quant_inputs())
+    jq, js = jdq.quantize_blocks(jw, precision)
+    tq, ts = ref.quantize_blocks(tw, precision)
+    assert str(tq.dtype).split(".")[-1] == str(jq.dtype)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        ref.dequantize_blocks(tq, ts, precision).numpy(),
+        np.asarray(jdq.dequantize_blocks(jq, js, precision)))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_quantize_tensor_and_fake_quant_match_jax(precision):
+    rng = np.random.default_rng(11)
+    w = _rand(rng, 48, 40)
+    jq, js = jdq.quantize_tensor(jnp.asarray(w), precision)
+    tq, ts = tdq.quantize_tensor(torch.tensor(w), precision)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tdq.fake_quant(torch.tensor(w), precision).numpy(),
+        np.asarray(jdq.fake_quant(jnp.asarray(w), precision)))
+    assert tdq.fake_quant(torch.tensor(w), "fp").equal(torch.tensor(w))
+
+
+def test_canvas_runs_cached_and_no_gap_contract():
+    meta, _, _, _, _ = _canvas(12, 4)
+    runs = tpc.canvas_runs(meta, "cpu")
+    assert runs is tpc.canvas_runs(meta, "cpu")          # once per layout
+    assert runs.c_blocks == 4 and runs.kb_end == 6
+    assert runs.cb_start.tolist() == [0, 1, 4, 9, 11]
+    t = torch.tensor(meta)
+    assert tpc.canvas_runs(t, "cpu").cb_start.tolist() == [0, 1, 4, 9, 11]
+    gap, _ = tpc.build_block_meta(np.asarray([(0, 0), (1, 2)]))   # no cb 1
+    with pytest.raises(AssertionError, match="no-gap"):
+        tpc.canvas_runs(gap, "cpu")
+
+
+def test_canvas_dispatch_rules():
+    """A CPU tensor takes the plain version; the kernel wrappers refuse
+    CPU tensors; bad activations and precisions raise."""
+    meta, x, w, bias, _ = _canvas(13, 8)
+    tx, tw = torch.tensor(x), torch.tensor(w)
+    torch.testing.assert_close(
+        ops.packed_canvas_matmul(tx, tw, meta),
+        ops.packed_canvas_matmul(tx, tw, meta, impl="ref"))
+    with pytest.raises(ValueError, match="activation"):
+        ops.packed_canvas_matmul(tx, tw, meta, activation="tanh")
+    with pytest.raises(ValueError, match="impl"):
+        ops.packed_canvas_matmul(tx, tw, meta, impl="interpret")
+    with pytest.raises(ValueError, match="precision"):
+        ref.quantize_blocks(tw, "int2")
+    q, s = ref.quantize_blocks(tw, "int4")
+    with pytest.raises(ValueError, match="CUDA"):
+        tpc.packed_canvas_matmul(tx, tw, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpc.packed_canvas_matmul(tx, tw, meta, bias=torch.tensor(bias))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdq.packed_canvas_matmul_dq(tx, q, s, meta, precision="int4")
+    with pytest.raises(ValueError, match="CUDA"):
+        tdq.packed_canvas_matmul_dq(tx, q, s, meta, precision="int4",
+                                    activation="gelu")
+    assert tpc._packed_canvas_matmul.launches == 0
+    assert tpc._packed_canvas_epilogue.launches == 0
+    assert tdq._matmul_dq.launches == 0
+    assert tdq._matmul_dq_epilogue.launches == 0
