@@ -29,7 +29,20 @@ into build/repro_torch/), then:
       card (the paper's case studies, the canvas rows and end-to-end
       passes through all four packed-canvas kernels) and its check(),
       with the packed-canvas kernels' launch counters zeroed just before
-      and read just after.
+      and read just after;
+  (e0) holds the grouped expert GEMM against its plain version at the
+      MoE path's shapes (deepseek-v2-lite-16b: 64 experts, D 2048 / F
+      1408 and back, C 8 at decode, 128 at prefill, and a ragged 5),
+      timed beside its bound and ``torch.bmm``;
+  (e) serves deepseek-v2-lite-16b at full width and depth (random
+      weights from a seed) through the engine's latent-page backend on
+      (b)'s trace, with every kernel's launch counter zeroed just before
+      and read just after (81 grouped launches a decode step and a
+      prefill), and teacher-forces the generated tokens through the
+      static prefill + per-token decode, which routes as the engine does;
+  (e') profiles one deepseek decode step and one 512-token prefill, and
+      runs one fused horizon with the card's sync check set to error;
+  (e'') runs the static lockstep baseline on deepseek, first 8 requests.
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -315,9 +328,10 @@ def phase_breakdown(torch, T, cfg, params):
         cfg, params, prompt, plen), steps=2)
 
 
-def phase_static(rt, cfg, params, trace):
+def phase_static(rt, cfg, params, trace, label="(c)"):
     """(c) the static lockstep baseline on the first 8 requests."""
-    print("== (c) static baseline, first 8 requests", flush=True)
+    print(f"== {label} static baseline, {cfg.name}, first 8 requests",
+          flush=True)
     rep = rt.run_static(cfg, params, copy.deepcopy(trace[:8]), num_slots=8)
     print(json.dumps(rep.summary()), flush=True)
     assert len(rep.completed) == 8
@@ -494,24 +508,29 @@ def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
             torch, ops, ref, f"int8 epilogue {act} rwkv6 mixers B=8", xp, q8,
             meta, precision="int8", scales=s8, bias=bias, activation=act))
 
-    from repro_torch.kernels import dequant as dq
-    from repro_torch.kernels import packed_canvas as pc
     out = []
-    for key, name, counter, replaces in (
-            ("fp", "packed_canvas_matmul", pc._packed_canvas_matmul,
+    for (key, name, replaces), counter in zip((
+            ("fp", "packed_canvas_matmul",
              "src/repro/kernels/packed_canvas.py:196"),
-            ("epi", "packed_canvas_epilogue", pc._packed_canvas_epilogue,
+            ("epi", "packed_canvas_epilogue",
              "src/repro/kernels/packed_canvas.py:216"),
-            ("dq", "matmul_dq", dq._matmul_dq,
-             "src/repro/kernels/dequant.py:200"),
-            ("dq_epi", "matmul_dq_epilogue", dq._matmul_dq_epilogue,
-             "src/repro/kernels/dequant.py:220")):
+            ("dq", "matmul_dq", "src/repro/kernels/dequant.py:200"),
+            ("dq_epi", "matmul_dq_epilogue",
+             "src/repro/kernels/dequant.py:220")), canvas_counters()):
         row = dict(main[key])
         row["max_abs_err"] = max(r["max_abs_err"] for r in rec[key])
         out.append(dict(name=name, route="cuda",
                         source="src/repro_torch/kernels/csrc/packed_canvas.cu",
                         replaces=replaces, counter=counter, **row))
     return out
+
+
+def canvas_counters():
+    """The four packed-canvas kernels' launch counters, in table order."""
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import packed_canvas as pc
+    return (pc._packed_canvas_matmul, pc._packed_canvas_epilogue,
+            dq._matmul_dq, dq._matmul_dq_epilogue)
 
 
 def phase_pack(torch, pack, kernels):
@@ -536,6 +555,167 @@ def phase_pack(torch, pack, kernels):
         assert k["launches"] > 0, f"{k['name']} never ran on the main path"
 
 
+# --- MoE path (deepseek-v2-lite-16b) ---------------------------------------------
+
+
+# (label, E, C, D, F) of the grouped GEMM at deepseek-v2-lite-16b widths;
+# the first is the main path's most frequent launch
+GROUPED_SHAPES = (("decode gate/up", 64, 8, 2048, 1408),
+                  ("decode down", 64, 8, 1408, 2048),
+                  ("prefill gate/up", 64, 128, 2048, 1408),
+                  ("ragged C=5 gate/up", 64, 5, 2048, 1408))
+
+
+def phase_grouped(torch, ops, gm):
+    """(e0) the grouped expert GEMM against its plain version at the MoE
+    path's shapes, all bf16. Returns the kernel's record (launches filled
+    in by phase_moe_engine)."""
+    print("== (e0) grouped expert GEMM vs plain version", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    main, err_max = None, 0.0
+    for label, E, C, D, F in GROUPED_SHAPES:
+        x = torch.randn((E, C, D), generator=gen, device=DEV
+                        ).to(torch.bfloat16)
+        w = (torch.randn((E, D, F), generator=gen, device=DEV) / D ** 0.5
+             ).to(torch.bfloat16)
+        got = ops.grouped_mvm(x, w)
+        want = ops.grouped_mvm(x, w, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), f"{label}: non-finite output"
+        err = compare(torch, got, want, f"grouped_mvm {label}")
+        err_max = max(err_max, err)
+        ms = cuda_ms(torch, lambda: ops.grouped_mvm(x, w))
+        plain = cuda_ms(torch, lambda: ops.grouped_mvm(x, w, impl="ref"),
+                        iters=5)
+        lib = cuda_ms(torch, lambda: torch.bmm(x, w))
+        nbytes = (x.numel() + w.numel() + got.numel()) * 2
+        b_ms, b_by = bound(2 * E * C * D * F, nbytes)
+        print(f"  {label} (E {E} C {C} D {D} F {F}): max_abs_err "
+              f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+              f"torch.bmm {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib)
+        del x, w, got, want
+    return dict(name="grouped_mvm", route="cuda",
+                source="src/repro_torch/kernels/csrc/grouped_mvm.cu",
+                replaces="src/repro/kernels/packed_mvm.py:55",
+                counter=gm.grouped_mvm, max_abs_err=err_max, **main)
+
+
+def static_gap(torch, api, cfg, params, req) -> float:
+    """Teacher-force a finished request through the static path at B = 1
+    (prefill of the prompt, then one decode step per generated token),
+    which routes every token as the engine did (the full-sequence
+    forward's prefill capacity would drop generated tokens that dropless
+    decode kept): the largest gap between a position's max logit and the
+    logit of the token the engine chose there."""
+    logits, state = api.prefill(
+        cfg, params, {"tokens": torch.tensor([list(req.prompt)],
+                                             device=DEV)},
+        len(req.prompt) + len(req.generated))
+    rows = [logits[0]]
+    for t in req.generated[:-1]:
+        logits, state = api.decode_step(cfg, params, state,
+                                        torch.tensor([t], device=DEV))
+        rows.append(logits[0])
+    rows = torch.stack(rows)
+    chosen = torch.tensor(req.generated, device=DEV)
+    gaps = rows.max(-1).values - rows.gather(1, chosen[:, None])[:, 0]
+    return gaps.max().item()
+
+
+def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
+    """(e) deepseek-v2-lite-16b through the latent-page engine, counting
+    every kernel's launches; the grouped GEMM must carry every routed
+    expert product (3 a layer, each decode step and each prefill)."""
+    print("== (e) engine, deepseek-v2-lite-16b full width and depth",
+          flush=True)
+    ecfg = rt.EngineConfig(num_slots=8, page_size=16, num_pages=1 + 8 * 40,
+                           max_pages_per_seq=40, prefill_bucket=128,
+                           greedy=True, horizon=32)
+    engine = rt.Engine(cfg, params, ecfg)
+    assert type(engine.backend).__name__ == "LatentBackend"
+    counters = [grouped["counter"], *others]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    rep = engine.run(copy.deepcopy(trace))
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    grouped["launches"] = grouped.pop("counter").launches
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    for name, n in counts.items():
+        print(f"  launches {name}: {n}")
+    per_call = 3 * cfg.num_layers
+    print(f"  grouped_mvm launches per decode step and per prefill: "
+          f"{per_call} (decode steps {rep.decode_steps}, prefill calls "
+          f"{rep.prefill_calls})", flush=True)
+    assert grouped["launches"] == per_call * (rep.decode_steps
+                                              + rep.prefill_calls), counts
+    assert len(rep.completed) == len(trace)
+    for r in rep.completed:
+        assert not r.truncated and len(r.generated) == r.max_new_tokens
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    n_tok = rep.new_tokens
+    print(f"  decode wall {rep.decode_wall_s:.3f} s (+ first horizon "
+          f"{rep.compile_wall_s:.3f} s)  prefill wall "
+          f"{rep.prefill_wall_s:.3f} s  tokens/s "
+          f"{summary['tokens_per_s']}  host syncs per token "
+          f"{rep.host_syncs / n_tok:.4f}  page bytes {rep.page_bytes}",
+          flush=True)
+    worst = max(static_gap(torch, api, cfg, params, r)
+                for r in rep.completed[:3])
+    seq = torch.tensor([list(rep.completed[0].prompt)], device=DEV)
+    lg = api.forward(cfg, params, {"tokens": seq})
+    assert torch.isfinite(lg).all()
+    scale = lg.abs().max().item()
+    print(f"  teacher-forced greedy gap (static path) {worst:.4e} (logit "
+          f"scale {scale:.3e})", flush=True)
+    # engine (paged latents, batch of 8) and static path (dense cache,
+    # batch of 1) round in bf16 at different places: a choice may trail
+    # the argmax by a few bf16 quanta of the logit scale
+    assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
+    return rep
+
+
+def phase_moe_breakdown(torch, MoE, cfg, params):
+    """(e') one deepseek decode step (8 slots x 400 live tokens) and one
+    512-token prefill, profiled; one fused horizon of 4 steps with the
+    card's sync check set to error (no host sync inside a horizon)."""
+    print("== (e') where the time goes, deepseek-v2-lite-16b", flush=True)
+    B, page, M = 8, 16, 40
+    state = MoE.init_paged_decode_state(cfg, 1 + B * M, page, device=DEV)
+    table = torch.arange(1, 1 + B * M, dtype=torch.int32,
+                         device=DEV).view(B, M)
+    lens = torch.full((B,), 400, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    act = torch.ones((B,), dtype=torch.bool, device=DEV)
+    breakdown(torch, f"decode step B={B}", lambda: MoE.paged_decode_step(
+        cfg, params, state, toks, table, lens, act))
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, 512),
+                                      generator=gen, device=DEV)}
+    plen = torch.tensor([512], dtype=torch.int32, device=DEV)
+    breakdown(torch, "prefill S=512", lambda: MoE.paged_prefill(
+        cfg, params, prompt, plen), steps=2)
+    rem = torch.full((B,), 4, dtype=torch.int32, device=DEV)
+    lens2 = lens.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = MoE.paged_decode_multi(cfg, params, state, toks.clone(), lens2,
+                                     rem, table, act, 4, hmax=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (out.cpu() >= 0).all() and (lens2.cpu() == 404).all()
+    print("  fused horizon of 4 steps: no host sync inside (sync debug "
+          "mode error)", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -550,6 +730,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_mvm as gm
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as MoE
     from repro_torch.models import transformer as T
     from repro_torch import runtime as rt
     from repro_torch import resolve_device
@@ -595,6 +778,26 @@ def main() -> int:
                           get_config)
     phase_pack(torch, pack, canvas)
     kernels += canvas
+
+    grouped = phase_grouped(torch, ops, gm)
+    cfg = get_config("deepseek-v2-lite-16b")
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = api.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    trace = rt.poisson_trace(16, mean_interarrival=4.0,
+                             prompt_lens=(128, 256, 384, 512),
+                             gen_lens=(32, 64, 96, 128),
+                             vocab_size=cfg.vocab_size, seed=0)
+    others = (dec.paged_decode_attention, fa.flash_attention,
+              *canvas_counters())
+    phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others)
+    phase_moe_breakdown(torch, MoE, cfg, params)
+    phase_static(rt, cfg, params, trace, "(e'')")
+    kernels.append(grouped)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")
 

@@ -2,10 +2,11 @@
 
 A copy of part of ``repro.configs.base.ModelConfig``: the port imports
 nothing of the JAX package, so it keeps its own. The fields, derived
-sizes and ``reduced()`` of the dense family match the reference exactly,
-so a reduced config names the same shapes in both packages. The
-``encdec`` (whisper) and ``ssm`` (rwkv6) configs carry their widths for
-the packing path; their models are not ported yet.
+sizes and ``reduced()`` of the dense and MoE families match the reference
+exactly, so a reduced config names the same shapes in both packages. The
+``encdec`` (whisper), ``ssm`` (rwkv6) and GQA-MoE (olmoe) configs carry
+their widths for the packing path and the kernel rows; their models are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +14,25 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "ssm", "encdec"]
+Family = Literal["dense", "moe", "ssm", "encdec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +67,8 @@ class ModelConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     recurrent: RecurrentConfig | None = None
     encoder: EncoderConfig | None = None
 
@@ -67,8 +88,18 @@ class ModelConfig:
 
     def reduced(self) -> ModelConfig:
         """Tiny same-family config for CPU tests (the reference's
-        ``reduced()`` for the dense family)."""
+        ``reduced()`` for the dense and MoE families)."""
+        kw: dict = {}
+        if self.moe:
+            # the arch's own capacity_factor: drops can occur at this size
+            kw["moe"] = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
+                                  num_shared_experts=self.moe.num_shared_experts
+                                  and 1,
+                                  capacity_factor=self.moe.capacity_factor)
+        if self.mla:
+            kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                                  qk_rope_head_dim=8, v_head_dim=16)
         return dataclasses.replace(
             self, name=self.name + "-smoke", num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=max(1, min(self.num_kv_heads, 2)),
-            head_dim=16, d_ff=128, vocab_size=256)
+            head_dim=16, d_ff=128, vocab_size=256, **kw)

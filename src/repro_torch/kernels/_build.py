@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_decode_attention", "flash_attention", "packed_canvas")
+SOURCES = ("paged_decode_attention", "flash_attention", "packed_canvas",
+           "grouped_mvm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

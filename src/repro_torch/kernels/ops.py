@@ -8,9 +8,12 @@ asks for the plain version on any device — the tests and
 
 from __future__ import annotations
 
+import torch
+
 from . import decode_attention as _dec
 from . import dequant as _dq
 from . import flash_attention as _fa
+from . import grouped_mvm as _gm
 from . import packed_canvas as _pc
 from . import ref
 
@@ -51,6 +54,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         q.contiguous().view(B, KV, H // KV, dh), k_pages, v_pages,
         page_table, lengths, scale=scale)
     return out.view(B, H, dh)
+
+
+# --- grouped MoE GEMM --------------------------------------------------------------
+
+def grouped_mvm(x, w, *, impl: str = "kernel"):
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F), f32 accumulation, one
+    rounding to x's dtype."""
+    if _plain(impl, x):
+        return ref.grouped_mvm(x, w)
+    return _gm.grouped_mvm(x, w)
+
+
+def moe_expert_ffn(xe, w_gate, w_up, w_down, *, impl: str = "kernel"):
+    """SwiGLU over dispatched expert inputs xe (E, C, D): silu(xe @ Wg) *
+    (xe @ Wu), then @ Wd, each product rounded to xe's dtype."""
+    h = torch.nn.functional.silu(grouped_mvm(xe, w_gate, impl=impl)) \
+        * grouped_mvm(xe, w_up, impl=impl)
+    return grouped_mvm(h, w_down, impl=impl)
 
 
 # --- packed canvas -------------------------------------------------------------------

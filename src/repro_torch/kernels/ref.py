@@ -123,6 +123,14 @@ def packed_canvas_dq(x_packed, wq_blocks, scales, meta, c_blocks: int,
         c_blocks, bias=bias, residual=residual, activation=activation)
 
 
+# --- grouped MVM (MoE expert GEMM) -----------------------------------------------
+
+def grouped_mvm(x, w):
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F): f32 products and sums, one
+    rounding to x's dtype."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
 # --- attention -------------------------------------------------------------------
 
 def mha_attention(q, k, v, *, causal=True, window=0, scale=None):

@@ -14,7 +14,10 @@ their widths:
   * the canvas rows: whisper-tiny, the rwkv6-7b mixers (d_model 4096) and
     16 LoRA adapters of 48x48 (blocks, naive blocks, MXU-pass ratio,
     density), and the rwkv mixers end to end through the fp kernel, the
-    fused epilogue, and the int8 and int4 dequant kernels (f32, B = 32).
+    fused epilogue, and the int8 and int4 dequant kernels (f32, B = 32);
+  * the grouped expert GEMM's row: eight olmoe-1b-7b experts' (E 8, C
+    128, D 2048, F 1024, f32) products in one launch, against the
+    per-expert loop in float64.
 
 Every end-to-end row holds each matrix's output from ``gather_outputs``
 against its own ``x @ W`` in f32 (with its dequantized W, bias,
@@ -133,6 +136,23 @@ def canvas_case(name, mats) -> dict:
                                  2),
         "ideal_MiB_bf16": round(vol * 2 / 2**20, 2),
     }
+
+
+def grouped_case(device, seed: int = 0) -> dict:
+    """bench_kernels' grouped row at olmoe-1b-7b widths (8 experts for
+    the CPU, as there): one grouped launch of the (E, C, D) @ (E, D, F)
+    expert products against the looped experts in float64."""
+    cfg = get_config("olmoe-1b-7b")
+    E, D, F = 8, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((E, 128, D), generator=gen, device=device)
+    w = torch.randn((E, D, F), generator=gen, device=device)
+    got = ops.grouped_mvm(x, w)
+    err = max((got[e].double() - x[e].double() @ w[e].double()).abs()
+              .max().item() for e in range(E))
+    return {"name": "kernels/grouped_mvm/olmoe_experts", "experts": E,
+            "D": D, "F": F, "max_err_vs_oracle": err,
+            "launches_folded": E * 3}   # gate/up/down per expert -> 3
 
 
 # --- end-to-end passes through the kernels --------------------------------------
@@ -260,6 +280,7 @@ def run(device="cuda") -> list[dict]:
         canvas_case("whisper_tiny_blocks", whisper_mats()),
         canvas_case("rwkv6_mixers", rwkv_mixer_mats()),
         canvas_case("lora_adapters_48x48", lora_adapter_mats()),
+        grouped_case(dev),
     ]
     mats = rwkv_mixer_mats()
     rows += [
@@ -281,6 +302,8 @@ def check(rows: list[dict]) -> None:
     # aligned whisper blocks pack losslessly (density 1.0, no extra cost)
     assert by["kernels/canvas/whisper_tiny_blocks"]["density"] > 0.99
     assert by["pack/canvas/whisper-tiny"]["layer0_pass_max_err"] < TOL
+    assert by["kernels/grouped_mvm/olmoe_experts"]["max_err_vs_oracle"] \
+        < TOL
     for r in rows:
         if "max_err_vs_per_matrix" in r:
             assert r["max_err_vs_per_matrix"] < TOL, r

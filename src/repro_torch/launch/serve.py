@@ -5,10 +5,14 @@ state, paged KV cache, slot recycling) against a mixed-length Poisson
 arrival trace; ``--mode static`` runs the lockstep baseline on the same
 trace. Weights are random (``init_params`` from ``--seed``). ``--full``
 serves the published width of ``--arch``; without it, the reduced
-config. The run is on the card unless ``--device cpu`` is given.
+config. The dense archs (codeqwen1.5-7b, olmo-1b) serve through the
+paged-KV backend, deepseek-v2-lite-16b (MLA-MoE) through the latent-page
+backend. The run is on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full --mode engine
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --full --mode engine --greedy
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import argparse
 import json
 
 from ..configs import get_config
-from ..models import transformer as T
+from ..models import get_model
 from ..runtime import Engine, EngineConfig, poisson_trace, run_static
 
 
@@ -91,7 +95,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    params = T.init_params(cfg, args.seed, device=args.device)
+    params = get_model(cfg).init_params(cfg, args.seed, device=args.device)
     if args.mode == "engine":
         return run_engine(cfg, params, args)
     return run_static_mode(cfg, params, args)

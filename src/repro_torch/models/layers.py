@@ -1,5 +1,5 @@
-"""Model building blocks of the port (the main-path subset of
-``repro.models.layers``), in PyTorch.
+"""Model building blocks of the port (the serving subset of
+``repro.models.layers``: dense and MoE), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -9,10 +9,13 @@ it).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import ops
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -207,6 +210,130 @@ def valid_mask_from_length(t: int, length):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# --- MoE (capacity-based dispatch) ------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    num_experts: int
+    top_k: int
+    capacity: int
+
+
+def moe_dims(cfg, n_tokens: int) -> MoEDims:
+    """Expert-capacity ceiling for routing ``n_tokens`` tokens, a Python
+    int known on the host. ``n_tokens`` must be the EXACT live token
+    count, not a padded shape (serving paths pass the exact-length
+    capacity as ``route_capacity``)."""
+    m = cfg.moe
+    cap = int(math.ceil(n_tokens / m.num_experts * m.capacity_factor
+                        * m.top_k))
+    cap = max(cap, 4)
+    # the reference aligns capacity to its 128-lane tile past 128 tokens
+    cap = (cap + 127) // 128 * 128 if n_tokens >= 128 else cap
+    return MoEDims(m.num_experts, m.top_k, cap)
+
+
+def moe_dims_dropless(cfg, n_tokens: int) -> MoEDims:
+    """Decode dims whose capacity no routing can overflow: a decode batch
+    holds one token of each of ``n_tokens`` independent requests, and a
+    slot's output may never depend on its neighbours."""
+    m = cfg.moe
+    return MoEDims(m.num_experts, m.top_k, max(n_tokens, 4))
+
+
+def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
+            return_keep=False):
+    """Sort/scatter dispatch -> grouped SwiGLU -> combine, on one device
+    (the reference's ``moe_ffn`` with one data-parallel group).
+
+    Top-k softmax routing over ``p["router"]`` (rounded weights, f32
+    product); each (token, slot) claim takes the next queue position of
+    its expert in token order, and claims past ``dims.capacity`` drop.
+    ``keep_override`` ((N, k) bool) replays a recorded drop population:
+    forced-drop claims never queue, forced-keep claims take positions
+    counted over the forced-keep claims only. ``return_keep`` appends the
+    realized (N, k) keep mask.
+
+    Every step stays on the device with no host read: expert counts come
+    from a ``scatter_add_`` (``bincount`` would read its max back), the
+    expert sort is a stable argsort, and each token's k weighted expert
+    outputs are summed in ascending expert order in x's dtype — the
+    reference's scatter-add order and rounding — instead of through
+    ``index_add_``'s atomics. The (E, C, D) expert batch runs through
+    ``ops.moe_expert_ffn``, three grouped-GEMM launches.
+    """
+    N, D = x2d.shape
+    E, K, C = dims.num_experts, dims.top_k, dims.capacity
+    dev = x2d.device
+    probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)          # (N, K)
+
+    e_flat = gate_idx.reshape(N * K)
+    t_flat = torch.arange(N * K, device=dev) // K
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    offsets = torch.cumsum(counts, 0) - counts                  # (E,)
+    if keep_override is None:
+        pos = torch.arange(N * K, device=dev) - offsets[e_sorted]
+        keep = pos < C
+    else:
+        # replay: queue positions counted over forced-keep claims only
+        f_sorted = keep_override.reshape(N * K)[order]
+        fi = f_sorted.long()
+        csum = torch.cumsum(fi, 0) - fi                         # exclusive
+        starts = torch.cat([csum, fi.sum()[None]])[offsets]
+        pos = csum - starts[e_sorted]
+        keep = f_sorted & (pos < C)
+    # row e * C + pos of the flat (E * C + 1, D) batch; dropped claims go
+    # to the trash row E * C, which the expert batch never sees
+    row = torch.where(keep, e_sorted * C + pos, E * C)
+    xe = torch.zeros((E * C + 1, D), dtype=x2d.dtype, device=dev)
+    xe[row] = x2d[t_flat[order]]
+    ye = ops.moe_expert_ffn(xe[:E * C].view(E, C, D), p["w_gate"],
+                            p["w_up"], p["w_down"])             # (E, C, D)
+    ye = torch.cat([ye.view(E * C, D),
+                    torch.zeros((1, D), dtype=ye.dtype, device=dev)])
+    # back to (token, slot) order, then each token's slots by expert id
+    inv = torch.argsort(order)
+    keep_nk = keep[inv].reshape(N, K)
+    y_nk = ye[row[inv]].reshape(N, K, D)
+    w_nk = (gate_vals * keep_nk).to(x2d.dtype)
+    by_expert = torch.argsort(gate_idx, dim=-1)
+    contrib = torch.gather(y_nk * w_nk[..., None], 1,
+                           by_expert[..., None].expand(N, K, D))
+    y = contrib[:, 0]
+    for k in range(1, K):
+        y = y + contrib[:, k]
+    if return_keep:
+        return y, keep_nk
+    return y
+
+
+def init_moe_params(cfg, d_model: int, gen, device):
+    """One layer's MoE params, the reference's distributions: router and
+    shared experts std 1/sqrt(d_in), routed experts 1/sqrt(d_model) (gate,
+    up) and 1/sqrt(d_ff_expert) (down). Stored in bf16."""
+    m = cfg.moe
+    E, Fe = m.num_experts, m.d_ff_expert
+
+    def normal(shape, std):
+        t = torch.empty(shape, dtype=PARAM_DTYPE, device=device)
+        return trunc_normal_(t, gen, std).to(COMPUTE_DTYPE)
+
+    p = {"router": normal((d_model, E), 1.0 / math.sqrt(d_model)),
+         "w_gate": normal((E, d_model, Fe), 1.0 / math.sqrt(d_model)),
+         "w_up": normal((E, d_model, Fe), 1.0 / math.sqrt(d_model)),
+         "w_down": normal((E, Fe, d_model), 1.0 / math.sqrt(Fe))}
+    if m.num_shared_experts:
+        Fs = Fe * m.num_shared_experts
+        p["shared_gate"] = normal((d_model, Fs), 1.0 / math.sqrt(d_model))
+        p["shared_up"] = normal((d_model, Fs), 1.0 / math.sqrt(d_model))
+        p["shared_down"] = normal((Fs, d_model), 1.0 / math.sqrt(Fs))
+    return p
 
 
 # --- multi-step decode fusion ----------------------------------------------------

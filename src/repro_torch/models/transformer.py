@@ -30,8 +30,9 @@ from .. import resolve_device
 from ..kernels import ops
 from . import layers as L
 
-# params kept in f32; every other leaf is stored in bf16
-F32_PARAMS = frozenset({"ln1", "ln2", "ln_f"})
+# params kept in f32 (the norm scales, MLA's kv_ln too); every other leaf
+# is stored in bf16
+F32_PARAMS = frozenset({"ln1", "ln2", "ln_f", "kv_ln"})
 
 
 # --- params ----------------------------------------------------------------------

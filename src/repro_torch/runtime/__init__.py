@@ -1,16 +1,20 @@
 """Serving runtime of the port: page allocator, scheduler, prefix index,
-device loop state and the continuous-batching engine."""
+device loop state and the continuous-batching engine (dense and MLA-MoE
+backends)."""
 
 from .device_state import DeviceLoopState
-from .engine import (Engine, EngineConfig, EngineReport,
-                     PagedTransformerBackend, make_batch_sampler, run_static)
+from .engine import (ENGINE_FAMILIES, Engine, EngineConfig, EngineReport,
+                     LatentBackend, PagedTransformerBackend, engine_backend,
+                     make_batch_sampler, resolve_backend, run_static)
 from .kv_pager import NEUTRAL_OWNER, TRASH_PAGE, PageAllocator, PagerConfig
 from .prefix_index import PrefixIndex
 from .scheduler import (MultiQueueScheduler, Request, Scheduler,
                         poisson_trace, shared_prefix_trace)
 
-__all__ = ["NEUTRAL_OWNER", "TRASH_PAGE", "DeviceLoopState", "Engine",
-           "EngineConfig", "EngineReport", "MultiQueueScheduler",
-           "PageAllocator", "PagedTransformerBackend", "PagerConfig",
-           "PrefixIndex", "Request", "Scheduler", "make_batch_sampler",
-           "poisson_trace", "run_static", "shared_prefix_trace"]
+__all__ = ["ENGINE_FAMILIES", "NEUTRAL_OWNER", "TRASH_PAGE",
+           "DeviceLoopState", "Engine", "EngineConfig", "EngineReport",
+           "LatentBackend", "MultiQueueScheduler", "PageAllocator",
+           "PagedTransformerBackend", "PagerConfig", "PrefixIndex",
+           "Request", "Scheduler", "engine_backend", "make_batch_sampler",
+           "poisson_trace", "resolve_backend", "run_static",
+           "shared_prefix_trace"]

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine over a paged KV cache (port of the
-dense path of ``repro.runtime.engine``).
+dense and MLA-MoE paths of ``repro.runtime.engine``).
 
 The static path (``run_static``) prefills one lockstep batch and decodes
 until the longest request finishes, holding a dense ``batch x max_len``
@@ -9,13 +9,17 @@ cache. The engine keeps every slot busy instead:
   * each slot advances its own request at its own length (per-slot RoPE
     positions and attention lengths, transformer.paged_decode_step);
   * the KV cache is a shared page pool (kv_pager.py) addressed through
-    int32 page tables, so cache bytes track live tokens;
+    int32 page tables, so cache bytes track live tokens (per-head K/V for
+    the dense family, one latent row a token for MLA-MoE);
   * finished slots are recycled at once and their pages returned;
   * on page exhaustion the youngest request is preempted (pages freed,
     request requeued) rather than stalling the whole batch;
-  * with prefix sharing, admission maps prompt prefixes already in the
-    pool onto refcounted pages and copies a shared page on its first
-    divergent write.
+  * with prefix sharing (dense only), admission maps prompt prefixes
+    already in the pool onto refcounted pages and copies a shared page on
+    its first divergent write;
+  * a routed (MoE) backend records each request's expert-drop population
+    at its first prefill and replays it at every re-prefill, so
+    preemption never changes a request's tokens.
 
 Decode runs in fused horizons: one ``decode_fused`` call advances up to
 ``horizon`` steps on the device with greedy argmax there, and the host
@@ -31,6 +35,9 @@ import time
 import numpy as np
 import torch
 
+from ..models import get_model
+from ..models import layers as L
+from ..models import moe as MoE
 from ..models import transformer as T
 from .device_state import DeviceLoopState
 from .kv_pager import TRASH_PAGE, PageAllocator, PagerConfig
@@ -214,8 +221,12 @@ def _host(t) -> np.ndarray:
         else t.cpu().numpy()
 
 
-def _state_bytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+def _state_bytes(state) -> int:
+    """Bytes of a cache state's tensors (its dataclass fields)."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(state, f.name)
+                         for f in dataclasses.fields(state))
+               if isinstance(t, torch.Tensor))
 
 
 # --- backend -------------------------------------------------------------------
@@ -234,21 +245,36 @@ def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int]
     return toks, pids
 
 
-class PagedTransformerBackend:
-    """Dense family: a paged KV cache read by the paged-decode kernel,
-    prompts prefilled through the flash kernel. Every call updates the
-    pool in place (the reference donates it).
+def _routed_prefill(backend, req: Request, ctx, pages) -> np.ndarray:
+    """Prefill dispatch that records/replays MoE routing: a routed
+    backend's first prefill of a request stores the realized expert-drop
+    mask on the request, and every re-prefill after preemption replays
+    it, so a request's tokens are the same with or without preemption."""
+    if not backend.routed:
+        return backend.prefill(ctx, pages)
+    logits = backend.prefill(ctx, pages, replay=req.route_trace)
+    if req.route_trace is None:
+        req.route_trace = backend.last_route_trace
+    return logits
 
-    The reference splits this class into mixins its other backend
-    families share (``_FusedDecode``, ``_PagedBackendBase``,
-    ``_LinearPagedMixin``); with one family ported they are one class."""
+
+class _PagedBackend:
+    """What the linear-table paged backends share: the page geometry and
+    the decode dispatch into ``self.model`` (a module with
+    ``paged_decode_step`` and ``paged_decode_multi``). Every call updates
+    the pool in place (the reference donates it)."""
+
+    model = None
+    routed = False                     # records/replays MoE drop masks
+    prefix_sharing = False             # maps shared prompt pages
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = params["embed"].device
-        self.page_bytes = ecfg.pager.page_bytes(cfg)
-        self.state = T.init_paged_decode_state(
-            cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+
+    @classmethod
+    def supports(cls, cfg) -> bool:
+        return True
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -262,6 +288,43 @@ class PagedTransformerBackend:
 
     def admission_rows(self, pgr, ctx_len: int) -> list[int]:
         return list(range(pgr.pages_for(ctx_len)))
+
+    # -- decode
+    def decode(self, tokens, page_table, lengths, active) -> np.ndarray:
+        """One decode step from host arrays; logits come back to the host."""
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+        return _host(self.model.paged_decode_step(
+            self.cfg, self.params, self.state, dev(tokens), dev(page_table),
+            dev(lengths), dev(active)))
+
+    def decode_fused(self, pending, lengths, remaining, page_table, mask,
+                     h: int, teacher=None):
+        """Advance the engine's persistent loop tensors (DeviceLoopState)
+        by up to ``h`` decode steps in one call, greedy sampling on the
+        device; returns the (hmax, B) token buffer. ``teacher`` (hmax, B)
+        forces the sampled tokens (fused replay of a recorded sequence)."""
+        return self.model.paged_decode_multi(
+            self.cfg, self.params, self.state, pending, lengths, remaining,
+            page_table, torch.as_tensor(mask, device=self.device), h,
+            hmax=self.ecfg.horizon,
+            teacher=None if teacher is None else torch.as_tensor(
+                teacher, dtype=torch.int32, device=self.device))
+
+
+class PagedTransformerBackend(_PagedBackend):
+    """Dense family: a paged KV cache read by the paged-decode kernel,
+    prompts prefilled through the flash kernel, prefix sharing with
+    copy-on-write."""
+
+    model = T
+    prefix_sharing = True
+
+    def __init__(self, cfg, params, ecfg: EngineConfig):
+        super().__init__(cfg, params, ecfg)
+        self.page_bytes = ecfg.pager.page_bytes(cfg)
+        self.state = T.init_paged_decode_state(
+            cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
 
     # -- prefill
     def prefill(self, ctx: np.ndarray, page_ids: list[int]) -> np.ndarray:
@@ -300,27 +363,97 @@ class PagedTransformerBackend:
         """Copy-on-write: duplicate page ``src`` into ``dst``."""
         T.copy_kv_page(self.state, src, dst)
 
-    # -- decode
-    def decode(self, tokens, page_table, lengths, active) -> np.ndarray:
-        """One decode step from host arrays; logits come back to the host."""
-        def dev(a):
-            return torch.as_tensor(a, device=self.device)
-        return _host(T.paged_decode_step(
-            self.cfg, self.params, self.state, dev(tokens), dev(page_table),
-            dev(lengths), dev(active)))
 
-    def decode_fused(self, pending, lengths, remaining, page_table, mask,
-                     h: int, teacher=None):
-        """Advance the engine's persistent loop tensors (DeviceLoopState)
-        by up to ``h`` decode steps in one call, greedy sampling on the
-        device; returns the (hmax, B) token buffer. ``teacher`` (hmax, B)
-        forces the sampled tokens (fused replay of a recorded sequence)."""
-        return T.paged_decode_multi(
-            self.cfg, self.params, self.state, pending, lengths, remaining,
-            page_table, torch.as_tensor(mask, device=self.device), h,
-            hmax=self.ecfg.horizon,
-            teacher=None if teacher is None else torch.as_tensor(
-                teacher, dtype=torch.int32, device=self.device))
+class LatentBackend(_PagedBackend):
+    """MLA-MoE (deepseek): pages hold compressed latent rows.
+
+    A token's cache entry is its absorbed-MLA latent row (kv_lora_rank +
+    rope head), not per-head K/V, so ``page_bytes`` is latent-width. The
+    table grows linearly as in the dense backend. Prompts prefill at the
+    exact-length expert capacity, and the realized drop masks are kept
+    (``last_route_trace``) for replay after preemption."""
+
+    model = MoE
+    routed = True
+
+    @classmethod
+    def supports(cls, cfg) -> bool:
+        return cfg.mla is not None      # GQA-MoE (olmoe) has no backend
+
+    def __init__(self, cfg, params, ecfg: EngineConfig):
+        assert cfg.mla is not None, \
+            "LatentBackend pages the MLA latent cache"
+        super().__init__(cfg, params, ecfg)
+        self.page_bytes = (cfg.num_layers * ecfg.page_size
+                           * MoE.latent_width(cfg) * 2)
+        self.state = MoE.init_paged_decode_state(
+            cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+        self.last_route_trace: dict | None = None
+
+    def prefill(self, ctx: np.ndarray, page_ids: list[int],
+                replay: dict | None = None) -> np.ndarray:
+        """Prefill one request, scatter its latents into ``page_ids``,
+        return the last live token's logits (V,).
+
+        ``replay`` is the route trace of this request's first prefill
+        ({"keep": (L, plen0, k) bool, "capacity": int}): its prompt keeps
+        are forced, tokens generated since are forced kept (decode is
+        dropless, so the first run kept them all) and pads forced dropped,
+        so the re-prefill routes every token as the first run did. The
+        replay ceiling is the first capacity plus the new tokens (each
+        token claims an expert at most once), rounded up to a multiple of
+        8 as in the reference; the extra slots are never filled."""
+        toks, pids = _bucket_prompt(ctx, self.ecfg, page_ids)
+        plen, bucket = len(ctx), toks.shape[1]
+        if replay is None:
+            cap = L.moe_dims(self.cfg, plen).capacity
+            keep_arg = None
+        else:
+            keep0 = np.asarray(replay["keep"], bool)   # (L, plen0, k)
+            Lc, plen0, k = keep0.shape
+            forced = np.zeros((Lc, 1, bucket, k), bool)
+            forced[:, 0, :plen0] = keep0
+            forced[:, 0, plen0:plen] = True
+            cap = -(-(int(replay["capacity"]) + plen - plen0) // 8) * 8
+            keep_arg = self._tensor(forced, torch.bool)
+        last, latents, keeps = MoE.paged_prefill(
+            self.cfg, self.params, {"tokens": self._tensor(toks)},
+            self._tensor([plen]), route_capacity=cap, route_keep=keep_arg)
+        MoE.write_prefill_pages(self.cfg, self.state, latents[:, 0],
+                                self._tensor(pids))
+        if replay is None:
+            self.last_route_trace = {"keep": _host(keeps[:, 0])[:, :plen],
+                                     "capacity": cap}
+        else:
+            self.last_route_trace = replay
+        return _host(last[0])
+
+
+ENGINE_FAMILIES = {"dense": PagedTransformerBackend, "moe": LatentBackend}
+
+
+def engine_backend(cfg):
+    """Backend class able to serve ``cfg``, or None."""
+    cls = ENGINE_FAMILIES.get(cfg.family)
+    if cls is None or not cls.supports(cfg):
+        return None
+    return cls
+
+
+def resolve_backend(cfg):
+    """engine_backend or raise, with the supported list taken from the
+    registry."""
+    cls = engine_backend(cfg)
+    if cls is None:
+        detail = ""
+        if cfg.family in ENGINE_FAMILIES:
+            detail = (f" ({ENGINE_FAMILIES[cfg.family].__name__} does not"
+                      f" support this config)")
+        raise ValueError(
+            f"{cfg.name!r} (family {cfg.family!r}) has no engine backend"
+            f"{detail}; families with backends: "
+            f"{sorted(ENGINE_FAMILIES)}")
+    return cls
 
 
 # --- prefix sharing -------------------------------------------------------------
@@ -368,15 +501,12 @@ class _PrefixSharing:
 
 
 class Engine:
-    """Host-driven continuous-batching loop around the paged backend."""
+    """Host-driven continuous-batching loop around a paged backend."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig | None = None):
-        if cfg.family != "dense":
-            raise ValueError(f"{cfg.name!r} (family {cfg.family!r}) has no "
-                             f"engine backend; the port serves 'dense'")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
-        self.backend = PagedTransformerBackend(cfg, params, self.ecfg)
+        self.backend = resolve_backend(cfg)(cfg, params, self.ecfg)
         self.rng = np.random.default_rng(self.ecfg.seed)
         self._sample_batch = make_batch_sampler(
             self.rng, self.ecfg.greedy, self.ecfg.temperature)
@@ -392,7 +522,8 @@ class Engine:
         # one allocator over the whole pool: the reference's single-tenant
         # arena lease (all num_pages - 1 usable pages)
         alloc = PageAllocator(e.num_pages)
-        sharer = _PrefixSharing(pgr) if e.prefix_sharing else None
+        sharer = _PrefixSharing(pgr) if (
+            e.prefix_sharing and self.backend.prefix_sharing) else None
 
         slots: list[Request | None] = [None] * B
         page_table = np.zeros((B, M), np.int32)
@@ -401,11 +532,10 @@ class Engine:
         remaining = np.zeros((B,), np.int32)    # token budget left
         ds = DeviceLoopState(B, M, self.backend.device)
 
-        st = self.backend.state
         rep = EngineReport(
             name=f"engine/{self.cfg.name}", num_slots=B,
             page_bytes=self.backend.page_bytes,
-            cache_bytes_alloc=_state_bytes(st.k_pages, st.v_pages))
+            cache_bytes_alloc=_state_bytes(self.backend.state))
         t_run = time.monotonic()
         step = 0
 
@@ -486,7 +616,8 @@ class Engine:
                         logits = self.backend.prefill_shared(
                             ctx, pages, sh_pages, sh_tokens)
                     else:
-                        logits = self.backend.prefill(ctx, pages)
+                        logits = _routed_prefill(self.backend, req, ctx,
+                                                 pages)
                     rep.prefill_wall_s += time.monotonic() - t0
                     full = (-(-len(ctx) // e.prefill_bucket)
                             * e.prefill_bucket)
@@ -676,6 +807,7 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
     batch x (max prompt + max gen). Mixed prompt lengths are left-padded
     with no pad masking, as in the reference; the metrics are structural
     (steps and bytes), not a quality reference."""
+    api = get_model(cfg)
     dev = params["embed"].device
     requests = sorted(requests, key=lambda r: r.arrival)
     rep = EngineReport(name=f"static/{cfg.name}", num_slots=num_slots)
@@ -695,9 +827,9 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
         for b, r in enumerate(group):
             toks[b, plen - len(r.prompt):] = r.prompt   # left-pad
         t0 = time.monotonic()
-        logits, state = T.prefill(cfg, params,
-                                  {"tokens": torch.as_tensor(toks, device=dev)},
-                                  cache_len)
+        logits, state = api.prefill(
+            cfg, params, {"tokens": torch.as_tensor(toks, device=dev)},
+            cache_len)
         toks0 = sample_batch(_host(logits))
         rep.prefill_wall_s += time.monotonic() - t0
         for b, r in enumerate(group):
@@ -706,12 +838,12 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
         rep.prefill_calls += 1
         rep.prefill_tokens += plen * len(group)   # padded compute is paid
         rep.cache_bytes_alloc = max(rep.cache_bytes_alloc,
-                                    _state_bytes(state.k, state.v))
+                                    _state_bytes(state))
         for _ in range(gen - 1):        # lockstep drain to the longest
             tok = torch.as_tensor([r.generated[-1] for r in group],
                                   dtype=torch.int32, device=dev)
             t0 = time.monotonic()
-            logits, state = T.decode_step(cfg, params, state, tok)
+            logits, state = api.decode_step(cfg, params, state, tok)
             logits = _host(logits)
             _charge_wall(rep, dispatched, ("static", cache_len, len(group)),
                          time.monotonic() - t0)

@@ -7,12 +7,17 @@ prefill tokens, dispatch/sync/upload counts) must match exactly. Token
 streams must be equal or, where they differ, teacher-forced greedy-
 consistent at bf16 (README "Prefix sharing", *Numerics*): every token the
 port chose sits within a few bf16 quanta of the argmax of the
-reference's clean full-sequence forward at that position.
+reference's clean run at that position — the full-sequence forward for
+the dense family, and for a routed (MoE) model the static path at B = 1
+(``prefill`` of the prompt, then ``decode_step`` per token), which routes
+as the engine does: the forward's prefill capacity would drop generated
+tokens that dropless decode kept.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jget
-from repro.models import transformer as JT
+from repro.models import get_model as jget_model
 from repro.runtime import Engine as JEngine
 from repro.runtime import EngineConfig as JEngineConfig
 from repro.runtime import scheduler as jsched
@@ -44,7 +49,7 @@ GREEDY_GAP = 0.0625
 
 def setup(arch="codeqwen1.5-7b", seed=0):
     jcfg = jget(arch).reduced()
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(seed))
+    jp = jget_model(jcfg).init_params(jcfg, jax.random.PRNGKey(seed))
     cfg = get_config(arch).reduced()
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp),
                                           device="cpu")
@@ -67,14 +72,45 @@ def ledger(rep) -> dict:
     return out
 
 
+def teacher_forced_logits(jcfg, jp, prompt, generated) -> np.ndarray:
+    """The reference's logits (len(generated), V) before each generated
+    token, with the generated tokens fed back: the full-sequence forward
+    for the dense family, the static prefill + per-token decode for a
+    routed model."""
+    api = jget_model(jcfg)
+    if jcfg.moe is None:
+        seq = jnp.asarray([list(prompt) + list(generated)], jnp.int32)
+        logits = api.forward(jcfg, jp, {"tokens": seq})[0]
+        return np.asarray(logits, np.float64)[len(prompt) - 1:-1]
+    prefill, decode_step = _jitted_static(jcfg)
+    # one cache length for most requests: one compile serves them all
+    cache_len = -(-(len(prompt) + len(generated)) // 64) * 64
+    logits, state = prefill(
+        jp, {"tokens": jnp.asarray([list(prompt)], jnp.int32)},
+        cache_len=cache_len)
+    rows = [np.asarray(logits[0], np.float64)]
+    for t in generated[:-1]:
+        logits, state = decode_step(jp, state, jnp.asarray([t], jnp.int32))
+        rows.append(np.asarray(logits[0], np.float64))
+    return np.stack(rows)
+
+
+@functools.lru_cache(maxsize=8)
+def _jitted_static(jcfg):
+    """The reference's static prefill and decode step, compiled as its
+    run_static compiles them."""
+    api = jget_model(jcfg)
+    return (jax.jit(functools.partial(api.prefill, jcfg),
+                    static_argnames=("cache_len",)),
+            jax.jit(functools.partial(api.decode_step, jcfg)))
+
+
 def greedy_gap(jcfg, jp, req) -> float:
-    """Largest gap between the reference forward's max logit and the logit
-    of the token ``req`` generated, over its generated positions."""
-    seq = jnp.asarray([list(req.prompt) + list(req.generated)], jnp.int32)
-    logits = np.asarray(JT.forward(jcfg, jp, {"tokens": seq})[0], np.float64)
-    start = len(req.prompt)
-    return max(float(logits[start + i - 1].max() - logits[start + i - 1][t])
-               for i, t in enumerate(req.generated))
+    """Largest gap between the reference's max logit and the logit of the
+    token ``req`` generated, over its generated positions."""
+    rows = teacher_forced_logits(jcfg, jp, req.prompt, req.generated)
+    return max(float(row.max() - row[t])
+               for row, t in zip(rows, req.generated))
 
 
 def traces(kind: str, **kw):
@@ -84,13 +120,17 @@ def traces(kind: str, **kw):
 
 
 def assert_engines_agree(trace_kind: str, trace_kw: dict, *,
-                         arch="codeqwen1.5-7b", **ecfg):
+                         arch="codeqwen1.5-7b", jrep=None, models=None,
+                         **ecfg):
     """Run both engines on one seeded trace, each built by its own
-    package; return (jax report, port report)."""
-    jcfg, jp, cfg, tp = setup(arch)
+    package; return (jax report, port report). ``jrep`` reuses a JAX
+    engine run of the same trace and config; ``models`` a ``setup(arch)``
+    result."""
+    jcfg, jp, cfg, tp = models or setup(arch)
     jtrace, ttrace = traces(trace_kind, vocab_size=cfg.vocab_size,
                             **trace_kw)
-    jrep = JEngine(jcfg, jp, JEngineConfig(**ecfg)).run(jtrace)
+    if jrep is None:
+        jrep = JEngine(jcfg, jp, JEngineConfig(**ecfg)).run(jtrace)
     trep = run_port(cfg, tp, ttrace, **ecfg)
     assert ledger(trep) == ledger(jrep)
     jtok = {r.rid: r.generated for r in jrep.completed}

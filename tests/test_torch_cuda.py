@@ -7,8 +7,8 @@ fixture, so every pytest worker collects the same tests). On the card:
 
 bf16 in and out: kernel and plain version both round the f32 result to
 bf16, so they agree within tests/test_kernels.py's bf16 TOL (2e-2); f32
-in and out (the packed canvas) within its f32 TOL (rtol 1e-4, atol
-2e-4: summation order only).
+in and out (the packed canvas, the grouped expert GEMM) within its f32
+TOL (rtol 1e-4, atol 2e-4: summation order only).
 """
 
 import numpy as np
@@ -18,7 +18,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_mvm as gm
 from repro_torch.kernels import ops
+from repro_torch.models import get_model
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Engine, EngineConfig, poisson_trace
 
@@ -231,3 +233,82 @@ def test_packing_entry_point_on_the_card(dev):
     before = [c.launches for c in counters]
     pack.check(pack.run("cuda"))
     assert all(c.launches > n for c, n in zip(counters, before))
+
+
+# --- grouped expert GEMM --------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,C,D,F", [
+    (64, 8, 2048, 1408),        # deepseek-v2-lite decode, gate/up
+    (64, 5, 1408, 2048),        # ragged C, down
+    (4, 130, 64, 32),           # C past one 64-row tile, D < one chunk
+    (3, 1, 200, 72),            # D and F off the 128 grid
+    (64, 128, 2048, 1408),      # deepseek-v2-lite prefill (tensor cores)
+    (8, 60, 256, 136),          # 64-row tile, a partial f-tile of 8
+])
+def test_grouped_mvm_kernel_matches_plain(dev, dtype, E, C, D, F):
+    rng = np.random.default_rng(E * C + D)
+    x = torch.tensor(rng.standard_normal((E, C, D)), dtype=torch.float32,
+                     device=dev).to(dtype)
+    w = torch.tensor(rng.standard_normal((E, D, F)) / D ** 0.5,
+                     dtype=torch.float32, device=dev).to(dtype)
+    n0 = gm.grouped_mvm.launches
+    got = ops.grouped_mvm(x, w)
+    assert gm.grouped_mvm.launches == n0 + 1
+    assert got.shape == (E, C, F) and got.dtype == dtype
+    _close(got, ops.grouped_mvm(x, w, impl="ref"))
+
+
+def test_grouped_mvm_kernel_refuses_what_it_cannot_take(dev):
+    x = torch.zeros((2, 3, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiples"):
+        ops.grouped_mvm(x, torch.zeros((2, 12, 16), dtype=torch.bfloat16,
+                                       device=dev))
+    with pytest.raises(ValueError, match="share"):
+        ops.grouped_mvm(x[..., :8].contiguous(),
+                        torch.zeros((2, 8, 16), device=dev))
+
+
+def test_latent_engine_on_the_card_matches_the_cpu_plain_path(dev):
+    """The reduced deepseek config served on the card (grouped-GEMM
+    kernel for every expert product) and on the CPU (plain versions):
+    the same schedule, and every token within a few bf16 quanta of the
+    static path's greedy choice, teacher-forced on the CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0, device=dev)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    cpu = to_cpu(params)
+    ecfg = EngineConfig(num_slots=4, page_size=8, num_pages=33,
+                        max_pages_per_seq=8, prefill_bucket=8)
+
+    def trace():
+        return poisson_trace(6, mean_interarrival=0.5, prompt_lens=(6, 12),
+                             gen_lens=(8, 20), vocab_size=cfg.vocab_size,
+                             seed=3)
+
+    n0 = gm.grouped_mvm.launches
+    g = Engine(cfg, params, ecfg).run(trace())
+    assert gm.grouped_mvm.launches > n0
+    c = Engine(cfg, cpu, ecfg).run(trace())
+    assert (g.decode_steps, g.prefill_calls, g.host_syncs) == \
+        (c.decode_steps, c.prefill_calls, c.host_syncs)
+    for r in g.completed:
+        logits, state = api.prefill(
+            cfg, cpu, {"tokens": torch.tensor([list(r.prompt)])},
+            len(r.prompt) + len(r.generated))
+        rows = [logits[0]]
+        for t in r.generated[:-1]:
+            logits, state = api.decode_step(cfg, cpu, state,
+                                            torch.tensor([t]))
+            rows.append(logits[0])
+        rows = torch.stack(rows)
+        gap = (rows.max(-1).values
+               - rows.gather(1, torch.tensor(r.generated)[:, None])[:, 0])
+        assert gap.max().item() <= 0.0625, (r.rid, gap.max().item())

@@ -18,7 +18,8 @@ RUN_WITHOUT_JAX = """
 import sys
 from repro_torch import convert, core, kernels, planner  # noqa: F401
 from repro_torch.configs import get_config
-from repro_torch.kernels import dequant, ops, packed_canvas  # noqa: F401
+from repro_torch.kernels import dequant, grouped_mvm, ops, packed_canvas  # noqa: F401,E501
+from repro_torch.models import get_model, moe  # noqa: F401
 from repro_torch.launch import pack, serve  # noqa: F401
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Engine, EngineConfig, poisson_trace, run_static
@@ -33,9 +34,17 @@ assert len(Engine(cfg, params, ecfg).run(trace).completed) == 3
 trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
                       gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
 assert len(run_static(cfg, params, trace, num_slots=2).completed) == 3
+cfg = get_config("deepseek-v2-lite-16b").reduced()
+params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
+for serve_once in (lambda t: Engine(cfg, params, ecfg).run(t),
+                   lambda t: run_static(cfg, params, t, num_slots=2)):
+    trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
+                          gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
+    assert len(serve_once(trace).completed) == 3
 pack.check([pack.lm_packing(), pack.canvas_case(
     "lora_adapters_48x48", pack.lora_adapter_mats()), pack.canvas_case(
     "whisper_tiny_blocks", pack.whisper_mats()), pack.tpu_canvas("cpu"),
+    pack.grouped_case("cpu"),
     pack.end_to_end("lora_int4", pack.lora_adapter_mats(), 4, "cpu", seed=0,
                     precision="int4", bias=True, activation="gelu")])
 bad = sorted(m for m in sys.modules
@@ -68,6 +77,7 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.convert import canvas_from_jax, params_from_jax
     from repro_torch.launch import pack, serve
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,6 +87,10 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         serve.main(["--mode", "static"])
     with pytest.raises(RuntimeError, match="CUDA"):
         T.init_params(get_config("olmo-1b").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "deepseek-v2-lite-16b", "--mode", "engine"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.init_params(get_config("deepseek-v2-lite-16b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
