@@ -17,7 +17,10 @@ into build/repro_torch/), then:
       forward to check they are its greedy choices;
   (b') profiles one decode step and one 512-token prefill: host enqueue,
       wall and device busy time, and the top kernels;
-  (c) runs the static lockstep baseline on the first 8 requests;
+  (c) runs the static lockstep baseline on the first 8 requests, with the
+      attention kernels' launch counters zeroed just before and read just
+      after: one dense decode-attention launch a layer a decode step, and
+      flash at prefill only;
   (d1) holds the packed-canvas kernels (fp, fused epilogue, int8/int4
       dequant, with and without the epilogue) against their plain
       versions at full width: one codeqwen1.5-7b decoder layer's seven
@@ -42,7 +45,24 @@ into build/repro_torch/), then:
       static prefill + per-token decode, which routes as the engine does;
   (e') profiles one deepseek decode step and one 512-token prefill, and
       runs one fused horizon with the card's sync check set to error;
-  (e'') runs the static lockstep baseline on deepseek, first 8 requests.
+  (e'') runs the static lockstep baseline on deepseek, first 8 requests;
+  (f0) holds the dense decode-attention kernel against its plain version
+      at the static paths' shapes (olmoe-1b-7b B 8, KV 16, dh 128, T 640;
+      codeqwen1.5-7b KV 32; a GQA group of 4; whisper-tiny's self- and
+      cross-attention, KV 6, dh 64, T 1500), with ragged lengths, a
+      length-0 row and T off the kernel's tile, timed beside its bound and
+      ``scaled_dot_product_attention`` with a length mask;
+  (f) serves olmoe-1b-7b (GQA-MoE, 64 experts top-8) at full width and
+      depth through the static path on (b)'s trace in groups of 8, with
+      the kernels' launch counters zeroed just before and read just after
+      (16 decode-attention launches a decode step, 48 grouped launches a
+      decode step and a prefill), and checks one greedy static decode
+      against the full forward teacher-forced with its tokens;
+  (f') profiles one olmoe static decode step and one 512-token prefill;
+  (g) serves whisper-tiny at full width through the static path (frames
+      from the seed, prompts 16-64, generations 64-224), counting 8
+      decode-attention launches a step (4 self, 4 cross), and checks it
+      as (f) does.
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -72,13 +92,18 @@ PEAK_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=2e-2, atol=2e-2)
 
 
-def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms, from CUDA events over ``iters``."""
+def cuda_ms(torch, fn, iters=20, warmup=3, hide_host=False):
+    """Mean device time of ``fn`` in ms, from CUDA events over ``iters``.
+    ``hide_host``: the card first sleeps ~50 ms while the host enqueues
+    every launch, so a call whose host overhead exceeds its device time
+    is timed by the device alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(100_000_000)      # cycles: ~50 ms at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -328,14 +353,32 @@ def phase_breakdown(torch, T, cfg, params):
         cfg, params, prompt, plen), steps=2)
 
 
-def phase_static(rt, cfg, params, trace, label="(c)"):
-    """(c) the static lockstep baseline on the first 8 requests."""
+def phase_static(torch, rt, cfg, params, trace, label="(c)", attn=None):
+    """(c) the static lockstep baseline on the first 8 requests. With
+    ``attn`` = (decode kernel, flash kernel) wrappers, their counters are
+    zeroed just before and read just after: one decode launch a layer a
+    decode step, flash at prefill only."""
     print(f"== {label} static baseline, {cfg.name}, first 8 requests",
           flush=True)
+    for c in attn or ():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
     rep = rt.run_static(cfg, params, copy.deepcopy(trace[:8]), num_slots=8)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
     print(json.dumps(rep.summary()), flush=True)
+    print(f"  wall {wall:.3f} s  prefill wall {rep.prefill_wall_s:.3f} s  "
+          f"decode wall {rep.decode_wall_s:.3f} s  decode steps "
+          f"{rep.decode_steps}", flush=True)
     assert len(rep.completed) == 8
     assert all(len(r.generated) == r.max_new_tokens for r in rep.completed)
+    if attn:
+        dec_n, fa_n = (c.launches for c in attn)
+        print(f"  launches decode_attention: {dec_n}  flash_attention: "
+              f"{fa_n}", flush=True)
+        assert dec_n == cfg.num_layers * rep.decode_steps, dec_n
+        assert fa_n == cfg.num_layers * rep.prefill_calls, fa_n
     return rep
 
 
@@ -716,6 +759,180 @@ def phase_moe_breakdown(torch, MoE, cfg, params):
           "mode error)", flush=True)
 
 
+# --- static-only families (olmoe-1b-7b, whisper-tiny) ------------------------------
+
+
+# (label, B, T, KV, G, dh, lengths) of the dense decode kernel; the first is
+# the olmoe static path's shape at full cache (the main row)
+DENSE_DECODE_SHAPES = (
+    ("olmoe B=8 KV=16 T=640", 8, 640, 16, 1, 128, [640] * 8),
+    ("olmoe ragged", 8, 640, 16, 1, 128, [640, 1, 0, 639, 64, 65, 300, 17]),
+    ("codeqwen static KV=32 T=640", 8, 640, 32, 1, 128, [400] * 8),
+    ("GQA KV=8 G=4 T=640", 8, 640, 8, 4, 128, [640, 0, 300, 64, 1, 639, 500,
+                                                 17]),
+    ("whisper self KV=6 dh=64 T=288", 8, 288, 6, 1, 64, [200] * 8),
+    ("whisper cross KV=6 dh=64 T=1500", 8, 1500, 6, 1, 64, [1500] * 8),
+)
+
+
+def phase_dense_decode(torch, ops, dec):
+    """(f0) the dense decode-attention kernel against its plain version at
+    the static paths' shapes, the cache a strided (B, T, KV, dh) layer of
+    a stacked (2, B, T, KV, dh) cache, as the models pass it; timed with
+    the host's enqueue hidden, beside the bytes bound and SDPA with a
+    length mask. Returns the kernel's record (launches filled in by (f))."""
+    import torch.nn.functional as F
+
+    print("== (f0) dense decode attention vs plain version", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    main, err_max = None, 0.0
+    for label, B, T, KV, G, dh, lengths in DENSE_DECODE_SHAPES:
+        q = torch.randn((B, KV * G, dh), generator=gen, device=DEV
+                        ).to(torch.bfloat16)
+        cache = torch.randn((2, B, T, KV, dh), generator=gen, device=DEV
+                            ).to(torch.bfloat16)
+        k, v = cache[0], cache[1]
+        lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+        got = ops.decode_attention(q, k, v, lens)
+        want = ops.decode_attention(q, k, v, lens, impl="ref")
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, f"decode_attention {label}")
+        for b, n in enumerate(lengths):
+            if n == 0:
+                assert torch.all(got[b] == 0), "length-0 row must be zeros"
+        err_max = max(err_max, err)
+        ms = cuda_ms(torch, lambda: ops.decode_attention(q, k, v, lens),
+                     iters=50, hide_host=True)
+        plain = cuda_ms(torch, lambda: ops.decode_attention(
+            q, k, v, lens, impl="ref"), iters=10, hide_host=True)
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(T, device=DEV)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=G > 1), iters=50,
+            hide_host=True)
+        live = sum(min(n, T) for n in lengths)
+        nbytes = 2 * live * KV * dh * 2 + 2 * q.numel() * 2 + B * 4
+        b_ms, b_by = bound(4 * live * KV * G * dh, nbytes)
+        flash = ""
+        if len(set(lengths)) == 1:      # the flash kernel at S = 1 over the
+            n = lengths[0]              # cache prefix: the earlier path
+            fl = cuda_ms(torch, lambda: ops.flash_attention(
+                q[:, None], k[:, :n], v[:, :n], causal=True), iters=50,
+                hide_host=True)
+            flash = f"  flash S=1 {fl:.4f} ms"
+        print(f"  {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+              f"{plain:.4f} ms  sdpa {lib:.4f} ms{flash}  bound {b_ms:.4f} "
+              f"ms ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib)
+        del q, cache, k, v, got, want
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:88",
+                counter=dec.decode_attention, max_abs_err=err_max, **main)
+
+
+def static_consistency(torch, api, cfg, params, prompt, n_gen, extra,
+                       fwd_kw) -> tuple[float, float]:
+    """One prompt decoded greedily through the static path (prefill, then
+    ``decode_step``, whose attention is the decode kernel), then the full
+    forward (flash) over the prompt and the generated tokens: the largest
+    gap between the forward's max logit and the logit of the token the
+    decode chose at each position, and the forward's logit scale."""
+    n = len(prompt)
+    batch = {"tokens": torch.tensor([prompt], device=DEV), **extra}
+    logits, state = api.prefill(cfg, params, batch, n + n_gen)
+    toks = [int(logits[0].argmax())]
+    for _ in range(n_gen - 1):
+        logits, state = api.decode_step(
+            cfg, params, state, torch.tensor([toks[-1]], device=DEV))
+        toks.append(int(logits[0].argmax()))
+    batch["tokens"] = torch.tensor([list(prompt) + toks[:-1]], device=DEV)
+    rows = api.forward(cfg, params, batch, **fwd_kw)[0, n - 1:]
+    assert torch.isfinite(rows).all()
+    chosen = torch.tensor(toks, device=DEV)
+    gaps = rows.max(-1).values - rows.gather(1, chosen[:, None])[:, 0]
+    return gaps.max().item(), rows.abs().max().item()
+
+
+def phase_static_family(torch, rt, api, cfg, params, trace, counters,
+                        per_step, per_prefill, label):
+    """(f) / (g): a static-only family at full width through run_static in
+    groups of 8, every kernel counter zeroed just before and read just
+    after. ``per_step`` / ``per_prefill``: {counter: launches expected a
+    decode step / a prefill}. Then one greedy static decode is held
+    against the full forward teacher-forced with its tokens."""
+    print(f"== {label} static path, {cfg.name} full width", flush=True)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rep = rt.run_static(cfg, params, copy.deepcopy(trace), num_slots=8)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    print(f"  wall {wall:.3f} s  prefill wall {rep.prefill_wall_s:.3f} s  "
+          f"decode wall {rep.decode_wall_s:.3f} s (+ first step "
+          f"{rep.compile_wall_s:.3f} s)  decode tokens/s "
+          f"{summary['tokens_per_s']}  cache bytes {rep.cache_bytes_alloc}",
+          flush=True)
+    for c in counters:
+        want = (per_step.get(c, 0) * rep.decode_steps
+                + per_prefill.get(c, 0) * rep.prefill_calls)
+        print(f"  launches {c.__name__}: {c.launches} (expected {want})")
+        assert c.launches == want, counts
+    assert len(rep.completed) == len(trace)
+    for r in rep.completed:
+        assert len(r.generated) == r.max_new_tokens
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    req = rep.completed[0]
+    extra = {k: torch.as_tensor(v[None], device=DEV)
+             for k, v in (req.extras or {}).items()}
+    n, n_gen = len(req.prompt), 32
+    fwd_kw = {}
+    if cfg.moe:
+        # the forward replays the prefill's expert drops on the prompt and
+        # keeps every generated token, as dropless decode does
+        _, keep = api.forward(cfg, params, {"tokens": torch.tensor(
+            [list(req.prompt)], device=DEV)}, return_route_keep=True)
+        keep = torch.cat([keep, torch.ones(
+            (*keep.shape[:2], n_gen - 1, keep.shape[3]), dtype=torch.bool,
+            device=DEV)], dim=2)
+        fwd_kw = {"route_capacity": n + n_gen - 1, "route_keep": keep}
+    gap, scale = static_consistency(torch, api, cfg, params,
+                                    list(req.prompt), n_gen, extra, fwd_kw)
+    print(f"  greedy static decode vs teacher-forced forward: gap {gap:.4e}"
+          f" (logit scale {scale:.3e})", flush=True)
+    # decode (decode kernel, M = 1 products) and forward (flash, M = S
+    # products) round in bf16 at different places: a choice may trail the
+    # argmax by a few bf16 quanta of the logit scale
+    assert gap <= 16 * 2.0 ** -8 * max(scale, 1.0), gap
+    return rep, counts
+
+
+def phase_static_breakdown(torch, api, cfg, params):
+    """(f') one olmoe static decode step (8 requests, 400 cached tokens of
+    a 640-row cache) and one 512-token prefill, profiled."""
+    print("== (f') where the time goes, olmoe-1b-7b static", flush=True)
+    from repro_torch.models import moe as MoE
+    B = 8
+    state = MoE.init_decode_state(cfg, B, 640, device=DEV)
+    state.pos = 400
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    breakdown(torch, f"decode step B={B}", lambda: api.decode_step(
+        cfg, params, state, toks))
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, 512),
+                                      generator=gen, device=DEV)}
+    breakdown(torch, "prefill S=512", lambda: api.prefill(
+        cfg, params, prompt, 512), steps=2)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -769,7 +986,8 @@ def main() -> int:
                              vocab_size=cfg.vocab_size, seed=0)
     phase_engine(torch, T, rt, cfg, params, trace, kernels)
     phase_breakdown(torch, T, cfg, params)
-    phase_static(rt, cfg, params, trace)
+    phase_static(torch, rt, cfg, params, trace,
+                 attn=(dec.decode_attention, fa.flash_attention))
     del params
     torch.cuda.empty_cache()
 
@@ -796,8 +1014,53 @@ def main() -> int:
               *canvas_counters())
     phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others)
     phase_moe_breakdown(torch, MoE, cfg, params)
-    phase_static(rt, cfg, params, trace, "(e'')")
+    phase_static(torch, rt, cfg, params, trace, "(e'')")
     kernels.append(grouped)
+    del params
+    torch.cuda.empty_cache()
+
+    dense_dec = phase_dense_decode(torch, ops, dec)
+    counters = (dec.decode_attention, fa.flash_attention, gm.grouped_mvm,
+                dec.paged_decode_attention, *canvas_counters())
+    cfg = get_config("olmoe-1b-7b")
+    api = get_model(cfg)
+    t0 = time.monotonic()
+    params = api.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    trace = rt.poisson_trace(16, mean_interarrival=4.0,
+                             prompt_lens=(128, 256, 384, 512),
+                             gen_lens=(32, 64, 96, 128),
+                             vocab_size=cfg.vocab_size, seed=0)
+    moe_calls = 3 * cfg.num_layers
+    _, counts = phase_static_family(
+        torch, rt, api, cfg, params, trace, counters,
+        per_step={dec.decode_attention: cfg.num_layers,
+                  gm.grouped_mvm: moe_calls},
+        per_prefill={fa.flash_attention: cfg.num_layers,
+                     gm.grouped_mvm: moe_calls}, label="(f)")
+    dense_dec.pop("counter")
+    dense_dec["launches"] = counts["decode_attention"]
+    phase_static_breakdown(torch, api, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-tiny")
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0, device=DEV)
+    trace = rt.poisson_trace(16, mean_interarrival=4.0,
+                             prompt_lens=(16, 32, 48, 64),
+                             gen_lens=(64, 128, 224),
+                             vocab_size=cfg.vocab_size, seed=0,
+                             extras_fn=rt.encdec_extras_fn(cfg))
+    L, n_enc = cfg.num_layers, cfg.encoder.num_layers
+    phase_static_family(
+        torch, rt, api, cfg, params, trace, counters,
+        per_step={dec.decode_attention: 2 * L},          # self and cross
+        per_prefill={fa.flash_attention: n_enc + 2 * L}, label="(g)")
+    del params
+    kernels.append(dense_dec)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")
 

@@ -3,10 +3,10 @@
 A copy of part of ``repro.configs.base.ModelConfig``: the port imports
 nothing of the JAX package, so it keeps its own. The fields, derived
 sizes and ``reduced()`` of the dense and MoE families match the reference
-exactly, so a reduced config names the same shapes in both packages. The
-``encdec`` (whisper), ``ssm`` (rwkv6) and GQA-MoE (olmoe) configs carry
-their widths for the packing path and the kernel rows; their models are
-not ported yet.
+exactly, so a reduced config names the same shapes in both packages,
+the encoder tower of the ``encdec`` family (whisper) included. The
+``ssm`` config (rwkv6) carries its widths for the packing path; its model
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,8 +87,9 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def reduced(self) -> ModelConfig:
-        """Tiny same-family config for CPU tests (the reference's
-        ``reduced()`` for the dense and MoE families)."""
+        """Tiny same-family config for CPU tests: the reference's
+        ``reduced()``, field for field (MoE, MLA, recurrence and encoder
+        towers cut as it cuts them)."""
         kw: dict = {}
         if self.moe:
             # the arch's own capacity_factor: drops can occur at this size
@@ -99,6 +100,12 @@ class ModelConfig:
         if self.mla:
             kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
                                   qk_rope_head_dim=8, v_head_dim=16)
+        if self.recurrent:
+            kw["recurrent"] = RecurrentConfig(
+                lru_width=64, conv_width=4, window=8,
+                block_pattern=self.recurrent.block_pattern)
+        if self.encoder:
+            kw["encoder"] = EncoderConfig(num_layers=2, seq_len=16)
         return dataclasses.replace(
             self, name=self.name + "-smoke", num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=max(1, min(self.num_kv_heads, 2)),

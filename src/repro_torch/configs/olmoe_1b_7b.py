@@ -1,9 +1,9 @@
 """olmoe-1b-7b [moe] — arXiv:2409.02060.
 
 16L d_model=2048 16H (kv=16) vocab=50304; MoE FFN with 64 experts, top-8,
-d_ff_expert=1024 (1B active / 7B total). The port carries its widths for
-the grouped expert GEMM's kernel row (``launch.pack``); its GQA-MoE model
-is not ported yet.
+d_ff_expert=1024 (1B active / 7B total). Served by the GQA branch of
+``models.moe`` through the static path (``runtime.run_static``): it has no
+engine backend, as in the reference.
 """
 
 from .base import ModelConfig, MoEConfig

@@ -1,7 +1,9 @@
 """whisper-tiny [audio] — arXiv:2212.04356, encoder-decoder.
 
 4L d_model=384 6H (kv=6) d_ff=1536 vocab=51865; conv frontend is a STUB —
-input_specs() provides precomputed frame embeddings (B, 1500, 384).
+requests carry precomputed frame embeddings (1500, 384) as their
+``frames`` extra. Served by ``models.whisper`` through the static path
+(``runtime.run_static``): it has no engine backend, as in the reference.
 """
 
 from .base import EncoderConfig, ModelConfig

@@ -2,11 +2,13 @@
 
 ``params_from_jax`` takes the reference's nested dict of arrays (numpy,
 or anything ``np.asarray`` reads; block params stacked on a leading
-layer axis, ``repro.models.transformer.init_params`` or
-``repro.models.moe.init_params`` with its nested ``moe`` dict) and returns
-the same names as torch tensors on ``device``: norm scales (``kv_ln``
-too) in f32, every other leaf cast once to bf16 — the reference casts
-them to bf16 at each use, so the numbers are the same.
+layer axis: ``repro.models.transformer.init_params``,
+``repro.models.moe.init_params`` with its nested ``moe`` dict, MLA or
+GQA, or ``repro.models.whisper.init_params``) and returns the same names
+as torch tensors on ``device``: norm scales (``kv_ln`` and whisper's
+layernorm biases too, ``transformer.F32_PARAMS``) in f32, every other
+leaf cast once to bf16 — the reference casts them to bf16 at each use,
+so the numbers are the same.
 
 ``canvas_from_jax`` takes the reference's packed canvas (``w_blocks`` in
 meta order, ``meta``, and for the dequant kernels the quantized payload

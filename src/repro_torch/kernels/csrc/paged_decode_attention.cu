@@ -1,23 +1,35 @@
-// Paged decode attention for Hopper (sm_90a): one query token per sequence,
-// grouped-query heads, online softmax over a shared page pool.
+// Decode attention for Hopper (sm_90a): one query token per sequence,
+// grouped-query heads, online softmax over the sequence's cache. Two entries
+// share one per-tile routine (attend_rows) and differ only in where token t's
+// K and V rows live:
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
-// (paged_decode_attention / _paged_kernel). The TPU grid (B, KV, M) walked
-// the table slots in order and carried the softmax state in VMEM scratch;
-// CUDA blocks run in no order, so one block per (kv head, sequence) walks
-// that sequence's pages itself, TILE tokens at a time, and the G query
-// heads of the kv head share every K/V tile it loads.
+//   paged_decode_attention_bf16: a shared page pool addressed by a page table.
+//     Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
+//     paged_decode_attention (_paged_kernel).
+//   decode_attention_bf16: a dense cache (B, KV, T, dh) given by its strides,
+//     so the static path's (B, T, KV, dh) cache layer reaches it as a
+//     transposed view, with no copy. Replaces decode_attention (_kernel) of
+//     the same file.
+//
+// The TPU grids (B, KV, M) and (B, KV, T/bt) walked the cache in order and
+// carried the softmax state in VMEM scratch; CUDA blocks run in no order, so
+// one block per (kv head, sequence) walks that sequence's cache itself, TILE
+// tokens at a time, and the G query heads of the kv head share every K/V tile
+// it loads.
 //
 // Bound: device-memory bytes. Each live token's K and V row is read once
 // (2 * dh * 2 bytes per kv head) for about 4 * G * dh FLOPs, far below the
 // card's 295 FLOP/byte balance point. The design keeps the bytes minimal:
-// only table slots below lengths[b] are read (dead slots and the trash page
-// never are), tiles are loaded with 16-byte loads, and the scores, weights
-// and accumulators never leave the SM.
+// only tokens below the live length are read (dead table slots, the trash
+// page and cache rows past lengths[b] never are; the dense entry masks by the
+// true T, where the TPU version padded T to its tile), tiles are loaded with
+// 16-byte loads, and the scores, weights and accumulators never leave the SM.
 //
-// Layouts: q (B, KV, G, DH) bf16; k/v pages (KV, P, page, DH) bf16;
-// page_table (B, M) int32; lengths (B,) int32; out (B, KV, G, DH) bf16.
-// f32 softmax and accumulation; a length-0 row yields zeros.
+// Layouts: q and out (B, KV, G, DH) bf16, contiguous; lengths (B,) int32.
+// Paged: k/v pages (KV, P, page, DH) bf16; page_table (B, M) int32. Dense:
+// k/v (B, KV, T, DH) bf16 with any strides over the first three axes (in
+// elements, multiples of 8) and a contiguous last axis. f32 softmax and
+// accumulation; a length-0 row yields zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,16 +52,33 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// blockDim.x == DH: thread d owns output column d of every query head.
-template <int DH, int G>
-__global__ void __launch_bounds__(DH)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
-                    const int32_t* __restrict__ page_table,
-                    const int32_t* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out,
-                    int KV, int P, int page, int M, float scale) {
+// Token t's row of one (sequence, kv head) in a page pool: page
+// table[t / page], row t % page. K and V share the offset.
+struct PagedRows {
+  const int32_t* table;   // this sequence's page-table row
+  size_t pool;            // element offset of this kv head's pool
+  int page, dh;
+  __device__ __forceinline__ size_t k(int t) const {
+    return pool + ((size_t)table[t / page] * page + t % page) * dh;
+  }
+  __device__ __forceinline__ size_t v(int t) const { return k(t); }
+};
+
+// Token t's row of one (sequence, kv head) in a strided dense cache.
+struct DenseRows {
+  size_t k0, v0;          // element offsets of row 0
+  long long kt, vt;       // element strides along T
+  __device__ __forceinline__ size_t k(int t) const { return k0 + (size_t)t * kt; }
+  __device__ __forceinline__ size_t v(int t) const { return v0 + (size_t)t * vt; }
+};
+
+// The shared body: blockDim.x == DH, thread d owns output column d of every
+// query head. q and out point at this (sequence, kv head)'s G x DH rows.
+template <int DH, int G, class Rows>
+__device__ __forceinline__ void attend_rows(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const Rows rows, const int len,
+    __nv_bfloat16* __restrict__ out, const float scale) {
   constexpr int KSTR = DH + 2;    // padded K row: odd 4-byte word stride
   constexpr int CH = DH / 8;      // 16-byte chunks per row
   constexpr int NWARP = DH / 32;
@@ -59,15 +88,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float ps[G * TILE];
   __shared__ float m_s[G], l_s[G], a_s[G];
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b];
-  const size_t head = ((size_t)b * KV + h) * G * DH;
-  const size_t pool = (size_t)h * P * page * DH;
-  const int32_t* row = page_table + (size_t)b * M;
-
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < G * DH; i += DH)
-    qs[i] = __bfloat162float(q[head + i]) * scale;
+    qs[i] = __bfloat162float(q[i]) * scale;
   if (tid < G) { m_s[tid] = -INFINITY; l_s[tid] = 0.f; }
   float acc[G];
 #pragma unroll
@@ -75,15 +98,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   for (int t0 = 0; t0 < len; t0 += TILE) {
-    // gather the tile's K/V rows from their pages; rows past len are zero
-    for (int i = tid; i < TILE * CH; i += DH) {
+    // load the tile's K/V rows (TILE * CH chunks over DH threads, TILE / 8
+    // each, every load started before any store); rows past len are zero
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const int i = tid + j * DH;
       const int r = i / CH, c = i % CH, t = t0 + r;
       uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
       if (t < len) {
-        const size_t off = pool + ((size_t)row[t / page] * page + t % page) * DH
-                           + c * 8;
-        kx = *reinterpret_cast<const uint4*>(k_pages + off);
-        vx = *reinterpret_cast<const uint4*>(v_pages + off);
+        kx = *reinterpret_cast<const uint4*>(k + rows.k(t) + c * 8);
+        vx = *reinterpret_cast<const uint4*>(v + rows.v(t) + c * 8);
       }
       const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kx);
       __nv_bfloat162* kd = reinterpret_cast<__nv_bfloat162*>(ks + r * KSTR + c * 8);
@@ -147,23 +171,73 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const float l = l_s[g];
-    out[head + g * DH + tid] = __float2bfloat16(acc[g] / (l == 0.f ? 1.f : l));
+    out[g * DH + tid] = __float2bfloat16(acc[g] / (l == 0.f ? 1.f : l));
   }
 }
 
-template <int DH>
-cudaError_t launch_dh(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                      const __nv_bfloat16* k, const __nv_bfloat16* v,
-                      const int32_t* pt, const int32_t* len, __nv_bfloat16* out,
-                      int KV, int P, int page, int M, float scale) {
-  switch (G) {
-    case 1: paged_decode_kernel<DH, 1><<<grid, DH, 0, st>>>(q, k, v, pt, len, out, KV, P, page, M, scale); break;
-    case 2: paged_decode_kernel<DH, 2><<<grid, DH, 0, st>>>(q, k, v, pt, len, out, KV, P, page, M, scale); break;
-    case 4: paged_decode_kernel<DH, 4><<<grid, DH, 0, st>>>(q, k, v, pt, len, out, KV, P, page, M, scale); break;
-    case 8: paged_decode_kernel<DH, 8><<<grid, DH, 0, st>>>(q, k, v, pt, len, out, KV, P, page, M, scale); break;
-    default: return cudaErrorInvalidValue;
-  }
+template <int DH, int G>
+__global__ void __launch_bounds__(DH)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k_pages,
+                    const __nv_bfloat16* __restrict__ v_pages,
+                    const int32_t* __restrict__ page_table,
+                    const int32_t* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out,
+                    int KV, int P, int page, int M, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t head = ((size_t)b * KV + h) * G * DH;
+  const PagedRows rows{page_table + (size_t)b * M, (size_t)h * P * page * DH,
+                       page, DH};
+  attend_rows<DH, G>(q + head, k_pages, v_pages, rows, lengths[b], out + head,
+                     scale);
+}
+
+template <int DH, int G>
+__global__ void __launch_bounds__(DH)
+dense_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int32_t* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, int KV, int T,
+                    long long kb, long long kh, long long kt, long long vb,
+                    long long vh, long long vt, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t head = ((size_t)b * KV + h) * G * DH;
+  const DenseRows rows{(size_t)b * kb + (size_t)h * kh,
+                       (size_t)b * vb + (size_t)h * vh, kt, vt};
+  const int len = max(0, min(lengths[b], T));    // never past the true T
+  attend_rows<DH, G>(q + head, k, v, rows, len, out + head, scale);
+}
+
+// Instantiates KERNEL<DH, G> for G in {1, 2, 4, 8} and launches it.
+#define LAUNCH_G(KERNEL, DH, G_, GRID, ST, ...)                              \
+  switch (G_) {                                                             \
+    case 1: KERNEL<DH, 1><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
+    case 2: KERNEL<DH, 2><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
+    case 4: KERNEL<DH, 4><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
+    case 8: KERNEL<DH, 8><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
+    default: return cudaErrorInvalidValue;                                  \
+  }                                                                         \
   return cudaGetLastError();
+
+template <int DH>
+cudaError_t launch_paged(int G, dim3 grid, cudaStream_t st,
+                         const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const int32_t* pt,
+                         const int32_t* len, __nv_bfloat16* out, int KV,
+                         int P, int page, int M, float scale) {
+  LAUNCH_G(paged_decode_kernel, DH, G, grid, st, q, k, v, pt, len, out, KV, P,
+           page, M, scale)
+}
+
+template <int DH>
+cudaError_t launch_dense(int G, dim3 grid, cudaStream_t st,
+                         const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const int32_t* len,
+                         __nv_bfloat16* out, int KV, int T,
+                         const long long* s, float scale) {
+  LAUNCH_G(dense_decode_kernel, DH, G, grid, st, q, k, v, len, out, KV, T,
+           s[0], s[1], s[2], s[3], s[4], s[5], scale)
 }
 
 }  // namespace
@@ -183,7 +257,25 @@ extern "C" int paged_decode_attention_bf16(
   const auto* pt = static_cast<const int32_t*>(page_table);
   const auto* ln = static_cast<const int32_t*>(lengths);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (DH == 128) return launch_dh<128>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
-  if (DH == 64) return launch_dh<64>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
+  if (DH == 128) return launch_paged<128>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
+  if (DH == 64) return launch_paged<64>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
+  return cudaErrorInvalidValue;
+}
+
+// Dense cache: strides (6,) = k's (B, KV, T) strides then v's, in elements.
+// Returns the launch's cudaError_t (0 on success); same instances as above.
+extern "C" int decode_attention_bf16(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* out, int B, int KV, int G, int DH, int T, const long long* strides,
+    float scale, void* stream) {
+  const dim3 grid(KV, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* ln = static_cast<const int32_t*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (DH == 128) return launch_dense<128>(G, grid, st, qp, kp, vp, ln, op, KV, T, strides, scale);
+  if (DH == 64) return launch_dense<64>(G, grid, st, qp, kp, vp, ln, op, KV, T, strides, scale);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,15 @@
-"""Paged decode attention on Hopper: the wrapper of
-``csrc/paged_decode_attention.cu``.
+"""Decode attention on Hopper: the wrappers of
+``csrc/paged_decode_attention.cu``, whose two entries share one per-tile
+online-softmax routine.
 
-Counterpart of ``repro.kernels.decode_attention.paged_decode_attention``
-(the Pallas TPU kernel ``_paged_kernel``), with its signature and layout.
-The plain version is ``ref.paged_decode_attention``; ``ops`` picks
-between them by the tensors' device. This wrapper only launches: it
-takes CUDA tensors and raises on anything the kernel does not take.
+``paged_decode_attention`` is the counterpart of
+``repro.kernels.decode_attention.paged_decode_attention`` (the Pallas TPU
+kernel ``_paged_kernel``), ``decode_attention`` of its ``decode_attention``
+(``_kernel``: a dense cache), each with the reference's signature and
+layout. The plain versions are ``ref.paged_decode_attention`` and
+``ref.decode_attention``; ``ops`` picks between them by the tensors'
+device. These wrappers only launch: they take CUDA tensors and raise on
+anything the kernel does not take.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from . import _build
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                       ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -61,3 +67,52 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention(q, k, v, lengths, *, scale=None):
+    """q: (B, KV, G, dh); k/v: (B, KV, T, dh); lengths: (B,) int32 live
+    keys -> (B, KV, G, dh).
+
+    Sequence b attends keys t < min(lengths[b], T); keys past that are
+    never read, and a length-0 row yields zeros. k and v may have any
+    strides over their first three axes (the static cache layer
+    ``(B, T, KV, dh)`` arrives as its ``transpose(1, 2)`` view, with no
+    copy); their last axis must be contiguous, with 16-byte-aligned rows.
+    bf16 in and out, f32 softmax.
+    """
+    B, KV, G, dh = q.shape
+    T = k.shape[2]
+    for name, t, dt in (("q", q, torch.bfloat16),
+                        ("lengths", lengths, torch.int32)):
+        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous CUDA {dt} tensor, "
+                             f"got {t.dtype} on {t.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: need a CUDA bfloat16 tensor, got "
+                             f"{t.dtype} on {t.device}")
+        # 16-byte row loads: contiguous rows at 8-element granularity
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must be contiguous and 16-byte "
+                             f"aligned, strides {t.stride()}")
+    if k.shape != (B, KV, T, dh) or v.shape != k.shape \
+            or lengths.shape != (B,):
+        raise ValueError("decode_attention: inconsistent shapes")
+    if dh not in (64, 128) or G not in (1, 2, 4, 8):
+        raise ValueError(f"no kernel instance for dh={dh}, G={G}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
+    fn = _build.function("paged_decode_attention", "decode_attention_bf16",
+                         _DENSE_ARGS)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lengths.data_ptr(), out.data_ptr(), B, KV, G, dh, T,
+                    ctypes.addressof(strides), scale,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

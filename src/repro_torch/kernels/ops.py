@@ -38,6 +38,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     return out.transpose(1, 2)
 
 
+def decode_attention(q, k, v, lengths, *, scale=None, impl: str = "kernel"):
+    """Decode attention over a dense cache in model layout: q (B, H, dh),
+    k/v (B, T, KV, dh), lengths (B,) int32 live keys -> (B, H, dh). Keys
+    at or past lengths[b] (or T) are masked; a length-0 row yields zeros.
+    The kernel takes the cache as strided (B, KV, T, dh) views: no copy."""
+    B, H, dh = q.shape
+    KV = k.shape[2]
+    if _plain(impl, q):
+        return ref.decode_attention(q, k, v, lengths, scale=scale)
+    out = _dec.decode_attention(
+        q.contiguous().view(B, KV, H // KV, dh), k.transpose(1, 2),
+        v.transpose(1, 2), lengths, scale=scale)
+    return out.view(B, H, dh)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale=None, impl: str = "kernel"):
     """Paged decode attention: q (B, H, dh) model layout; k/v_pages

@@ -7,12 +7,19 @@ trace. Weights are random (``init_params`` from ``--seed``). ``--full``
 serves the published width of ``--arch``; without it, the reduced
 config. The dense archs (codeqwen1.5-7b, olmo-1b) serve through the
 paged-KV backend, deepseek-v2-lite-16b (MLA-MoE) through the latent-page
-backend. The run is on the card unless ``--device cpu`` is given.
+backend. olmoe-1b-7b (GQA-MoE) and whisper-tiny (encoder-decoder) have
+no engine backend, as in the reference: they serve with ``--mode
+static``, whisper's requests carrying random frame embeddings drawn from
+the trace's rng. The run is on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full --mode engine
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --full --mode engine --greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --full --mode static --greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --full --mode static --greedy
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import json
 
 from ..configs import get_config
 from ..models import get_model
-from ..runtime import Engine, EngineConfig, poisson_trace, run_static
+from ..runtime import (Engine, EngineConfig, encdec_extras_fn, poisson_trace,
+                       run_static)
 
 
 def _trace(cfg, args):
@@ -30,7 +38,8 @@ def _trace(cfg, args):
         args.requests, mean_interarrival=args.mean_interarrival,
         prompt_lens=(max(args.prompt_len // 2, 1), args.prompt_len),
         gen_lens=(max(args.gen // 4, 1), max(args.gen // 2, 1), args.gen),
-        vocab_size=cfg.vocab_size, seed=args.seed)
+        vocab_size=cfg.vocab_size, seed=args.seed,
+        extras_fn=encdec_extras_fn(cfg) if cfg.family == "encdec" else None)
 
 
 def run_engine(cfg, params, args):

@@ -1,13 +1,14 @@
-"""Models of the port: the dense decoder-only transformer and the MLA-MoE
-decoder, behind ``get_model(cfg)`` (the reference's registry, without the
-training entries)."""
+"""Models of the port: the dense decoder-only transformer, the MoE
+decoders (MLA and GQA) and the whisper encoder-decoder, behind
+``get_model(cfg)`` (the reference's registry, without the training
+entries)."""
 
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
-from . import moe, transformer
+from . import moe, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +19,7 @@ class ModelApi:
     decode_step: Callable
 
 
-_FAMILIES = {"dense": transformer, "moe": moe}
+_FAMILIES = {"dense": transformer, "moe": moe, "encdec": whisper}
 
 
 def get_model(cfg) -> ModelApi:
@@ -31,4 +32,4 @@ def get_model(cfg) -> ModelApi:
                     prefill=mod.prefill, decode_step=mod.decode_step)
 
 
-__all__ = ["ModelApi", "get_model", "moe", "transformer"]
+__all__ = ["ModelApi", "get_model", "moe", "transformer", "whisper"]

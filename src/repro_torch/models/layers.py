@@ -1,5 +1,5 @@
 """Model building blocks of the port (the serving subset of
-``repro.models.layers``: dense and MoE), in PyTorch.
+``repro.models.layers``: dense, MoE and encoder-decoder), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..kernels import ops
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -28,9 +29,11 @@ NEG_INF = -1e30
 
 def paged_cache_init(num_layers: int, num_pages: int, page_size: int,
                      kv_heads: int, head_dim: int, dtype=COMPUTE_DTYPE,
-                     device="cpu"):
+                     device="cuda"):
     """(k_pages, v_pages), each (L, KV, P, page, dh), head-major so the
-    decode kernel reads a layer's pool without relayout."""
+    decode kernel reads a layer's pool without relayout; on the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
     shape = (num_layers, kv_heads, num_pages, page_size, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -59,6 +62,31 @@ def trunc_normal_(t, gen, std=0.02):
     """Fill ``t`` in place with std * N(0, 1) truncated to [-2, 2]."""
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std)
+
+
+def stack_layers(make_layer, n: int, device) -> dict:
+    """``n`` draws of ``make_layer()`` (a nested dict of tensors) stacked
+    on a leading layer axis, drawn one layer at a time so that only one
+    layer's f32 temporaries are alive at once."""
+    def empty_like(tree):
+        return {k: empty_like(v) if isinstance(v, dict) else
+                torch.empty((n, *v.shape), dtype=v.dtype, device=device)
+                for k, v in tree.items()}
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    first = make_layer()
+    out = empty_like(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make_layer(), i)
+    return out
 
 
 # --- norms ----------------------------------------------------------------------
@@ -210,6 +238,11 @@ def valid_mask_from_length(t: int, length):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    """Whisper's MLP: tanh-approximate GELU between two biased products."""
+    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
 
 
 # --- MoE (capacity-based dispatch) ------------------------------------------------

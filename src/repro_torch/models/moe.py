@@ -1,12 +1,17 @@
-"""MLA-MoE decoder (deepseek-v2-lite-16b), in PyTorch.
+"""MoE decoders in PyTorch: MLA-MoE (deepseek-v2-lite-16b) and GQA-MoE
+(olmoe-1b-7b).
 
-Counterpart of the MLA branch of ``repro.models.moe``: multi-head latent
+Counterpart of ``repro.models.moe``. The MLA branch: multi-head latent
 attention (the cache holds one compressed latent row of kv_lora_rank +
 rope head per token, and W_uk / W_uv are absorbed into the query and
-output side) and a MoE FFN of routed experts (``layers.moe_ffn``, whose
-three expert products run through the grouped-GEMM kernel) plus shared
-experts. Block params are stacked on a leading layer axis as in the
-reference; its ``lax.scan`` over layers is a Python loop here.
+output side). The GQA branch: the dense model's grouped-query attention
+(``transformer._qkv``), its static cache stacked as (2, L, B, T, KV, dh);
+prefill attends through ``ops.flash_attention``, decode through
+``ops.decode_attention``. Both feed a MoE FFN of routed experts
+(``layers.moe_ffn``, whose three expert products run through the
+grouped-GEMM kernel) plus shared experts where the config has any. Block
+params are stacked on a leading layer axis as in the reference; its
+``lax.scan`` over layers is a Python loop here.
 
 Weights: the reference keeps f32 params and casts every matrix, expert
 tensor and router to bf16 at each use; the port's loaders keep the bf16
@@ -16,7 +21,8 @@ f32), which gives the same numbers.
 Routing: the full-sequence paths take the exact-length expert capacity
 (``route_capacity``) and can record (``return_route_keep``) or replay
 (``route_keep``) a prompt's drop population; decode is dropless. The
-GQA-MoE branch (olmoe) is not ported: configs without ``mla`` raise.
+latent-page (paged) paths serve the MLA branch only: GQA-MoE is static-
+only, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ import math
 import torch
 
 from .. import resolve_device
+from ..kernels import ops
 from . import layers as L
-from .transformer import _embed, _head, _last
+from .transformer import _embed, _head, _last, _qkv
 
 ATTN_CHUNK_THRESHOLD = 2048     # longer prompts attend in query chunks
 
@@ -36,8 +43,8 @@ ATTN_CHUNK_THRESHOLD = 2048     # longer prompts attend in query chunks
 def _need_mla(cfg) -> None:
     if cfg.mla is None:
         raise NotImplementedError(
-            f"{cfg.name!r}: the port's MoE model has only the MLA branch "
-            f"(deepseek); the GQA-MoE branch (olmoe) is not ported")
+            f"{cfg.name!r}: the latent-page paths serve MLA-MoE only; "
+            f"GQA-MoE is static-only (prefill / decode_step)")
 
 
 # --- params ----------------------------------------------------------------------
@@ -55,6 +62,11 @@ def _layer_params(cfg, gen, dev) -> dict:
     def dense(d_in, d_out):
         return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
 
+    if m is None:                   # GQA
+        return {"ln1": norm_init(D, dev), "ln2": norm_init(D, dev),
+                "wq": dense(D, cfg.q_dim), "wk": dense(D, cfg.kv_dim),
+                "wv": dense(D, cfg.kv_dim), "wo": dense(cfg.q_dim, D),
+                "moe": L.init_moe_params(cfg, D, gen, dev)}
     r = m.kv_lora_rank
     return {
         "ln1": norm_init(D, dev), "ln2": norm_init(D, dev),
@@ -71,31 +83,13 @@ def _layer_params(cfg, gen, dev) -> dict:
 def init_params(cfg, seed: int = 0, device="cuda"):
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` one layer at a time into the stacked tensors."""
-    _need_mla(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     D, V, Lc = cfg.d_model, cfg.vocab_size, cfg.num_layers
     norm_init, _ = L.make_norm(cfg)
 
-    def stack_like(tree):
-        return {k: stack_like(v) if isinstance(v, dict) else
-                torch.empty((Lc, *v.shape), dtype=v.dtype, device=dev)
-                for k, v in tree.items()}
-
-    def put(dst, src, i):
-        for k, v in src.items():
-            if isinstance(v, dict):
-                put(dst[k], v, i)
-            else:
-                dst[k][i] = v
-
-    first = _layer_params(cfg, gen, dev)
-    blocks = stack_like(first)
-    put(blocks, first, 0)
-    del first
-    for i in range(1, Lc):
-        put(blocks, _layer_params(cfg, gen, dev), i)
+    blocks = L.stack_layers(lambda: _layer_params(cfg, gen, dev), Lc, dev)
 
     def dense(d_in, d_out, std):
         w = torch.empty((d_in, d_out), dtype=L.PARAM_DTYPE, device=dev)
@@ -116,8 +110,14 @@ def _layer(params, i: int) -> dict:
 # --- multi-head latent attention ---------------------------------------------------
 
 def _rope(cfg, positions):
-    return L.rope_cos_sin(positions, cfg.mla.qk_rope_head_dim,
-                          cfg.rope_theta)
+    dim = cfg.head_dim if cfg.mla is None else cfg.mla.qk_rope_head_dim
+    return L.rope_cos_sin(positions, dim, cfg.rope_theta)
+
+
+def _gqa_out(cfg, p, x, attn):
+    """GQA output projection and the residual: attn (B, S, H, dh)."""
+    B, S = attn.shape[:2]
+    return x + (attn.reshape(B, S, cfg.q_dim) @ p["wo"]).to(x.dtype)
 
 
 def _mla_in(cfg, p, h, rope):
@@ -204,8 +204,8 @@ def _moe_ffn_tail(cfg, p, y, dims, route_keep=None, return_keep=False):
 def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
            return_kv=False, return_keep=False):
     """The blocks over whole sequences, causal. Returns (hidden (B, S,
-    D), latents (L, B, S, r + dr) or None, keeps (L, B, S, k) or None)."""
-    _need_mla(cfg)
+    D), the cache rows or None — MLA: latents (L, B, S, r + dr); GQA:
+    (k, v) each (L, B, S, KV, dh) — and keeps (L, B, S, k) or None)."""
     _, norm = L.make_norm(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -220,9 +220,15 @@ def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
     kvs, keeps = [], []
     for i in range(cfg.num_layers):
         p = _layer(params, i)
-        h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
-        q_lat, q_rope, latent = _mla_in(cfg, p, h, rope)
-        y = _mla_out(cfg, p, x, _causal_attend(cfg, q_lat, q_rope, latent))
+        if cfg.mla is None:
+            q, k, v = _qkv(cfg, p, x, rope)
+            y = _gqa_out(cfg, p, x, ops.flash_attention(q, k, v,
+                                                        causal=True))
+            kv = (k, v)
+        else:
+            h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
+            q_lat, q_rope, kv = _mla_in(cfg, p, h, rope)
+            y = _mla_out(cfg, p, x, _causal_attend(cfg, q_lat, q_rope, kv))
         out = _moe_ffn_tail(cfg, p, y, dims, route_keep=None
                             if route_keep is None else route_keep[i],
                             return_keep=return_keep)
@@ -230,8 +236,11 @@ def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
         if return_keep:
             keeps.append(out[1])
         if return_kv:
-            kvs.append(latent)
-    return (x, torch.stack(kvs) if return_kv else None,
+            kvs.append(kv)
+    if return_kv:
+        kvs = torch.stack(kvs) if cfg.mla is not None else \
+            tuple(torch.stack(t) for t in zip(*kvs))
+    return (x, kvs if return_kv else None,
             torch.stack(keeps) if return_keep else None)
 
 
@@ -253,48 +262,72 @@ def forward(cfg, params, batch, *, route_capacity=None, route_keep=None,
 
 @dataclasses.dataclass
 class MoEDecodeState:
-    kv: torch.Tensor       # (L, B, T, r + dr) latent rows
+    kv: torch.Tensor       # MLA: (L, B, T, r + dr) latent rows;
+    #                        GQA: stacked K/V (2, L, B, T, KV, dh)
     pos: int               # next write offset (lockstep over the batch)
 
 
+def _cache_shape(cfg, batch_size: int, cache_len: int) -> tuple:
+    if cfg.mla is not None:
+        return (cfg.num_layers, batch_size, cache_len, latent_width(cfg))
+    return (2, cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
+            cfg.head_dim)
+
+
 def init_decode_state(cfg, batch_size: int, cache_len: int,
-                      dtype=L.COMPUTE_DTYPE, device="cpu") -> MoEDecodeState:
-    _need_mla(cfg)
+                      dtype=L.COMPUTE_DTYPE, device="cuda"
+                      ) -> MoEDecodeState:
     return MoEDecodeState(kv=torch.zeros(
-        (cfg.num_layers, batch_size, cache_len, latent_width(cfg)),
-        dtype=dtype, device=device), pos=0)
+        _cache_shape(cfg, batch_size, cache_len), dtype=dtype,
+        device=resolve_device(device)), pos=0)
 
 
 def prefill(cfg, params, batch, cache_len: int):
-    """Run the full prompt, keep its latents in a cache of ``cache_len``
-    rows, return the last position's logits (B, V) and the state."""
+    """Run the full prompt, keep its cache rows (latents, or GQA K/V) in a
+    cache of ``cache_len`` positions, return the last position's logits
+    (B, V) and the state."""
     B, S = batch["tokens"].shape
     x, kv, _ = _trunk(cfg, params, batch, return_kv=True)
     logits = _head(cfg, params, x[:, -1:])[:, 0]
-    kv = torch.nn.functional.pad(kv.to(L.COMPUTE_DTYPE),
-                                 (0, 0, 0, cache_len - S))
+    if cfg.mla is not None:
+        kv = torch.nn.functional.pad(kv.to(L.COMPUTE_DTYPE),
+                                     (0, 0, 0, cache_len - S))
+    else:
+        kv = torch.nn.functional.pad(torch.stack(kv).to(L.COMPUTE_DTYPE),
+                                     (0, 0, 0, 0, 0, cache_len - S))
     return logits, MoEDecodeState(kv=kv, pos=S)
 
 
 def decode_step(cfg, params, state: MoEDecodeState, tokens):
     """One token for the whole batch, tokens (B,): writes each layer's
-    new latent row at ``state.pos`` in place and attends the cache prefix
-    [0, pos] (the reference's ``kj <= pos`` mask). Dropless routing: the
-    batch holds independent requests. Returns (logits (B, V), state)."""
-    _need_mla(cfg)
+    new cache row at ``state.pos`` in place and attends the cache prefix
+    [0, pos] (the reference's ``kj <= pos`` mask; GQA through
+    ``ops.decode_attention`` with ``lengths = pos + 1``, filled on the
+    device). Dropless routing: the batch holds independent requests.
+    Returns (logits (B, V), state)."""
     _, norm = L.make_norm(cfg)
     B = tokens.shape[0]
     pos = state.pos
-    rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
+    dev = tokens.device
+    rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
+    lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     dims = L.moe_dims_dropless(cfg, B)
     x = _embed(params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
-        h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
-        q_lat, q_rope, latent = _mla_in(cfg, p, h, rope)
-        state.kv[i, :, pos] = latent[:, 0].to(state.kv.dtype)
-        cache = state.kv[i, :, :pos + 1].to(L.COMPUTE_DTYPE)
-        y = _mla_out(cfg, p, x, _mla_attend(cfg, q_lat, q_rope, cache))
+        if cfg.mla is None:
+            q, k, v = _qkv(cfg, p, x, rope)
+            ck, cv = state.kv[0, i], state.kv[1, i]
+            ck[:, pos] = k[:, 0].to(ck.dtype)
+            cv[:, pos] = v[:, 0].to(cv.dtype)
+            attn = ops.decode_attention(q[:, 0], ck, cv, lengths)
+            y = _gqa_out(cfg, p, x, attn[:, None])
+        else:
+            h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
+            q_lat, q_rope, latent = _mla_in(cfg, p, h, rope)
+            state.kv[i, :, pos] = latent[:, 0].to(state.kv.dtype)
+            cache = state.kv[i, :, :pos + 1].to(L.COMPUTE_DTYPE)
+            y = _mla_out(cfg, p, x, _mla_attend(cfg, q_lat, q_rope, cache))
         x = _moe_ffn_tail(cfg, p, y, dims)
     state.pos = pos + 1
     return _head(cfg, params, x)[:, 0], state
@@ -315,12 +348,12 @@ class MoEPagedState:
 
 
 def init_paged_decode_state(cfg, num_pages: int, page_size: int,
-                            dtype=L.COMPUTE_DTYPE, device="cpu"
+                            dtype=L.COMPUTE_DTYPE, device="cuda"
                             ) -> MoEPagedState:
     _need_mla(cfg)
     return MoEPagedState(kv_pages=torch.zeros(
         (cfg.num_layers, num_pages, page_size, latent_width(cfg)),
-        dtype=dtype, device=device))
+        dtype=dtype, device=resolve_device(device)))
 
 
 def paged_prefill(cfg, params, batch, lengths, *, route_capacity=None,
@@ -334,6 +367,7 @@ def paged_prefill(cfg, params, batch, lengths, *, route_capacity=None,
     ``route_capacity`` is the exact-length ceiling of the live tokens and
     ``route_keep`` replays a recorded drop population (re-prefill after
     preemption)."""
+    _need_mla(cfg)
     x, kv, keeps = _trunk(cfg, params, batch, route_capacity=route_capacity,
                           route_keep=route_keep, return_kv=True,
                           return_keep=True)

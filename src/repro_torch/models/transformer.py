@@ -11,9 +11,10 @@ and keep only the bf16 copy of matrices, embeddings and biases, which
 gives the same numbers and halves the weight bytes every step reads; the
 norm scales stay f32 (the norms compute in f32).
 
-Attention: causal attention over a contiguous cache (``forward``, the
-static and paged prefill, the static decode over its cache prefix) goes
-through ``ops.flash_attention``; paged decode through
+Attention: causal attention over a whole sequence (``forward``, the
+static and paged prefill) goes through ``ops.flash_attention``; the
+static decode's one query over its dense cache through
+``ops.decode_attention``, and paged decode through
 ``ops.paged_decode_attention``. The prefix-shared prefill keeps the
 plain masked attention, as the reference does: its mask (ragged prefix |
 causal suffix) is not the flash kernel's.
@@ -30,9 +31,12 @@ from .. import resolve_device
 from ..kernels import ops
 from . import layers as L
 
-# params kept in f32 (the norm scales, MLA's kv_ln too); every other leaf
-# is stored in bf16
-F32_PARAMS = frozenset({"ln1", "ln2", "ln_f", "kv_ln"})
+# params kept in f32 (the norm scales, MLA's kv_ln, whisper's layernorm
+# scales and biases, which the reference adds in f32); every other leaf is
+# stored in bf16
+F32_PARAMS = frozenset({"ln1", "ln2", "ln_f", "kv_ln", "ln1b", "ln2b",
+                        "ln_x", "ln_xb", "enc_ln", "enc_lnb", "dec_ln",
+                        "dec_lnb"})
 
 
 # --- params ----------------------------------------------------------------------
@@ -179,20 +183,21 @@ def decode_step(cfg, params, state: DecodeState, tokens):
     """One token for the whole batch, tokens (B,). Writes the new K/V
     into the cache in place and advances ``state.pos``; returns (logits
     (B, V), state). The query attends the cache prefix [0, pos] — the
-    reference's ``kj <= pos`` mask — through the same flash op as the
-    prefill, so both round alike."""
+    reference's ``kj <= pos`` mask — through ``ops.decode_attention``
+    with ``lengths = pos + 1``, filled on the device (no host sync)."""
     B = tokens.shape[0]
     pos = state.pos
-    rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
+    dev = tokens.device
+    rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
+    lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     x = _embed(params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         q, k, v = _qkv(cfg, p, x, rope)
         state.k[i, :, pos] = k[:, 0]
         state.v[i, :, pos] = v[:, 0]
-        x = _finish(cfg, p, x, ops.flash_attention(
-            q, state.k[i, :, :pos + 1], state.v[i, :, :pos + 1],
-            causal=True))
+        attn = ops.decode_attention(q[:, 0], state.k[i], state.v[i], lengths)
+        x = _finish(cfg, p, x, attn[:, None])
     state.pos = pos + 1
     return _head(cfg, params, x)[:, 0], state
 
@@ -207,7 +212,7 @@ class PagedDecodeState:
 
 
 def init_paged_decode_state(cfg, num_pages: int, page_size: int,
-                            dtype=L.COMPUTE_DTYPE, device="cpu"
+                            dtype=L.COMPUTE_DTYPE, device="cuda"
                             ) -> PagedDecodeState:
     k, v = L.paged_cache_init(cfg.num_layers, num_pages, page_size,
                               cfg.num_kv_heads, cfg.head_dim, dtype, device)

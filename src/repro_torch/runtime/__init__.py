@@ -1,11 +1,12 @@
 """Serving runtime of the port: page allocator, scheduler, prefix index,
-device loop state and the continuous-batching engine (dense and MLA-MoE
-backends)."""
+device loop state, the continuous-batching engine (dense and MLA-MoE
+backends) and the static lockstep path (every ported family)."""
 
 from .device_state import DeviceLoopState
 from .engine import (ENGINE_FAMILIES, Engine, EngineConfig, EngineReport,
-                     LatentBackend, PagedTransformerBackend, engine_backend,
-                     make_batch_sampler, resolve_backend, run_static)
+                     LatentBackend, PagedTransformerBackend, encdec_extras_fn,
+                     engine_backend, make_batch_sampler, resolve_backend,
+                     run_static)
 from .kv_pager import NEUTRAL_OWNER, TRASH_PAGE, PageAllocator, PagerConfig
 from .prefix_index import PrefixIndex
 from .scheduler import (MultiQueueScheduler, Request, Scheduler,
@@ -15,6 +16,6 @@ __all__ = ["ENGINE_FAMILIES", "NEUTRAL_OWNER", "TRASH_PAGE",
            "DeviceLoopState", "Engine", "EngineConfig", "EngineReport",
            "LatentBackend", "MultiQueueScheduler", "PageAllocator",
            "PagedTransformerBackend", "PagerConfig", "PrefixIndex",
-           "Request", "Scheduler", "engine_backend", "make_batch_sampler",
-           "poisson_trace", "resolve_backend", "run_static",
-           "shared_prefix_trace"]
+           "Request", "Scheduler", "encdec_extras_fn", "engine_backend",
+           "make_batch_sampler", "poisson_trace", "resolve_backend",
+           "run_static", "shared_prefix_trace"]

@@ -1,5 +1,7 @@
 """Continuous-batching decode engine over a paged KV cache (port of the
-dense and MLA-MoE paths of ``repro.runtime.engine``).
+dense and MLA-MoE paths of ``repro.runtime.engine``), and the static
+lockstep path, which also serves the families with no engine backend
+(GQA-MoE olmoe, the whisper encoder-decoder), as in the reference.
 
 The static path (``run_static``) prefills one lockstep batch and decodes
 until the longest request finishes, holding a dense ``batch x max_len``
@@ -222,11 +224,27 @@ def _host(t) -> np.ndarray:
 
 
 def _state_bytes(state) -> int:
-    """Bytes of a cache state's tensors (its dataclass fields)."""
-    return sum(t.numel() * t.element_size()
-               for t in (getattr(state, f.name)
-                         for f in dataclasses.fields(state))
-               if isinstance(t, torch.Tensor))
+    """Bytes of a cache state's dataclass fields, as the reference counts
+    its state's leaves: every tensor (caches, whisper's encoder output),
+    and an int position as the reference's int32 scalar."""
+    total = 0
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, int):
+            total += 4
+    return total
+
+
+def encdec_extras_fn(cfg):
+    """Per-request extras of an encoder-decoder trace (a ``poisson_trace``
+    hook): the stub frontend's frame embeddings (T_enc, d_model) f32,
+    drawn from the trace's rng."""
+    def extras(rng: np.random.Generator) -> dict:
+        return {"frames": rng.standard_normal(
+            (cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)}
+    return extras
 
 
 # --- backend -------------------------------------------------------------------
@@ -806,7 +824,9 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
     *longest* generation in the group finishes, over a dense cache of
     batch x (max prompt + max gen). Mixed prompt lengths are left-padded
     with no pad masking, as in the reference; the metrics are structural
-    (steps and bytes), not a quality reference."""
+    (steps and bytes), not a quality reference. Requests' ``extras``
+    (whisper's ``frames``) are stacked into the batch; a group must carry
+    the same extra keys throughout."""
     api = get_model(cfg)
     dev = params["embed"].device
     requests = sorted(requests, key=lambda r: r.arrival)
@@ -826,10 +846,19 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
         toks = np.zeros((len(group), plen), np.int32)
         for b, r in enumerate(group):
             toks[b, plen - len(r.prompt):] = r.prompt   # left-pad
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        extra_keys = set().union(*(set(r.extras or {}) for r in group))
+        missing = [r.rid for r in group
+                   if set(r.extras or {}) != extra_keys]
+        if missing:
+            raise ValueError(
+                f"requests {missing} lack extras {sorted(extra_keys)} their "
+                f"batch group carries (static groups must be uniform)")
+        batch.update({k: torch.as_tensor(
+            np.stack([r.extras[k] for r in group]), device=dev)
+            for k in extra_keys})
         t0 = time.monotonic()
-        logits, state = api.prefill(
-            cfg, params, {"tokens": torch.as_tensor(toks, device=dev)},
-            cache_len)
+        logits, state = api.prefill(cfg, params, batch, cache_len)
         toks0 = sample_batch(_host(logits))
         rep.prefill_wall_s += time.monotonic() - t0
         for b, r in enumerate(group):

@@ -312,3 +312,105 @@ def test_latent_engine_on_the_card_matches_the_cpu_plain_path(dev):
         gap = (rows.max(-1).values
                - rows.gather(1, torch.tensor(r.generated)[:, None])[:, 0])
         assert gap.max().item() <= 0.0625, (r.rid, gap.max().item())
+
+
+# --- dense decode attention (static decode's one query over its cache) ---------
+
+
+@pytest.mark.parametrize("B,T,KV,G,dh,lengths", [
+    (8, 640, 16, 1, 128, [640, 1, 0, 639, 64, 65, 300, 17]),
+    (2, 1500, 6, 1, 64, [1500, 1500]),
+    (3, 77, 2, 4, 64, [0, 77, 40]),
+    (2, 130, 2, 8, 128, [130, 129]),
+    (2, 96, 4, 2, 128, [200, 50]),        # lengths past T: masked by T
+])
+def test_decode_kernel_matches_plain_on_strided_views(dev, B, T, KV, G, dh,
+                                                      lengths):
+    """The static cache layer (B, T, KV, dh) reaches the kernel as its
+    transposed view, with no copy; a cache sliced to fewer positions
+    keeps its strides, and the kernel reads no key past the true T."""
+    rng = np.random.default_rng(2)
+    q = _bf16(rng, (B, KV * G, dh), dev)
+    cache = _bf16(rng, (2, B, T + 5, KV, dh), dev)
+    k, v = cache[0, :, :T], cache[1, :, :T]          # strided views
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    n0 = dec.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens)
+    assert dec.decode_attention.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = ops.decode_attention(q, k, v, lens, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert torch.all(got[b] == 0)
+
+
+def test_decode_kernel_refuses_what_it_cannot_take(dev):
+    rng = np.random.default_rng(3)
+    q = _bf16(rng, (2, 4, 64), dev)
+    k = _bf16(rng, (2, 10, 2, 64), dev)
+    lens = torch.tensor([10, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.decode_attention(q, k.float(), k, lens)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q, k, k, lens.long())
+    odd = _bf16(rng, (2, 10, 2, 65), dev)[..., :64]  # rows not 16-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        ops.decode_attention(q, odd, odd, lens)
+    q32, k32 = _bf16(rng, (2, 4, 32), dev), _bf16(rng, (2, 10, 2, 32), dev)
+    with pytest.raises(ValueError, match="dh=32"):
+        ops.decode_attention(q32, k32, k32, lens)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-tiny"])
+def test_static_family_on_the_card_matches_the_cpu_plain_path(dev, arch):
+    """A reduced config widened to a kernel head size (dh 64) served by
+    run_static on the card (decode kernel, flash and, for olmoe, the
+    grouped GEMM) and on the CPU (plain versions): the same ledger, one
+    decode launch a layer a step (two for whisper: self and cross), and
+    the card's logits within a few bf16 quanta of the CPU's, teacher-
+    forced with the CPU's tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import encdec_extras_fn, run_static
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0, device=dev)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    cpu = to_cpu(params)
+    extras = encdec_extras_fn(cfg) if cfg.family == "encdec" else None
+
+    def trace():
+        return poisson_trace(5, mean_interarrival=0.5, prompt_lens=(6, 12),
+                             gen_lens=(4, 9), vocab_size=cfg.vocab_size,
+                             seed=3, extras_fn=extras)
+
+    n0, f0 = dec.decode_attention.launches, fa.flash_attention.launches
+    g = run_static(cfg, params, trace(), num_slots=2)
+    per_step = cfg.num_layers * (2 if cfg.family == "encdec" else 1)
+    assert dec.decode_attention.launches - n0 == per_step * g.decode_steps
+    assert fa.flash_attention.launches > f0          # prefill only
+    c = run_static(cfg, cpu, trace(), num_slots=2)
+    for f in ("decode_steps", "slot_steps", "prefill_tokens",
+              "cache_bytes_alloc"):
+        assert getattr(g, f) == getattr(c, f), f
+
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    batch = {"tokens": torch.tensor(toks)}
+    if extras is not None:
+        batch["frames"] = torch.tensor(np.stack(
+            [extras(rng)["frames"] for _ in range(2)]))
+    lc, sc = api.prefill(cfg, cpu, batch, 16)
+    lg, sg = api.prefill(cfg, params, {k: t.to(dev) for k, t in batch.items()},
+                         16)
+    for _ in range(5):
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=0.0625)
+        tok = lc.argmax(-1).to(torch.int32)
+        lc, sc = api.decode_step(cfg, cpu, sc, tok)
+        lg, sg = api.decode_step(cfg, params, sg, tok.to(dev))

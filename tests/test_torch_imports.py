@@ -19,7 +19,7 @@ import sys
 from repro_torch import convert, core, kernels, planner  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.kernels import dequant, grouped_mvm, ops, packed_canvas  # noqa: F401,E501
-from repro_torch.models import get_model, moe  # noqa: F401
+from repro_torch.models import get_model, moe, whisper  # noqa: F401
 from repro_torch.launch import pack, serve  # noqa: F401
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Engine, EngineConfig, poisson_trace, run_static
@@ -41,6 +41,15 @@ for serve_once in (lambda t: Engine(cfg, params, ecfg).run(t),
     trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
                           gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
     assert len(serve_once(trace).completed) == 3
+from repro_torch.runtime import encdec_extras_fn
+for arch in ("olmoe-1b-7b", "whisper-tiny"):
+    cfg = get_config(arch).reduced()
+    params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
+    trace = poisson_trace(
+        3, mean_interarrival=0.5, prompt_lens=(6, 10), gen_lens=(3, 5),
+        vocab_size=cfg.vocab_size, seed=0,
+        extras_fn=encdec_extras_fn(cfg) if cfg.family == "encdec" else None)
+    assert len(run_static(cfg, params, trace, num_slots=2).completed) == 3
 pack.check([pack.lm_packing(), pack.canvas_case(
     "lora_adapters_48x48", pack.lora_adapter_mats()), pack.canvas_case(
     "whisper_tiny_blocks", pack.whisper_mats()), pack.tpu_canvas("cpu"),
@@ -92,11 +101,39 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         moe.init_params(get_config("deepseek-v2-lite-16b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "whisper-tiny", "--mode", "static"])
+    with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
         pack.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         canvas_from_jax(None, [[0], [0], [1], [1]])
+
+
+def test_state_constructors_default_to_the_card(monkeypatch):
+    """The cache constructors run on the card unless given a device, as
+    init_params does: without a card they raise instead of quietly
+    building a CPU cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, whisper
+    from repro_torch.models import transformer as T
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dense = get_config("olmo-1b").reduced()
+    mla = get_config("deepseek-v2-lite-16b").reduced()
+    gqa = get_config("olmoe-1b-7b").reduced()
+    for make in (lambda: T.init_paged_decode_state(dense, 4, 8),
+                 lambda: L.paged_cache_init(2, 4, 8, 2, 16),
+                 lambda: moe.init_decode_state(mla, 2, 8),
+                 lambda: moe.init_decode_state(gqa, 2, 8),
+                 lambda: moe.init_paged_decode_state(mla, 4, 8),
+                 lambda: whisper.init_decode_state(
+                     get_config("whisper-tiny").reduced(), 2, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    st = moe.init_decode_state(gqa, 2, 8, device="cpu")
+    assert st.kv.shape == (2, 2, 2, 8, 2, 16) and st.kv.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -98,6 +98,73 @@ def test_paged_decode_plain_matches_jax_ref(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+DENSE = [  # (B, KV, G, dh, T, bt, lengths): ragged and length-0 rows, and
+    # T = 77, 150: off the CUDA kernel's 64-token tile (the Pallas kernel
+    # runs at a tile bt that divides T)
+    (3, 2, 1, 64, 96, 32, [96, 0, 37]),
+    (2, 2, 2, 128, 77, 77, [77, 5]),
+    (4, 1, 4, 64, 150, 50, [0, 1, 149, 150]),
+    (2, 2, 8, 128, 64, 64, [63, 64]),
+]
+
+
+def _dense_case(seed, B, KV, G, dh, T, lengths):
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, B, KV * G, dh), _rand(rng, B, T, KV, dh),
+            _rand(rng, B, T, KV, dh), np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("case", DENSE)
+def test_decode_plain_matches_pallas_interpret(case):
+    """The plain version in model layout against the Pallas kernel
+    (q (B, KV, G, dh), k/v (B, KV, T, dh)) in interpret mode."""
+    B, KV, G, dh, T, bt, lengths = case
+    q, k, v, lens = _dense_case(2, B, KV, G, dh, T, lengths)
+    want = np.asarray(jdec.decode_attention(
+        jnp.asarray(q.reshape(B, KV, G, dh)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(lens), bt=bt,
+        interpret=True))
+    got = ops.decode_attention(torch.tensor(q), torch.tensor(k),
+                               torch.tensor(v), torch.tensor(lens))
+    np.testing.assert_allclose(got.reshape(B, KV, G, dh).numpy(), want,
+                               **TOL)
+    assert np.all(got.numpy()[lens == 0] == 0.0)   # the flush guard
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", DENSE)
+def test_decode_plain_matches_jax_ref(case, dtype):
+    B, KV, G, dh, T, bt, lengths = case
+    q, k, v, lens = _dense_case(3, B, KV, G, dh, T, lengths)
+    jdt, tdt, tol = ((jnp.float32, torch.float32, TOL) if dtype == "f32"
+                     else (jnp.bfloat16, torch.bfloat16, TOL_BF16))
+    want = np.asarray(jref.decode_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(lens)),
+        np.float32)
+    got = ops.decode_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)),
+                               torch.tensor(lens), impl="ref")
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+def test_decode_attention_dispatch_rules():
+    """CPU tensors take the plain version; the kernel wrapper refuses
+    them instead of quietly computing, and counts no launch."""
+    rng = np.random.default_rng(4)
+    q = torch.tensor(_rand(rng, 2, 4, 64)).to(torch.bfloat16)
+    k = torch.tensor(_rand(rng, 2, 10, 2, 64)).to(torch.bfloat16)
+    lens = torch.tensor([10, 3], dtype=torch.int32)
+    torch.testing.assert_close(ops.decode_attention(q, k, k, lens),
+                               ref.decode_attention(q, k, k, lens))
+    with pytest.raises(ValueError, match="impl"):
+        ops.decode_attention(q, k, k, lens, impl="auto")
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention(q.view(2, 2, 2, 64), k.transpose(1, 2),
+                              k.transpose(1, 2), lens)
+    assert tdec.decode_attention.launches == 0
+
+
 ATTN = [  # (B, S, T, H, KV, causal, window): aligned and unaligned S/T
     (2, 64, 64, 4, 2, True, 0),
     (1, 37, 37, 2, 2, True, 0),

@@ -122,7 +122,7 @@ def _prefilled(arch, toks, plen, pids, num_pages=12, page=4):
                                 jnp.asarray(pids))
     tlast, (tk, tv) = T.paged_prefill(cfg, tp, {"tokens": torch.tensor(toks)},
                                       torch.tensor(lens))
-    ts = T.init_paged_decode_state(cfg, num_pages, page)
+    ts = T.init_paged_decode_state(cfg, num_pages, page, device="cpu")
     T.write_prefill_pages(cfg, ts, (tk[:, 0], tv[:, 0]), torch.tensor(pids))
     return (jcfg, jp, js, jlast), (cfg, tp, ts, tlast)
 
@@ -226,7 +226,8 @@ def test_paged_decode_matches_dense_decode():
         0, cfg.vocab_size, (1, 8)).astype(np.int32))
     logits_d, st = T.prefill(cfg, tp, {"tokens": toks[:, :plen]},
                              cache_len=plen + gen)
-    ps = T.init_paged_decode_state(cfg, num_pages=8, page_size=page)
+    ps = T.init_paged_decode_state(cfg, num_pages=8, page_size=page,
+                                   device="cpu")
     lengths = torch.tensor([plen], dtype=torch.int32)
     last, (k, v) = T.paged_prefill(cfg, tp, {"tokens": toks}, lengths)
     T.write_prefill_pages(cfg, ps, (k[:, 0], v[:, 0]),

@@ -14,7 +14,7 @@ keep masks must match exactly, and greedy tokens exactly or, at a bf16
 tie of the logits, within the repository's greedy gap (0.0625).
 Routing near a tie follows bf16 rounding, where the reference's compiled
 run and its op-by-op run (``jax.disable_jit``) can disagree with each
-other; the paged paths are held against both (``_close_to_reference``).
+other; the paged paths are held against both (``close_to_reference``).
 """
 
 import dataclasses
@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import both_runs, close_to_reference
 from repro.configs import get_config as jget
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -270,31 +271,7 @@ def _paged_setup(cfg, jcfg, lengths, page=4, M_=6):
     for b in range(B):
         table[b] = 1 + b * M_ + np.arange(M_)
     return (JM.init_paged_decode_state(jcfg, P, page),
-            M.init_paged_decode_state(cfg, P, page), table)
-
-
-def _both(fn, *args, **kw):
-    """The reference function's compiled run (XLA fuses the scanned
-    layers) and its op-by-op run (``jax.disable_jit``)."""
-    out = fn(*args, **kw)
-    with jax.disable_jit():
-        return out, fn(*args, **kw)
-
-
-def _close_to_reference(got, compiled, eager):
-    """Routing near a tie follows bf16 rounding, and the reference's
-    compiled run rounds elsewhere than its op-by-op run, so the two can
-    pick different experts for a token whose router probabilities tie
-    within rounding (then its logits differ by O(0.4)). The port must
-    match the op-by-op run everywhere, and the compiled run on every row
-    where the reference's two runs agree."""
-    got, compiled, eager = (np.asarray(a, np.float32)
-                            for a in (got, compiled, eager))
-    np.testing.assert_allclose(got, eager, **TOL_BF16)
-    agree = np.all(np.isclose(compiled, eager, **TOL_BF16),
-                   axis=tuple(range(1, got.ndim)))
-    np.testing.assert_allclose(got[agree], compiled[agree], **TOL_BF16)
-    assert agree.any()
+            M.init_paged_decode_state(cfg, P, page, device="cpu"), table)
 
 
 def _greedy_consistent(got, want):
@@ -319,14 +296,14 @@ def test_paged_prefill_and_decode_step_match_reference(models):
     for b, n in enumerate(lengths):
         toks[b, n:] = 0
     cap = JL.moe_dims(jcfg, sum(lengths)).capacity
-    (jlast, jlat, jkeep), (elast, elat, ekeep) = _both(
+    (jlast, jlat, jkeep), (elast, elat, ekeep) = both_runs(
         JM.paged_prefill, jcfg, jp, {"tokens": jnp.asarray(toks)},
         jnp.asarray(lengths, jnp.int32), route_capacity=cap)
     tlast, tlat, tkeep = M.paged_prefill(
         cfg, tp, {"tokens": torch.tensor(toks)},
         torch.tensor(lengths, dtype=torch.int32), route_capacity=cap)
-    _close_to_reference(tlast, jlast, elast)
-    _close_to_reference(_np(tlat), jlat, elat)
+    close_to_reference(tlast, jlast, elast)
+    close_to_reference(_np(tlat), jlat, elat)
     # keeps: exact against the op-by-op run, and against the compiled run
     # wherever the two agree (on these inputs they disagree on one claim
     # of layer 1: token 10 of row 1, whose 2nd and 3rd router
@@ -348,14 +325,14 @@ def test_paged_prefill_and_decode_step_match_reference(models):
     for step in range(5):
         if step == 3:
             active = np.asarray([True, False])     # a slot goes idle
-        (jl, _), (el, js) = _both(
+        (jl, _), (el, js) = both_runs(
             JM.paged_decode_step, jcfg, jp, js, jnp.asarray(tok),
             jnp.asarray(table), jnp.asarray(lens), jnp.asarray(active))
         tl = M.paged_decode_step(cfg, tp, ts, torch.tensor(tok),
                                  torch.tensor(table), torch.tensor(lens),
                                  torch.tensor(active))
         live = np.flatnonzero(active)
-        _close_to_reference(tl.numpy()[live], np.asarray(jl)[live],
+        close_to_reference(tl.numpy()[live], np.asarray(jl)[live],
                             np.asarray(el)[live])
         tok = np.asarray(el).argmax(-1).astype(np.int32)
         _greedy_consistent(tl.numpy()[live], np.asarray(el)[live])
@@ -384,7 +361,7 @@ def test_paged_decode_multi_matches_reference(models):
     pending = np.asarray(jlast).argmax(-1).astype(np.int32)
     remaining = np.asarray([h, 3], np.int32)
     mask = np.asarray([True, True])
-    (jout, *_), (eout, _, epend, elen, erem) = _both(
+    (jout, *_), (eout, _, epend, elen, erem) = both_runs(
         JM.paged_decode_multi, jcfg, jp, js, jnp.asarray(pending),
         jnp.asarray(lengths, jnp.int32), jnp.asarray(remaining),
         jnp.asarray(table), jnp.asarray(mask), jnp.asarray(h, jnp.int32),
@@ -404,11 +381,15 @@ def test_paged_decode_multi_matches_reference(models):
 
 
 def test_registry_and_the_gqa_branch():
-    """get_model serves dense and moe; the GQA-MoE branch (olmoe) and an
-    unported family raise clearly."""
+    """get_model serves dense, moe (the MLA branch and olmoe's GQA-MoE
+    branch) and encdec (whisper); an unported family (rwkv6) raises
+    clearly."""
+    from repro_torch.models import whisper
     assert get_model(get_config(ARCH)).init_params is M.init_params
     olmoe = get_config("olmoe-1b-7b").reduced()
-    with pytest.raises(NotImplementedError, match="GQA-MoE"):
-        get_model(olmoe).init_params(olmoe, device="cpu")
+    assert get_model(olmoe).decode_step is M.decode_step
+    p = get_model(olmoe).init_params(olmoe, device="cpu")
+    assert set(p["blocks"]) == {"ln1", "ln2", "wq", "wk", "wv", "wo", "moe"}
+    assert get_model(get_config("whisper-tiny")).prefill is whisper.prefill
     with pytest.raises(ValueError, match="no model in the port"):
         get_model(get_config("rwkv6-7b"))
