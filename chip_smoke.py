@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--parent DIR]
 
 Builds the Hopper kernels from src/repro_torch/kernels/csrc (nvcc, sm_90a,
 into build/repro_torch/), then:
 
-  (a) holds each kernel against its plain PyTorch version on the card at
-      the main path's shapes (codeqwen1.5-7b widths), times both, and
-      computes each kernel's bound from this run's inputs;
+  (a) holds each attention kernel against its plain PyTorch version on
+      the card at the main path's shapes (codeqwen1.5-7b widths; flash
+      also at olmoe-1b-7b's prefill and whisper-tiny's encoder, B 8,
+      S = T = 1500, dh 64, not causal), times both with the host's
+      enqueue hidden, beside ``scaled_dot_product_attention`` where one
+      call computes the same function, and computes each kernel's bound
+      from this run's inputs;
   (b) serves codeqwen1.5-7b at full width (random weights from a seed)
       through the continuous-batching engine: 8 slots, a seeded trace of
       16 requests, greedy decode in fused horizons of 32. The kernels'
@@ -48,10 +52,12 @@ into build/repro_torch/), then:
   (e'') runs the static lockstep baseline on deepseek, first 8 requests;
   (f0) holds the dense decode-attention kernel against its plain version
       at the static paths' shapes (olmoe-1b-7b B 8, KV 16, dh 128, T 640;
-      codeqwen1.5-7b KV 32; a GQA group of 4; whisper-tiny's self- and
-      cross-attention, KV 6, dh 64, T 1500), with ragged lengths, a
-      length-0 row and T off the kernel's tile, timed beside its bound and
-      ``scaled_dot_product_attention`` with a length mask;
+      codeqwen1.5-7b KV 32; GQA groups of 4, 7 (qwen2-vl-7b) and 12
+      (command-r-plus); whisper-tiny's self- and cross-attention, KV 6,
+      dh 64, T 1500), with ragged lengths, a length-0 row and T off the
+      kernel's tile, timed beside its bound and
+      ``scaled_dot_product_attention`` with a length mask, and at the
+      main row with T in 1 and in 3 splits;
   (f) serves olmoe-1b-7b (GQA-MoE, 64 experts top-8) at full width and
       depth through the static path on (b)'s trace in groups of 8, with
       the kernels' launch counters zeroed just before and read just after
@@ -64,6 +70,11 @@ into build/repro_torch/), then:
       decode-attention launches a step (4 self, 4 cross), and checks it
       as (f) does.
 
+``--parent DIR`` names an unpacked checkout of an earlier commit: its
+attention kernels are built into DIR/build and timed in the same call
+beside this tree's, at (a)'s and (f0)'s shapes (the earlier dense decode
+kernel only where it has an instance for G).
+
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": ...}. Without a card, or without
@@ -72,7 +83,10 @@ src/repro_torch beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import copy
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -154,7 +168,7 @@ def decode_case(torch, B, KV, G, lengths, page=16, dh=128, seed=0):
     return args, flops, nbytes
 
 
-def flash_case(torch, B, H, KV, S, T, window, dh=128, seed=0):
+def flash_case(torch, B, H, KV, S, T, window, dh=128, causal=True, seed=0):
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((B, S, H, dh), generator=gen, device=DEV
                     ).to(torch.bfloat16)
@@ -163,17 +177,52 @@ def flash_case(torch, B, H, KV, S, T, window, dh=128, seed=0):
     v = torch.randn((B, T, KV, dh), generator=gen, device=DEV
                     ).to(torch.bfloat16)
     # visible pairs: query row i sees keys (i + T - S - window, i + T - S]
-    pairs = sum(min(T, i + T - S + 1)
-                - (max(0, i + T - S - window + 1) if window else 0)
+    # (causal), or all T from the window's start
+    pairs = sum(max(0, (min(T, i + T - S + 1) if causal else T)
+                    - (max(0, i + T - S - window + 1) if window else 0))
                 for i in range(S))
     flops = 4 * B * H * dh * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     return (q, k, v), flops, nbytes
 
 
-def phase_kernels(torch, ops, dec, fa):
-    """(a) every kernel against its plain version, timed at main-path
-    shapes. Returns the kernel records (launches filled in later)."""
+def load_parent(path):
+    """The attention kernels' ops of an earlier checkout at ``path``,
+    imported as a package of their own (their libraries build into
+    path/build), or None."""
+    if path is None:
+        return None
+    root = Path(path).resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_repro_torch", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    build = importlib.import_module("parent_repro_torch.kernels._build")
+    build.build(["paged_decode_attention", "flash_attention"])
+    return importlib.import_module("parent_repro_torch.kernels.ops")
+
+
+# (label, B, H, KV, S, T, window, dh, causal) of the flash kernel; the first
+# is codeqwen1.5-7b's 512-token prefill (the main row)
+FLASH_SHAPES = (
+    ("flash S=T=512 H=KV=32", 1, 32, 32, 512, 512, 0, 128, True),
+    ("flash S=T=300 H=KV=32", 1, 32, 32, 300, 300, 0, 128, True),
+    ("flash S=T=512 H=32 KV=8", 1, 32, 8, 512, 512, 0, 128, True),
+    ("flash S=T=300 H=32 KV=8 window=100", 1, 32, 8, 300, 300, 100, 128,
+     True),
+    ("flash olmoe prefill S=T=512 H=KV=16", 1, 16, 16, 512, 512, 0, 128,
+     True),
+    ("flash whisper encoder B=8 S=T=1500 H=KV=6 dh=64", 8, 6, 6, 1500, 1500,
+     0, 64, False),
+)
+
+
+def phase_kernels(torch, ops, dec, fa, parent=None):
+    """(a) every attention kernel against its plain version, timed at
+    main-path shapes with the host hidden (and the parent's kernel, if
+    given). Returns the kernel records (launches filled in later)."""
     import torch.nn.functional as F
 
     print("== (a) kernels vs plain versions", flush=True)
@@ -187,11 +236,17 @@ def phase_kernels(torch, ops, dec, fa):
         err = compare(torch, got, want, name)
         assert torch.all(got[3] == 0), "length-0 row must yield zeros"
         dec_err = max(dec_err, err)
-        ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*args))
+        ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*args),
+                     iters=50, hide_host=True)
         plain = cuda_ms(torch, lambda: ops.paged_decode_attention(
             *args, impl="ref"), iters=5)
         b_ms, b_by = bound(flops, nbytes)
-        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+        old = ""
+        if parent is not None:
+            old = "  parent %.4f ms" % cuda_ms(
+                torch, lambda: parent.paged_decode_attention(*args),
+                iters=50, hide_host=True)
+        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{old}  "
               f"plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         if dec_main is None:
@@ -199,33 +254,38 @@ def phase_kernels(torch, ops, dec, fa):
                             bound_by=b_by, library_ms=None)
 
     fa_err, fa_main = 0.0, None
-    for name, B, H, KV, S, T, window in (
-            ("flash S=T=512 H=KV=32", 1, 32, 32, 512, 512, 0),
-            ("flash S=T=300 H=KV=32", 1, 32, 32, 300, 300, 0),
-            ("flash S=T=512 H=32 KV=8", 1, 32, 8, 512, 512, 0),
-            ("flash S=T=300 H=32 KV=8 window=100", 1, 32, 8, 300, 300, 100)):
-        (q, k, v), flops, nbytes = flash_case(torch, B, H, KV, S, T, window)
-        got = ops.flash_attention(q, k, v, causal=True, window=window)
-        want = ops.flash_attention(q, k, v, causal=True, window=window,
-                                   impl="ref")
+    for name, B, H, KV, S, T, window, dh, causal in FLASH_SHAPES:
+        (q, k, v), flops, nbytes = flash_case(torch, B, H, KV, S, T, window,
+                                              dh, causal)
+        kw = dict(causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, impl="ref", **kw)
         err = compare(torch, got, want, name)
         fa_err = max(fa_err, err)
-        ms = cuda_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=True, window=window))
+        ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                     iters=50, hide_host=True)
         plain = cuda_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=True, window=window, impl="ref"), iters=5)
+            q, k, v, impl="ref", **kw), iters=5)
         lib = None
         if not window:      # one PyTorch call computing the same function
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=H != KV), iters=50,
+                hide_host=True)
+        old = ""
+        if parent is not None:
+            old = "  parent %.4f ms" % cuda_ms(
+                torch, lambda: parent.flash_attention(q, k, v, **kw),
+                iters=50, hide_host=True)
         b_ms, b_by = bound(flops, nbytes)
-        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-              f"plain {plain:.4f} ms  sdpa {lib}  bound {b_ms:.4f} ms "
+        sdpa = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{old}  "
+              f"plain {plain:.4f} ms  sdpa {sdpa}  bound {b_ms:.4f} ms "
               f"({b_by})", flush=True)
         if fa_main is None:
             fa_main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib)
+        del q, k, v, got, want
     return [
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -770,17 +830,22 @@ DENSE_DECODE_SHAPES = (
     ("codeqwen static KV=32 T=640", 8, 640, 32, 1, 128, [400] * 8),
     ("GQA KV=8 G=4 T=640", 8, 640, 8, 4, 128, [640, 0, 300, 64, 1, 639, 500,
                                                  17]),
+    ("GQA KV=4 G=7 T=640 (qwen2-vl-7b)", 8, 640, 4, 7, 128,
+     [640, 0, 300, 64, 1, 639, 500, 17]),
+    ("GQA KV=8 G=12 T=640 (command-r-plus)", 8, 640, 8, 12, 128,
+     [640, 0, 300, 64, 1, 639, 500, 17]),
     ("whisper self KV=6 dh=64 T=288", 8, 288, 6, 1, 64, [200] * 8),
     ("whisper cross KV=6 dh=64 T=1500", 8, 1500, 6, 1, 64, [1500] * 8),
 )
 
 
-def phase_dense_decode(torch, ops, dec):
+def phase_dense_decode(torch, ops, dec, parent=None):
     """(f0) the dense decode-attention kernel against its plain version at
     the static paths' shapes, the cache a strided (B, T, KV, dh) layer of
     a stacked (2, B, T, KV, dh) cache, as the models pass it; timed with
-    the host's enqueue hidden, beside the bytes bound and SDPA with a
-    length mask. Returns the kernel's record (launches filled in by (f))."""
+    the host's enqueue hidden, beside the bytes bound, SDPA with a length
+    mask and (given) the parent's kernel. Returns the kernel's record
+    (launches filled in by (f))."""
     import torch.nn.functional as F
 
     print("== (f0) dense decode attention vs plain version", flush=True)
@@ -814,19 +879,34 @@ def phase_dense_decode(torch, ops, dec):
         live = sum(min(n, T) for n in lengths)
         nbytes = 2 * live * KV * dh * 2 + 2 * q.numel() * 2 + B * 4
         b_ms, b_by = bound(4 * live * KV * G * dh, nbytes)
-        flash = ""
+        extra = ""
         if len(set(lengths)) == 1:      # the flash kernel at S = 1 over the
-            n = lengths[0]              # cache prefix: the earlier path
+            n = lengths[0]              # prefix: the static decode's old path
             fl = cuda_ms(torch, lambda: ops.flash_attention(
                 q[:, None], k[:, :n], v[:, :n], causal=True), iters=50,
                 hide_host=True)
-            flash = f"  flash S=1 {fl:.4f} ms"
-        print(f"  {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
-              f"{plain:.4f} ms  sdpa {lib:.4f} ms{flash}  bound {b_ms:.4f} "
-              f"ms ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+            extra += f"  flash S=1 {fl:.4f} ms"
+        if parent is not None and G in (1, 2, 4, 8):
+            extra += "  parent %.4f ms" % cuda_ms(
+                torch, lambda: parent.decode_attention(q, k, v, lens),
+                iters=50, hide_host=True)
+        splits, _ = dec.split_plan(B, KV, G, T)
+        print(f"  {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms "
+              f"({splits} splits)  plain {plain:.4f} ms  sdpa {lib:.4f} ms"
+              f"{extra}  bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} "
+              f"MB)", flush=True)
         if main is None:
             main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                         library_ms=lib)
+            # the same call with T in 1 and in 3 chunks: what splitting
+            # costs or buys at this shape
+            qk = q.view(B, KV, G, dh)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            one, three = (cuda_ms(torch, lambda: dec.decode_attention(
+                qk, kt, vt, lens, splits=n), iters=50, hide_host=True)
+                for n in (1, 3))
+            print(f"  {label}, T in 1 / 3 splits: {one:.4f} / {three:.4f} ms",
+                  flush=True)
         del q, cache, k, v, got, want
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -933,7 +1013,12 @@ def phase_static_breakdown(torch, api, cfg, params):
         cfg, params, prompt, 512), steps=2)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", default=None,
+                    help="an earlier checkout whose attention kernels are "
+                         "timed beside this tree's")
+    args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -972,7 +1057,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = phase_kernels(torch, ops, dec, fa)
+    parent = load_parent(args.parent)
+    kernels = phase_kernels(torch, ops, dec, fa, parent)
 
     cfg = get_config("codeqwen1.5-7b")
     t0 = time.monotonic()
@@ -1019,7 +1105,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    dense_dec = phase_dense_decode(torch, ops, dec)
+    dense_dec = phase_dense_decode(torch, ops, dec, parent)
     counters = (dec.decode_attention, fa.flash_attention, gm.grouped_mvm,
                 dec.paged_decode_attention, *canvas_counters())
     cfg = get_config("olmoe-1b-7b")

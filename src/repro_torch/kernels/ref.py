@@ -180,6 +180,47 @@ def decode_attention(q, k, v, lengths, *, scale=None):
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_attention_split(q, k, v, lengths, splits: int, *, scale=None,
+                           tile: int = 64):
+    """``decode_attention`` computed as the dense kernel's split-T
+    arithmetic: T is cut into ``splits`` chunks of a whole number of
+    ``tile``-token tiles (the kernel's chunking); each chunk yields its
+    own partial (max m, sum l, accumulator acc) over its live keys, a
+    chunk with none gives l = 0, and the partials merge by log-sum-exp.
+    A row whose chunks are all empty yields zeros. Same layouts as
+    ``decode_attention``; the main path never calls it."""
+    B, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    tiles = max(1, -(-T // tile))
+    chunk = tile * -(-tiles // min(splits, tiles))
+    qg = q.reshape(B, KV, G, dh).float() * scale
+    lengths = lengths.to(q.device)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, T)
+        pos = torch.arange(lo, max(lo, hi), device=q.device)
+        valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
+        logits = torch.einsum("bkgd,btkd->bkgt", qg, k[:, lo:hi].float())
+        logits = logits.masked_fill(~valid, -math.inf)
+        m = logits.amax(-1) if hi > lo else torch.full(
+            (B, KV, G), -math.inf, device=q.device)
+        p = torch.exp(logits - torch.where(m.isinf(), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p, v[:, lo:hi].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    top = m.amax(0)
+    w = torch.where(l > 0, torch.exp(m - torch.where(top.isinf(), 0.0, top)),
+                    0.0)
+    den = (w * l).sum(0)
+    num = (w[..., None] * acc).sum(0)
+    out = torch.where(den[..., None] > 0,
+                      num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale=None):
     """q: (B, H, dh); k/v_pages: (P, page, KV, dh); page_table: (B, M).

@@ -3,23 +3,26 @@
 ``--mode engine`` runs the Engine (admission queue, per-slot request
 state, paged KV cache, slot recycling) against a mixed-length Poisson
 arrival trace; ``--mode static`` runs the lockstep baseline on the same
-trace. Weights are random (``init_params`` from ``--seed``). ``--full``
-serves the published width of ``--arch``; without it, the reduced
-config. The dense archs (codeqwen1.5-7b, olmo-1b) serve through the
-paged-KV backend, deepseek-v2-lite-16b (MLA-MoE) through the latent-page
-backend. olmoe-1b-7b (GQA-MoE) and whisper-tiny (encoder-decoder) have
-no engine backend, as in the reference: they serve with ``--mode
-static``, whisper's requests carrying random frame embeddings drawn from
-the trace's rng. The run is on the card unless ``--device cpu`` is given.
+trace; ``--mode auto`` (the default, as in the reference) takes the
+engine where ``engine_backend`` finds a backend for the config and the
+static path otherwise. Weights are random (``init_params`` from
+``--seed``). ``--full`` serves the published width of ``--arch``;
+without it, the reduced config. The dense archs (codeqwen1.5-7b,
+olmo-1b) serve through the paged-KV backend, deepseek-v2-lite-16b
+(MLA-MoE) through the latent-page backend. olmoe-1b-7b (GQA-MoE) and
+whisper-tiny (encoder-decoder) have no engine backend, as in the
+reference, so ``auto`` serves them static (``--mode engine`` raises),
+whisper's requests carrying random frame embeddings drawn from the
+trace's rng. The run is on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
-      --full --mode engine
+      --full
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch deepseek-v2-lite-16b --full --mode engine --greedy
+      --arch deepseek-v2-lite-16b --full --greedy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
-      --full --mode static --greedy
+      --full --greedy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
-      --full --mode static --greedy
+      --full --greedy
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import json
 
 from ..configs import get_config
 from ..models import get_model
-from ..runtime import (Engine, EngineConfig, encdec_extras_fn, poisson_trace,
-                       run_static)
+from ..runtime import (Engine, EngineConfig, encdec_extras_fn, engine_backend,
+                       poisson_trace, run_static)
 
 
 def _trace(cfg, args):
@@ -82,7 +85,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="codeqwen1.5-7b")
     ap.add_argument("--full", action="store_true",
                     help="published width (default: the reduced config)")
-    ap.add_argument("--mode", default="engine", choices=("engine", "static"))
+    ap.add_argument("--mode", default="auto",
+                    choices=("auto", "engine", "static"),
+                    help="auto: the engine where the config has a backend, "
+                         "else static")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--batch", type=int, default=4,
                     help="static batch size / engine slot count")
@@ -104,8 +110,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    mode = args.mode
+    if mode == "auto":
+        mode = "engine" if engine_backend(cfg) else "static"
     params = get_model(cfg).init_params(cfg, args.seed, device=args.device)
-    if args.mode == "engine":
+    if mode == "engine":
         return run_engine(cfg, params, args)
     return run_static_mode(cfg, params, args)
 

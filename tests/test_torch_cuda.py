@@ -77,6 +77,9 @@ def test_paged_decode_kernel_matches_plain(dev, B, KV, G, dh, page, lengths):
     (2, 4, 1, 1, 77, 64, True, 0),
     (1, 4, 2, 100, 100, 64, False, 0),
     (1, 4, 4, 200, 200, 128, True, 48),
+    (1, 2, 2, 1500, 1500, 64, False, 0),   # S off the 64-row query tile
+    (2, 8, 2, 100, 300, 128, True, 0),     # S < T with GQA
+    (1, 4, 2, 256, 256, 64, True, 70),     # a window across tile edges
 ])
 def test_flash_kernel_matches_plain(dev, B, H, KV, S, T, dh, causal, window):
     rng = np.random.default_rng(1)
@@ -323,6 +326,12 @@ def test_latent_engine_on_the_card_matches_the_cpu_plain_path(dev):
     (3, 77, 2, 4, 64, [0, 77, 40]),
     (2, 130, 2, 8, 128, [130, 129]),
     (2, 96, 4, 2, 128, [200, 50]),        # lengths past T: masked by T
+    (2, 100, 2, 3, 128, [100, 65]),
+    (3, 200, 1, 7, 128, [1, 65, 200]),
+    (2, 640, 2, 12, 64, [640, 0]),
+    (2, 130, 1, 16, 128, [130, 1]),
+    (3, 1500, 2, 7, 64, [0, 1500, 65]),
+    (2, 300, 1, 20, 128, [300, 1]),       # G > 16: two query groups
 ])
 def test_decode_kernel_matches_plain_on_strided_views(dev, B, T, KV, G, dh,
                                                       lengths):
@@ -360,6 +369,31 @@ def test_decode_kernel_refuses_what_it_cannot_take(dev):
     q32, k32 = _bf16(rng, (2, 4, 32), dev), _bf16(rng, (2, 10, 2, 32), dev)
     with pytest.raises(ValueError, match="dh=32"):
         ops.decode_attention(q32, k32, k32, lens)
+    q7 = _bf16(rng, (2, 14, 64), dev)          # G = 7: any G has a kernel
+    torch.testing.assert_close(
+        ops.decode_attention(q7, k, k, lens).float(),
+        ops.decode_attention(q7, k, k, lens, impl="ref").float(), **TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 10])
+def test_decode_kernel_split_counts_agree(dev, splits):
+    """Every split count gives the plain result: one split writes bf16
+    directly, more go through the f32 partials and the combine kernel;
+    splits past a row's length (and every split of a length-0 row) are
+    empty. One launch counted per call either way."""
+    rng = np.random.default_rng(4)
+    B, T, KV, G, dh = 4, 600, 2, 4, 128
+    q = _bf16(rng, (B, KV * G, dh), dev)
+    k, v = _bf16(rng, (B, T, KV, dh), dev), _bf16(rng, (B, T, KV, dh), dev)
+    lens = torch.tensor([600, 0, 70, 1], dtype=torch.int32, device=dev)
+    n0 = dec.decode_attention.launches
+    got = dec.decode_attention(q.view(B, KV, G, dh), k.transpose(1, 2),
+                               v.transpose(1, 2), lens, splits=splits)
+    assert dec.decode_attention.launches == n0 + 1
+    want = ops.decode_attention(q, k, v, lens, impl="ref")
+    torch.testing.assert_close(got.view(B, KV * G, dh).float(), want.float(),
+                               **TOL)
+    assert torch.all(got[1] == 0)
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-tiny"])

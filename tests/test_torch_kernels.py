@@ -148,6 +148,74 @@ def test_decode_plain_matches_jax_ref(case, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
 
 
+SPLIT = [  # (B, KV, G, dh, T, bt, lengths, splits, tile): the split-T
+    # arithmetic at splits 1, 3, 7 with T off the chunk boundary, length-0
+    # rows, lengths past T, chunks wholly past T, and G in {1, 3, 7, 12, 16}
+    (3, 2, 1, 16, 77, 77, [77, 0, 40], 1, 16),
+    (3, 2, 1, 16, 77, 77, [77, 0, 40], 3, 16),
+    (2, 1, 3, 32, 150, 50, [150, 1], 3, 16),
+    (2, 2, 7, 16, 100, 100, [300, 0], 7, 16),
+    (2, 1, 12, 32, 96, 96, [96, 33], 7, 8),
+    (2, 1, 16, 16, 64, 64, [0, 64], 3, 64),
+    (1, 1, 7, 64, 130, 65, [129], 7, 64),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT)
+def test_decode_split_plain_matches_plain_and_pallas(case):
+    """The dense kernel's split-and-combine arithmetic (per-chunk partials,
+    log-sum-exp merge, empty chunks with l = 0) in f32 against the plain
+    decode and the Pallas kernel in interpret mode."""
+    B, KV, G, dh, T, bt, lengths, splits, tile = case
+    q, k, v, lens = _dense_case(5, B, KV, G, dh, T, lengths)
+    got = ref.decode_attention_split(torch.tensor(q), torch.tensor(k),
+                                     torch.tensor(v), torch.tensor(lens),
+                                     splits, tile=tile)
+    want = ref.decode_attention(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), torch.tensor(lens))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    pallas = np.asarray(jdec.decode_attention(
+        jnp.asarray(q.reshape(B, KV, G, dh)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(lens), bt=bt,
+        interpret=True))
+    np.testing.assert_allclose(got.reshape(B, KV, G, dh).numpy(), pallas,
+                               **TOL)
+    assert np.all(got.numpy()[lens == 0] == 0.0)
+
+
+@pytest.mark.parametrize("case", SPLIT)
+def test_decode_split_plain_bf16(case):
+    B, KV, G, dh, T, bt, lengths, splits, tile = case
+    q, k, v, lens = _dense_case(6, B, KV, G, dh, T, lengths)
+    args = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ref.decode_attention_split(*args, torch.tensor(lens), splits,
+                                     tile=tile)
+    assert got.dtype == torch.bfloat16
+    want = ref.decode_attention(*args, torch.tensor(lens))
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **TOL_BF16)
+
+
+def test_split_plan_covers_t_in_whole_tiles():
+    """Every plan covers T with whole 64-token tiles and no chunk wholly
+    past T; a grid covering half the SMs or more is not split, a smaller
+    one is; ``splits`` overrides the count."""
+    for B, KV, G, T in [(8, 16, 1, 640), (8, 6, 1, 1500), (8, 32, 1, 640),
+                        (8, 8, 4, 640), (8, 6, 1, 288), (1, 1, 1, 0),
+                        (2, 4, 7, 1), (1, 2, 20, 4097), (64, 8, 1, 100)]:
+        splits, chunk = tdec.split_plan(B, KV, G, T)
+        assert chunk % tdec.SPLIT_TILE == 0 and splits * chunk >= T
+        assert (splits - 1) * chunk < max(T, 1)
+        if 2 * B * KV * -(-G // tdec.QROWS) >= 132:
+            assert splits == 1
+    assert tdec.split_plan(8, 16, 1, 640) == (1, 640)     # olmoe: 128 blocks
+    assert tdec.split_plan(8, 8, 4, 640) == (3, 256)      # 64 blocks
+    assert tdec.split_plan(8, 6, 1, 1500) == (6, 256)     # whisper cross
+    assert tdec.split_plan(8, 16, 1, 640, splits=1) == (1, 640)
+    assert tdec.split_plan(8, 16, 1, 640, splits=100) == (10, 64)
+
+
 def test_decode_attention_dispatch_rules():
     """CPU tensors take the plain version; the kernel wrapper refuses
     them instead of quietly computing, and counts no launch."""

@@ -6,7 +6,7 @@ static serving path (``run_static``) and its entry point.
 Inputs come from numpy seeds. Tolerances: model logits and caches run in
 bf16 compute like the reference, which rounds at other places in XLA
 than PyTorch does (and rounds attention weights to bf16 where the port's
-flash and decode kernels keep them in f32): rtol = atol = 4e-2, a few
+plain attention, its CPU path, keeps them in f32): rtol = atol = 4e-2, a few
 bf16 quanta of logits of order 1-4 (tests/test_torch_models.py). Routing
 near a tie follows bf16 rounding, where the reference's compiled run and
 its op-by-op run (``jax.disable_jit``) can disagree; olmoe is held
@@ -30,10 +30,11 @@ from repro.models import get_model as jget_model
 from repro.models import layers as JL
 from repro.runtime import run_static as jrun_static
 from repro.runtime import scheduler as jsched
-from repro_torch.configs import get_config
+from repro.runtime.engine import engine_backend as jengine_backend
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
-from repro_torch.models import get_model
+from repro_torch.models import _FAMILIES, get_model
 from repro_torch.models import layers as L
 from repro_torch.runtime import (Engine, EngineConfig, Request,
                                  encdec_extras_fn, engine_backend,
@@ -268,6 +269,35 @@ def test_static_families_have_no_engine_backend():
         params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
         with pytest.raises(ValueError, match="no engine backend"):
             Engine(cfg, params, ecfg)
+
+
+@pytest.mark.parametrize("arch,mode", [("olmoe-1b-7b", "static"),
+                                       ("whisper-tiny", "static"),
+                                       ("codeqwen1.5-7b", "engine")])
+def test_serve_default_mode_auto_picks_engine_or_static(arch, mode, capsys):
+    """``launch.serve`` without ``--mode`` is ``--mode auto``, as in the
+    reference: the engine where the reduced config has a backend, the
+    static path otherwise."""
+    assert serve.main(["--arch", arch, "--device", "cpu", "--greedy",
+                       "--batch", "2", "--requests", "3", "--prompt-len",
+                       "8", "--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke mode={mode}" in out
+    assert out.rstrip().endswith("ok")
+
+
+SERVED = sorted(a for a in REGISTRY if get_config(a).family in _FAMILIES)
+
+
+@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_auto_mode_choice_equals_the_reference(arch, reduced):
+    """For every arch both packages serve, ``auto`` picks the engine
+    exactly where the reference's ``engine_backend`` finds a backend."""
+    cfg, jcfg = get_config(arch), jget(arch)
+    if reduced:
+        cfg, jcfg = cfg.reduced(), jcfg.reduced()
+    assert (engine_backend(cfg) is None) == (jengine_backend(jcfg) is None)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
