@@ -12,15 +12,26 @@ into build/repro_torch/), then:
       S = T = 1500, dh 64, not causal), times both with the host's
       enqueue hidden, beside ``scaled_dot_product_attention`` where one
       call computes the same function, and computes each kernel's bound
-      from this run's inputs;
+      from this run's inputs; the paged decode also at GQA groups of 4,
+      7 and 12 and in 1, 2, 4 and 8 splits;
   (b) serves codeqwen1.5-7b at full width (random weights from a seed)
       through the continuous-batching engine: 8 slots, a seeded trace of
-      16 requests, greedy decode in fused horizons of 32. The kernels'
-      launch counters are zeroed just before and read just after, and the
-      generated tokens are teacher-forced through the full-sequence
-      forward to check they are its greedy choices;
+      16 requests, greedy decode in fused horizons of 32, each replayed
+      from CUDA graphs. The kernels' launch counters are zeroed just
+      before and read just after (one paged launch a layer a decode step,
+      one flash launch a layer a prefill); the same run with every
+      horizon on the eager loop must give the same tokens, ledger and
+      launch counts; the paged decode kernel is timed on the lengths of
+      every decode step of that run (T 640), in 1 to 10 splits and as
+      planned; and the generated tokens are teacher-forced through the
+      full-sequence forward to check they are its greedy choices;
   (b') profiles one decode step and one 512-token prefill: host enqueue,
       wall and device busy time, and the top kernels;
+  (b'') runs one fused horizon of 32 steps on one backend's state two
+      ways, the eager loop and the engine's CUDA-graph replays: host
+      enqueue, wall and device busy a step and tokens/s of each; equal
+      tokens, loop tensors and launch counts; the graphed horizon again
+      with the card's sync check set to error;
   (c) runs the static lockstep baseline on the first 8 requests, with the
       attention kernels' launch counters zeroed just before and read just
       after: one dense decode-attention launch a layer a decode step, and
@@ -39,16 +50,19 @@ into build/repro_torch/), then:
       and read just after;
   (e0) holds the grouped expert GEMM against its plain version at the
       MoE path's shapes (deepseek-v2-lite-16b: 64 experts, D 2048 / F
-      1408 and back, C 8 at decode, 128 at prefill, and a ragged 5),
+      1408 and back, C 8 at decode, 64 and 128 at prefill, a ragged 5,
+      and a decode routed top-6 whose bound counts the touched experts),
       timed beside its bound and ``torch.bmm``;
   (e) serves deepseek-v2-lite-16b at full width and depth (random
       weights from a seed) through the engine's latent-page backend on
       (b)'s trace, with every kernel's launch counter zeroed just before
       and read just after (81 grouped launches a decode step and a
-      prefill), and teacher-forces the generated tokens through the
-      static prefill + per-token decode, which routes as the engine does;
+      prefill), its eager twin as in (b), and teacher-forces the
+      generated tokens through the static prefill + per-token decode,
+      which routes as the engine does;
   (e') profiles one deepseek decode step and one 512-token prefill, and
       runs one fused horizon with the card's sync check set to error;
+  (e+) the eager-vs-graphed horizons of (b'') on deepseek;
   (e'') runs the static lockstep baseline on deepseek, first 8 requests;
   (f0) holds the dense decode-attention kernel against its plain version
       at the static paths' shapes (olmoe-1b-7b B 8, KV 16, dh 128, T 640;
@@ -71,9 +85,10 @@ into build/repro_torch/), then:
       as (f) does.
 
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
-attention kernels are built into DIR/build and timed in the same call
-beside this tree's, at (a)'s and (f0)'s shapes (the earlier dense decode
-kernel only where it has an instance for G).
+attention kernels and grouped GEMM are built into DIR/build and timed in
+the same call beside this tree's, at (a)'s, (e0)'s and (f0)'s shapes (an
+earlier kernel only where it has an instance for G, and the grouped GEMM
+only where every row is live).
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -140,11 +155,12 @@ def compare(torch, got, want, what: str, tol=None) -> float:
     return err
 
 
-def decode_case(torch, B, KV, G, lengths, page=16, dh=128, seed=0):
+def decode_case(torch, B, KV, G, lengths, page=16, dh=128, seed=0, T=2048):
     """Inputs of one paged decode call: a pool holding every row's pages
-    at random page ids, dead table slots on the trash page."""
+    at random page ids, dead table slots on the trash page; a table row
+    holds T tokens."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    M = 2048 // page
+    M = T // page
     n_pages = [-(-n // page) for n in lengths]
     P = 1 + sum(n_pages) + 8
     kp = torch.randn((KV, P, page, dh), generator=gen, device=DEV
@@ -200,8 +216,22 @@ def load_parent(path):
     sys.modules["parent_repro_torch"] = mod
     spec.loader.exec_module(mod)
     build = importlib.import_module("parent_repro_torch.kernels._build")
-    build.build(["paged_decode_attention", "flash_attention"])
+    build.build(["paged_decode_attention", "flash_attention", "grouped_mvm"])
     return importlib.import_module("parent_repro_torch.kernels.ops")
+
+
+# (label, B, KV, G, lengths, T) of the paged decode kernel: rows ragged to
+# 2,048 tokens (a length-0 row third), the first at codeqwen1.5-7b's widths
+# (the main row), then GQA groups of 4, 7 (qwen2-vl-7b) and 12
+# (command-r-plus); last, the engine's decode step of (b') (8 x 400 tokens
+# in 40-page table rows)
+RAGGED = [2048, 1, 700, 0, 1333, 16, 1999, 257]
+PAGED_SHAPES = (("decode B=8 KV=32 G=1", 8, 32, 1, RAGGED, 2048),
+                ("decode B=8 KV=8 G=4", 8, 8, 4, RAGGED, 2048),
+                ("decode B=8 KV=4 G=7", 8, 4, 7, RAGGED, 2048),
+                ("decode B=8 KV=8 G=12", 8, 8, 12, RAGGED, 2048),
+                ("decode B=8 KV=32 G=1 engine step 8 x 400 of 640", 8, 32, 1,
+                 [400] * 8, 640))
 
 
 # (label, B, H, KV, S, T, window, dh, causal) of the flash kernel; the first
@@ -226,29 +256,39 @@ def phase_kernels(torch, ops, dec, fa, parent=None):
     import torch.nn.functional as F
 
     print("== (a) kernels vs plain versions", flush=True)
-    ragged = [2048, 1, 700, 0, 1333, 16, 1999, 257]   # incl. a length-0 row
     dec_err, dec_main = 0.0, None
-    for name, B, KV, G in (("decode B=8 KV=32 G=1", 8, 32, 1),
-                           ("decode B=8 KV=8 G=4", 8, 8, 4)):
-        args, flops, nbytes = decode_case(torch, B, KV, G, ragged)
+    for name, B, KV, G, lengths, T in PAGED_SHAPES:
+        args, flops, nbytes = decode_case(torch, B, KV, G, lengths, T=T)
         got = ops.paged_decode_attention(*args)
         want = ops.paged_decode_attention(*args, impl="ref")
         err = compare(torch, got, want, name)
-        assert torch.all(got[3] == 0), "length-0 row must yield zeros"
+        for b, n in enumerate(lengths):
+            if n == 0:
+                assert torch.all(got[b] == 0), "length-0 row must be zeros"
         dec_err = max(dec_err, err)
         ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*args),
                      iters=50, hide_host=True)
         plain = cuda_ms(torch, lambda: ops.paged_decode_attention(
             *args, impl="ref"), iters=5)
         b_ms, b_by = bound(flops, nbytes)
+        # T = M * page cut into 1 .. 8 chunks: what the plan's choice costs
+        q, kp, vp, table, lens = args
+        qk = q.view(B, KV, G, q.shape[-1])
+        sweep = "  ".join(
+            "%d: %.4f" % (n, cuda_ms(torch, lambda n=n: dec.paged_decode_attention(
+                qk, kp, vp, table, lens, splits=n), iters=50, hide_host=True))
+            for n in (1, 2, 4, 8))
         old = ""
-        if parent is not None:
+        if parent is not None and G in (1, 2, 4, 8):
             old = "  parent %.4f ms" % cuda_ms(
                 torch, lambda: parent.paged_decode_attention(*args),
                 iters=50, hide_host=True)
-        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{old}  "
-              f"plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+        plan, _ = dec.split_plan(B, KV, G, T,
+                                 max_tiles=dec.PAGED_CHUNK_TILES)
+        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms "
+              f"({plan} splits; {ms / KV:.5f} ms a kv head){old}  plain "
+              f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})\n"
+              f"    splits -> ms  {sweep}", flush=True)
         if dec_main is None:
             dec_main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None)
@@ -322,9 +362,7 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     engine = rt.Engine(cfg, params, ecfg)
     for k in kernels:
         k["counter"].launches = 0
-    torch.cuda.synchronize()
-    rep = engine.run(copy.deepcopy(trace))
-    torch.cuda.synchronize()
+    rep, rise = run_counted(torch, engine, trace)
     for k in kernels:
         k["launches"] = k.pop("counter").launches
     summary = rep.summary()
@@ -332,6 +370,14 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     for k in kernels:
         print(f"  launches {k['name']}: {k['launches']}")
         assert k["launches"] > 0, f"{k['name']} never ran on the main path"
+    counts = {k["name"]: k["launches"] for k in kernels}
+    # one paged launch a layer a decode step (graph replays count theirs),
+    # one flash launch a layer a prefill
+    assert counts["paged_decode_attention"] == \
+        cfg.num_layers * rep.decode_steps, counts
+    assert counts["flash_attention"] == \
+        cfg.num_layers * rep.prefill_calls, counts
+    print_graph(engine.backend.graph, rep)
     assert len(rep.completed) == len(trace)
     for r in rep.completed:
         assert not r.truncated and len(r.generated) == r.max_new_tokens
@@ -342,6 +388,9 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
           f"{rep.prefill_wall_s:.3f} s  tokens/s "
           f"{summary['tokens_per_s']}  host syncs per token "
           f"{rep.host_syncs / n_tok:.4f}", flush=True)
+    steps = eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
+    from repro_torch.kernels import decode_attention as dec
+    paged_at_run_lengths(torch, dec, cfg, steps)
     worst, scale = 0.0, 0.0
     for r in rep.completed[:3]:
         worst = max(worst, greedy_gap(torch, T, cfg, params, r))
@@ -358,6 +407,121 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     # corrupted cache would put it O(scale) away
     assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
     return rep
+
+
+# the engine report's ledger: what a graphed run must share with an eager one
+LEDGER = ("decode_steps", "slot_steps", "useful_slot_steps", "prefill_calls",
+          "prefill_tokens", "preemptions", "peak_live_pages",
+          "device_dispatches", "host_syncs", "page_table_upload_bytes",
+          "new_tokens")
+
+
+def run_counted(torch, engine, trace):
+    """``engine.run`` on a copy of ``trace``: the report and the rise of
+    every kernel wrapper's launch counter."""
+    from repro_torch.kernels import ops
+    counters = ops.launch_counters()
+    before = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    rep = engine.run(copy.deepcopy(trace))
+    torch.cuda.synchronize()
+    return rep, {c.__name__: c.launches - b for c, b in zip(counters, before)}
+
+
+def eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise) -> list:
+    """The same engine run again with every fused horizon through the
+    eager loop (``decode_eager``) in place of the graph replays: the same
+    tokens, ledger and launch counts as the graphed run ``rep`` / ``rise``,
+    and its decode wall and tokens/s beside the graphed run's. Returns the
+    lengths the paged attention kernel took at each decode step (B ints,
+    0 for a slot that did not decode), read from each horizon's start."""
+    engine = rt.Engine(cfg, params, ecfg)
+    be = engine.backend
+    steps = []
+
+    def eager(pending, lengths, remaining, table, mask, h, teacher=None):
+        n, r = lengths.tolist(), remaining.tolist()
+        for i in range(h):      # paged_decode_step attends lengths + 1
+            steps.append([n[b] + i + 1 if mask[b] and r[b] > i else 0
+                          for b in range(len(n))])
+        return be.decode_eager(pending, lengths, remaining, table,
+                               torch.as_tensor(mask, device=DEV), h, teacher)
+
+    be.decode_fused = eager
+    erep, erise = run_counted(torch, engine, trace)
+    assert be.graph is None
+    assert {r.rid: r.generated for r in erep.completed} == \
+        {r.rid: r.generated for r in rep.completed}, "tokens differ"
+    for f in LEDGER:
+        assert getattr(erep, f) == getattr(rep, f), f
+    assert erise == rise, (erise, rise)
+    print(f"  eager twin: same tokens, ledger and launches; decode wall "
+          f"{erep.decode_wall_s:.3f} s against {rep.decode_wall_s:.3f} s "
+          f"graphed, tokens/s {erep.summary()['tokens_per_s']} against "
+          f"{rep.summary()['tokens_per_s']}", flush=True)
+    return steps
+
+
+def paged_at_run_lengths(torch, dec, cfg, steps, M=40, page=16) -> None:
+    """The paged decode kernel at the engine's own shape (codeqwen widths,
+    a table of M pages of ``page`` tokens) on the lengths of every decode
+    step of (b) (``steps``, from ``eager_twin``): the kernel's total time
+    over those steps in 1, 2, 3, 4, 5 and 10 splits of T = M * page and
+    in ``split_plan``'s choice, beside the bytes bound of those steps."""
+    B = len(steps[0])
+    KV, dh = cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    kp, vp = (torch.randn((KV, 1 + B * M, page, dh), generator=gen,
+                          device=DEV).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, KV, cfg.num_heads // KV, dh), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    table = torch.arange(1, 1 + B * M, dtype=torch.int32,
+                         device=DEV).view(B, M)
+    lens = torch.tensor(steps, dtype=torch.int32, device=DEV)
+    live = int(lens.sum())
+    nbytes = (2 * live * KV * dh * 2 + len(steps) * (2 * q.numel() * 2
+                                                     + B * M * 4 + B * 4))
+    b_ms, _ = bound(4 * live * q.shape[1] * q.shape[2] * dh, nbytes)
+    n = len(steps)
+    plan, _ = dec.split_plan(B, KV, q.shape[2], M * page,
+                             max_tiles=dec.PAGED_CHUNK_TILES)
+    times = {}
+    for s in (None, 1, 2, 3, 4, 5, 10):
+        times[s] = cuda_ms(torch, lambda s=s: [
+            dec.paged_decode_attention(q, kp, vp, table, lens[i], splits=s)
+            for i in range(n)], iters=3, warmup=1, hide_host=True) / n
+    print(f"  paged kernel at this run's {n} decode steps' lengths (mean "
+          f"{live / n / B:.1f} a slot, T {M * page}): a step "
+          f"{times[None]:.5f} ms as planned ({plan} splits)  bound "
+          f"{b_ms / n:.5f} ms\n    splits -> ms a step  "
+          + "  ".join(f"{s}: {times[s]:.5f}" for s in (1, 2, 3, 4, 5, 10)),
+          flush=True)
+
+
+def print_graph(graph, rep) -> None:
+    """The engine's fused horizons as CUDA-graph replays, beside its
+    dispatch and sync counts (one each a horizon, as the reference's)."""
+    assert graph is not None and graph.graphed, "the card decodes graphed"
+    assert graph.horizons == rep.host_syncs
+    print(f"  fused horizons {graph.horizons} (one-step graph): "
+          f"{graph.replays} replays, {graph.replays / graph.horizons:.2f} a "
+          f"horizon; device_dispatches {rep.device_dispatches}, host_syncs "
+          f"{rep.host_syncs}", flush=True)
+
+
+def device_busy(torch, fn) -> float:
+    """Kernel time (ms) of one call of ``fn`` from torch.profiler, 0.0
+    where the trace shows none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def breakdown(torch, label: str, fn, steps: int = 4) -> None:
@@ -661,42 +825,71 @@ def phase_pack(torch, pack, kernels):
 # --- MoE path (deepseek-v2-lite-16b) ---------------------------------------------
 
 
-# (label, E, C, D, F) of the grouped GEMM at deepseek-v2-lite-16b widths;
-# the first is the main path's most frequent launch
-GROUPED_SHAPES = (("decode gate/up", 64, 8, 2048, 1408),
-                  ("decode down", 64, 8, 1408, 2048),
-                  ("prefill gate/up", 64, 128, 2048, 1408),
-                  ("ragged C=5 gate/up", 64, 5, 2048, 1408))
+# (label, E, C, D, F, routed) of the grouped GEMM at deepseek-v2-lite-16b
+# widths. ``routed``: x and ``rows`` from a seeded top-6 routing of the
+# C = 8 decode tokens, as moe_ffn passes them (rows past each count zero,
+# an expert no token chose reads nothing). The first, a routed decode
+# launch, is the main path's most frequent launch (moe_ffn always passes
+# ``rows``) and the kernels record's row; the all-live rows follow, where
+# torch.bmm and an earlier kernel compute the same function. C = 64
+# beside C = 128 shows whether a prefill launch reads the weights once.
+GROUPED_SHAPES = (("routed decode top-6 of 8 tokens gate/up", 64, 8, 2048,
+                   1408, True),
+                  ("decode gate/up", 64, 8, 2048, 1408, False),
+                  ("decode down", 64, 8, 1408, 2048, False),
+                  ("prefill C=64 gate/up", 64, 64, 2048, 1408, False),
+                  ("prefill gate/up", 64, 128, 2048, 1408, False),
+                  ("ragged C=5 gate/up", 64, 5, 2048, 1408, False))
 
 
-def phase_grouped(torch, ops, gm):
+def routed_rows(torch, gen, E, C, k=6):
+    """Kept rows per expert of C tokens that each pick k distinct experts
+    (uniformly, from ``gen``): (E,) int32 counts on the card."""
+    picks = torch.rand((C, E), generator=gen, device=DEV).argsort(-1)[:, :k]
+    return torch.bincount(picks.flatten(), minlength=E).to(torch.int32)
+
+
+def phase_grouped(torch, ops, gm, parent=None):
     """(e0) the grouped expert GEMM against its plain version at the MoE
-    path's shapes, all bf16. Returns the kernel's record (launches filled
-    in by phase_moe_engine)."""
+    path's shapes, all bf16, and (given) the parent's kernel where it
+    computes the same function (every row live). Returns the kernel's
+    record (launches filled in by phase_moe_engine)."""
     print("== (e0) grouped expert GEMM vs plain version", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(5)
     main, err_max = None, 0.0
-    for label, E, C, D, F in GROUPED_SHAPES:
+    for label, E, C, D, F, routed in GROUPED_SHAPES:
         x = torch.randn((E, C, D), generator=gen, device=DEV
                         ).to(torch.bfloat16)
         w = (torch.randn((E, D, F), generator=gen, device=DEV) / D ** 0.5
              ).to(torch.bfloat16)
-        got = ops.grouped_mvm(x, w)
-        want = ops.grouped_mvm(x, w, impl="ref")
+        rows = routed_rows(torch, gen, E, C) if routed else None
+        live = torch.full((E,), C, device=DEV) if rows is None else rows
+        x *= (torch.arange(C, device=DEV)[None, :]
+              < live[:, None])[..., None]
+        got = ops.grouped_mvm(x, w, rows)
+        want = ops.grouped_mvm(x, w, rows, impl="ref")
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), f"{label}: non-finite output"
         err = compare(torch, got, want, f"grouped_mvm {label}")
         err_max = max(err_max, err)
-        ms = cuda_ms(torch, lambda: ops.grouped_mvm(x, w))
-        plain = cuda_ms(torch, lambda: ops.grouped_mvm(x, w, impl="ref"),
-                        iters=5)
+        ms = cuda_ms(torch, lambda: ops.grouped_mvm(x, w, rows))
+        plain = cuda_ms(torch, lambda: ops.grouped_mvm(x, w, rows,
+                                                       impl="ref"), iters=5)
         lib = cuda_ms(torch, lambda: torch.bmm(x, w))
-        nbytes = (x.numel() + w.numel() + got.numel()) * 2
-        b_ms, b_by = bound(2 * E * C * D * F, nbytes)
-        print(f"  {label} (E {E} C {C} D {D} F {F}): max_abs_err "
-              f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-              f"torch.bmm {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
-              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        old = ""
+        if parent is not None and rows is None:
+            old = "  parent %.4f ms" % cuda_ms(
+                torch, lambda: parent.grouped_mvm(x, w))
+        # the weights of experts with rows, their live x rows, all of y
+        touched = int((live > 0).sum())
+        n_rows = int(live.sum())
+        nbytes = (touched * D * F + n_rows * D + E * C * F) * 2
+        b_ms, b_by = bound(2 * n_rows * D * F, nbytes)
+        print(f"  {label} (E {E} C {C} D {D} F {F}; {touched} experts, "
+              f"{n_rows} rows live): max_abs_err {err:.3e}  kernel "
+              f"{ms:.4f} ms{old}  plain {plain:.4f} ms  torch.bmm {lib:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)",
+              flush=True)
         if main is None:
             main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                         library_ms=lib)
@@ -743,9 +936,7 @@ def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
     counters = [grouped["counter"], *others]
     for c in counters:
         c.launches = 0
-    torch.cuda.synchronize()
-    rep = engine.run(copy.deepcopy(trace))
-    torch.cuda.synchronize()
+    rep, rise = run_counted(torch, engine, trace)
     counts = {c.__name__: c.launches for c in counters}
     grouped["launches"] = grouped.pop("counter").launches
     summary = rep.summary()
@@ -758,6 +949,7 @@ def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
           f"{rep.prefill_calls})", flush=True)
     assert grouped["launches"] == per_call * (rep.decode_steps
                                               + rep.prefill_calls), counts
+    print_graph(engine.backend.graph, rep)
     assert len(rep.completed) == len(trace)
     for r in rep.completed:
         assert not r.truncated and len(r.generated) == r.max_new_tokens
@@ -769,6 +961,7 @@ def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
           f"{summary['tokens_per_s']}  host syncs per token "
           f"{rep.host_syncs / n_tok:.4f}  page bytes {rep.page_bytes}",
           flush=True)
+    eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
     worst = max(static_gap(torch, api, cfg, params, r)
                 for r in rep.completed[:3])
     seq = torch.tensor([list(rep.completed[0].prompt)], device=DEV)
@@ -817,6 +1010,83 @@ def phase_moe_breakdown(torch, MoE, cfg, params):
     assert (out.cpu() >= 0).all() and (lens2.cpu() == 404).all()
     print("  fused horizon of 4 steps: no host sync inside (sync debug "
           "mode error)", flush=True)
+
+
+def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
+    """One engine backend's state (8 slots x 400 cached tokens, random
+    pool, page 16, 40 table rows): the same fused horizon of ``h`` greedy
+    steps from the same loop tensors through the eager loop
+    (``decode_eager``) and the engine's one-step graph replays
+    (``DecodeGraph``). Each is run once first (the graph captures there),
+    then timed: host enqueue, wall and device busy a step, tokens/s.
+    Tokens, loop tensors and kernel launch counts must be equal; a graphed
+    horizon then runs with the card's sync check set to error."""
+    print(f"== {label} fused horizon, eager vs graphed, {cfg.name}",
+          flush=True)
+    B, page, M = 8, 16, 40
+    ecfg = rt.EngineConfig(num_slots=B, page_size=page, num_pages=1 + B * M,
+                           max_pages_per_seq=M, prefill_bucket=128,
+                           greedy=True, horizon=h)
+    be = rt.resolve_backend(cfg)(cfg, params, ecfg)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for pool in vars(be.state).values():
+        pool.normal_(generator=gen)
+    table = torch.arange(1, 1 + B * M, dtype=torch.int32,
+                         device=DEV).view(B, M)
+    start = dict(
+        pending=torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                              device=DEV, dtype=torch.int32),
+        lengths=torch.full((B,), 400, dtype=torch.int32, device=DEV),
+        remaining=torch.full((B,), h, dtype=torch.int32, device=DEV))
+    mask = torch.ones((B,), dtype=torch.bool, device=DEV)
+    graph = rt.DecodeGraph(be.decode_step, B, M, h, DEV)
+    runs = {"eager": be.decode_eager, "graphed": graph.run}
+    counters = ops.launch_counters()
+
+    def horizon(run):
+        t = {k: v.clone() for k, v in start.items()}
+        out = run(t["pending"], t["lengths"], t["remaining"], table, mask, h)
+        return out, t
+
+    results = {}
+    for name, run in runs.items():
+        t0 = time.monotonic()
+        horizon(run)                    # warm-up; the graphs capture here
+        torch.cuda.synchronize()
+        first = time.monotonic() - t0
+        before = [c.launches for c in counters]
+        t0 = time.monotonic()
+        out, t = horizon(run)
+        enqueue = time.monotonic() - t0
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        rise = [c.launches - b for c, b in zip(counters, before)]
+        busy = device_busy(torch, lambda run=run: horizon(run))
+        results[name] = (out, t, rise)
+        print(f"  {name}: first horizon {first:.2f} s; then a step: host "
+              f"enqueue {enqueue * 1e3 / h:.3f} ms  wall "
+              f"{wall * 1e3 / h:.3f} ms  device busy "
+              + (f"{busy / h:.3f} ms" if busy else "not measured")
+              + f"  tokens/s {B * h / wall:.1f}", flush=True)
+    base_out, base_t, base_rise = results["eager"]
+    for name, (out, t, rise) in results.items():
+        assert torch.equal(out, base_out), f"{name}: tokens differ"
+        for k, v in t.items():
+            assert torch.equal(v, base_t[k]), f"{name}: {k} differs"
+        assert rise == base_rise, (name, rise, base_rise)
+    print(f"  equal tokens, loop tensors and launches "
+          f"{dict(zip((c.__name__ for c in counters), base_rise))}; "
+          f"{graph.replays} replays in {graph.horizons} horizons",
+          flush=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        horizon(graph.run)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  graphed horizon: no host sync inside (sync debug mode error)",
+          flush=True)
+    del be, graph, runs
+    torch.cuda.empty_cache()
 
 
 # --- static-only families (olmoe-1b-7b, whisper-tiny) ------------------------------
@@ -1072,6 +1342,7 @@ def main(argv=None) -> int:
                              vocab_size=cfg.vocab_size, seed=0)
     phase_engine(torch, T, rt, cfg, params, trace, kernels)
     phase_breakdown(torch, T, cfg, params)
+    phase_horizon(torch, rt, ops, cfg, params, "(b'')")
     phase_static(torch, rt, cfg, params, trace,
                  attn=(dec.decode_attention, fa.flash_attention))
     del params
@@ -1083,7 +1354,7 @@ def main(argv=None) -> int:
     phase_pack(torch, pack, canvas)
     kernels += canvas
 
-    grouped = phase_grouped(torch, ops, gm)
+    grouped = phase_grouped(torch, ops, gm, parent)
     cfg = get_config("deepseek-v2-lite-16b")
     api = get_model(cfg)
     torch.cuda.empty_cache()
@@ -1100,6 +1371,7 @@ def main(argv=None) -> int:
               *canvas_counters())
     phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others)
     phase_moe_breakdown(torch, MoE, cfg, params)
+    phase_horizon(torch, rt, ops, cfg, params, "(e+)")
     phase_static(torch, rt, cfg, params, trace, "(e'')")
     kernels.append(grouped)
     del params

@@ -3,34 +3,38 @@
 //   y[e] (C, F) = x[e] (C, D) @ w[e] (D, F)   for e in [0, E)
 //
 // f32 accumulation, one rounding to x's type at the end; x, w and y share
-// one type (f32 or bf16).
+// one type (f32 or bf16). With ``rows`` (E,) int32 on the device, only rows
+// c < rows[e] of expert e are computed: the others of y[e] are written as
+// zeros, their x rows are never read, and an expert with no rows reads none
+// of its weights.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/packed_mvm.py
 // (grouped_mvm / _kernel). The TPU grid (E, C/bc, F/bf, D/bd) stepped over
 // D innermost and in order, carrying an f32 accumulator in VMEM across the
 // D steps, and its _pick shrank each tile to a divisor of its dimension.
-// CUDA blocks run in no order, so one CUDA block per (e, c-tile, f-tile)
-// walks the whole D axis itself in 128-deep chunks and writes its (BM, 128)
-// output tile once; nothing crosses CUDA blocks. Tiles are fixed instead of
-// divisors: loads and stores are masked by the true C, D and F (F = 1408 is
-// 11 x 128; C = 5 or 60 happen in real routing), and rows or columns past
-// an edge are zero-filled in shared memory, so they add nothing.
+// CUDA blocks run in no order, so one CUDA block per (e, c-tile, f-tile;
+// 128 columns, 64 at decode) walks the whole D axis itself and writes its
+// output tile once;
+// nothing crosses CUDA blocks. Tiles are fixed instead of divisors: loads
+// and stores are masked by the true C (or rows[e]), D and F (F = 1408 is 11
+// x 128; C = 5 or 60 happen in real routing), and rows or columns past an
+// edge are zero-filled in shared memory, so they add nothing.
 //
-// Bound: at decode (C = 8) device-memory bytes. Every expert's weights are
-// read once per c-tile (369 MB a launch at deepseek-v2-lite widths) for
-// 2 * C FLOPs a weight, far below the card's ~295 FLOP/byte balance point;
-// a two-stage cp.async ring keeps the next 128-row weight chunk and its x
-// slice in flight while the current one is multiplied. At prefill
-// (C = 128) the multiply-adds: bf16 launches with C > 32 run them on the
-// tensor cores (mma.sync m16n8k16, f32 accumulate; wgmma/TMA are later
-// work), f32 launches as f32 FMAs on the CUDA cores.
-//
-// Work split of the FMA instances (as packed_canvas.cu): 256 threads = 8
-// warps; lane l owns output columns [4l, 4l+4) of the tile. With BM = 64
-// the 8 warps each own 8 rows of x; with BM = 8 they split each 128-deep
-// chunk into 8 slices of 16 and their partial sums meet in shared memory
-// at the flush. Either way a thread holds an 8 x 4 accumulator. The
-// tensor-core instance is described where it is defined.
+// Bound: at decode (C = 8) device-memory bytes: each expert's weights for
+// 2 * C FLOPs a weight, far below the card's ~295 FLOP/byte balance point.
+// A c-tile covers every row up to C = 32 (decode) and C = 128 (prefill), so
+// there an expert's weights cross the memory bus once a launch, and only
+// for experts with rows: with ``rows`` a routed decode reads the weights of
+// the experts its tokens chose (8 tokens at top-6 touch about 35 of
+// deepseek-v2-lite's 64). Chunks of w and x stream through a cp.async ring
+// of three stages (four at decode), the next chunks in flight while one is
+// multiplied, one barrier a chunk. bf16 multiplies on the tensor cores (mma.sync m16n8k16, f32
+// accumulate; wgmma/TMA are later work): at decode the weights are the A
+// operand and the few token rows the n8 tiles, so the block only streams;
+// at prefill (C = 128) the multiply-adds dominate. C > 128 takes several
+// 128-row c-tiles, adjacent in the grid, so the blocks that share an
+// expert's weights run together. f32 runs on FMAs (the packing path's
+// tests; no serving path is f32).
 //
 // Layouts: x (E, C, D), w (E, D, F), y (E, C, F), all row-major and
 // contiguous. Loads move 16 bytes, so D and F must be multiples of
@@ -45,12 +49,7 @@ namespace {
 constexpr int BLK = 128;        // output columns and D rows per chunk
 constexpr int THREADS = 256;
 constexpr int RPT = 8;          // rows of x per thread
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even
-}
+constexpr int SMEM_MAX = 232448;
 
 // 16-byte global -> shared copy; pred false fills zeros and reads nothing
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
@@ -64,83 +63,83 @@ template <int N> __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// bf16 pair in one 32-bit word -> two floats (low half is the first)
-__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+// Live rows of expert e: rows[e] clamped to [0, C], or all C without rows.
+__device__ __forceinline__ int live_rows(const int32_t* rows, int e, int C) {
+  return rows == nullptr ? C : max(0, min(rows[e], C));
+}
 
-// Rows kk..kk+3 of the staged weight chunk, columns [4 lane, 4 lane + 4).
+// A block whose rows are all dead writes zeros over its (bm, ft) tile.
 template <typename T>
-__device__ __forceinline__ void load_w4(const uint8_t* ws, int kk, int lane,
-                                        float w[4][4]) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          ws + ((kk + i) * BLK + 4 * lane) * 4);
-      w[i][0] = v.x; w[i][1] = v.y; w[i][2] = v.z; w[i][3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint2 v = *reinterpret_cast<const uint2*>(
-          ws + ((kk + i) * BLK + 4 * lane) * 2);
-      w[i][0] = bf_lo(v.x); w[i][1] = bf_hi(v.x);
-      w[i][2] = bf_lo(v.y); w[i][3] = bf_hi(v.y);
-    }
+__device__ void zero_tile(T* __restrict__ y, int e, int c0, int bm, int C,
+                          int f0, int ft, int F) {
+  T* ye = y + (size_t)e * C * F;
+  const T z(0.f);
+  for (int i = threadIdx.x; i < bm * ft; i += blockDim.x) {
+    const int row = c0 + i / ft, col = f0 + i % ft;
+    if (row < C && col < F) ye[(size_t)row * F + col] = z;
   }
 }
 
-template <typename T, int BM>
+// --- f32 FMA instance ----------------------------------------------------------
+// 256 threads = 8 warps; lane l owns output columns [4l, 4l+4) of the tile.
+// The 8 warps are BM / 8 row groups of 8 rows times 64 / BM slices of each
+// 128-deep chunk; the slices' partial sums meet in shared memory at the
+// flush. A thread holds an 8 x 4 accumulator.
+
+template <int BM>
 struct Smem {
   static constexpr int KS = 64 / BM;                       // k slices
-  static constexpr int WBYTES = BLK * BLK * (int)sizeof(T);
-  static constexpr int XBYTES = BM * BLK * (int)sizeof(T);
+  static constexpr int WBYTES = BLK * BLK * 4;
+  static constexpr int XBYTES = BM * BLK * 4;
   static constexpr int RED = KS * BM * BLK * 4;            // = 32 KB
+  // three stages where they fit in a block's shared memory, else two
+  static constexpr int STAGES = 3 * (WBYTES + XBYTES) <= SMEM_MAX ? 3 : 2;
   // the partial-sum area overlays the weight ring after the loop
-  static constexpr int RING = 2 * WBYTES > RED ? 2 * WBYTES : RED;
-  static constexpr bool CONVERT_X = sizeof(T) != 4;        // bf16 x -> f32
-  static constexpr int X_OFF = RING;
-  static constexpr int XF_OFF = X_OFF + 2 * XBYTES;
-  static constexpr int TOTAL = XF_OFF + (CONVERT_X ? BM * BLK * 4 : 0);
+  static constexpr int RING = STAGES * WBYTES > RED ? STAGES * WBYTES : RED;
+  static constexpr int TOTAL = RING + STAGES * XBYTES;
 };
 
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(THREADS)
-grouped_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ y, int C, int D, int F) {
-  using S = Smem<T, BM>;
-  constexpr int KS = S::KS, KL = BLK / KS;
-  constexpr int VEC = 16 / (int)sizeof(T);         // elements a 16-byte copy
-  constexpr int CH = BLK / VEC;                    // 16-byte copies a row
+grouped_mvm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ y, const int32_t* __restrict__ rows,
+                   int C, int D, int F) {
+  using S = Smem<BM>;
+  constexpr int KS = S::KS, KL = BLK / KS, NS = S::STAGES;
+  constexpr int CH = BLK / 4;                      // 16-byte copies a row
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* wring = smem;
-  uint8_t* xring = smem + S::X_OFF;
+  uint8_t* xring = smem + S::RING;
 
   const int e = blockIdx.z, c0 = blockIdx.x * BM, f0 = blockIdx.y * BLK;
-  const T* xe = x + (size_t)e * C * D;
-  const T* we = w + (size_t)e * D * F;
+  const int live = live_rows(rows, e, C);
+  if (c0 >= live) {                // no live row here: no weight is read
+    zero_tile(y, e, c0, BM, C, f0, BLK, F);
+    return;
+  }
+  const float* xe = x + (size_t)e * C * D;
+  const float* we = w + (size_t)e * D * F;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp / KS, ks = warp % KS;   // row group, k slice
   const int nk = (D + BLK - 1) / BLK;
 
-  // stage D rows [k0, k0 + 128) of w[e]'s column tile and of x[e]'s rows
-  auto prefetch = [&](int kc, int st) {
-    const int k0 = kc * BLK;
+  // stage D rows [k0, k0 + 128) of w[e]'s column tile and of x[e]'s live rows
+  auto prefetch = [&](int kc) {
+    const int k0 = kc * BLK, st = kc % NS;
     uint8_t* wd = wring + st * S::WBYTES;
     for (int i = tid; i < BLK * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, row = k0 + r, col = f0 + c * VEC;
-      const bool live = row < D && col < F;
-      cp16(wd + ((size_t)r * BLK + c * VEC) * sizeof(T),
-           we + (live ? (size_t)row * F + col : 0), live);
+      const int r = i / CH, c = i % CH, row = k0 + r, col = f0 + c * 4;
+      const bool ok = row < D && col < F;
+      cp16(wd + ((size_t)r * BLK + c * 4) * 4,
+           we + (ok ? (size_t)row * F + col : 0), ok);
     }
     uint8_t* xd = xring + st * S::XBYTES;
     for (int i = tid; i < BM * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, row = c0 + r, col = k0 + c * VEC;
-      const bool live = row < C && col < D;
-      cp16(xd + ((size_t)r * BLK + c * VEC) * sizeof(T),
-           xe + (live ? (size_t)row * D + col : 0), live);
+      const int r = i / CH, c = i % CH, row = c0 + r, col = k0 + c * 4;
+      const bool ok = row < live && col < D;
+      cp16(xd + ((size_t)r * BLK + c * 4) * 4,
+           xe + (ok ? (size_t)row * D + col : 0), ok);
     }
-    cp_commit();
   };
 
   float acc[RPT][4];
@@ -149,37 +148,31 @@ grouped_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
 
-  prefetch(0, 0);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) prefetch(s);
+    cp_commit();
+  }
   for (int kc = 0; kc < nk; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < nk) {
-      prefetch(kc + 1, st ^ 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
+    const int st = kc % NS;
+    cp_wait<NS - 2>();
+    // chunk kc is visible to all; every thread is done with chunk kc - 1,
+    // whose slot the prefetch below refills
     __syncthreads();
-    const float* xf;
-    if constexpr (S::CONVERT_X) {
-      // bf16 x chunk -> f32 once, so the inner loop reads ready floats
-      const uint4* xr = reinterpret_cast<const uint4*>(xring + st * S::XBYTES);
-      float4* xo = reinterpret_cast<float4*>(smem + S::XF_OFF);
-      for (int i = tid; i < BM * BLK / 8; i += THREADS) {
-        const uint4 v = xr[i];
-        xo[2 * i] = make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
-        xo[2 * i + 1] = make_float4(bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w));
-      }
-      __syncthreads();
-      xf = reinterpret_cast<const float*>(smem + S::XF_OFF);
-    } else {
-      xf = reinterpret_cast<const float*>(xring + st * S::XBYTES);
-    }
-    const uint8_t* ws = wring + st * S::WBYTES;
-    const float* xrow = xf + (size_t)rg * RPT * BLK;
+    if (kc + NS - 1 < nk) prefetch(kc + NS - 1);
+    cp_commit();
+    const float* ws = reinterpret_cast<const float*>(wring + st * S::WBYTES);
+    const float* xrow = reinterpret_cast<const float*>(xring + st * S::XBYTES)
+                        + (size_t)rg * RPT * BLK;
 #pragma unroll 2
     for (int kk = ks * KL; kk < (ks + 1) * KL; kk += 4) {
       float wv[4][4];
-      load_w4<T>(ws, kk, lane, wv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            ws + (kk + i) * BLK + 4 * lane);
+        wv[i][0] = v.x; wv[i][1] = v.y; wv[i][2] = v.z; wv[i][3] = v.w;
+      }
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const float4 xv = *reinterpret_cast<const float4*>(xrow + r * BLK + kk);
@@ -194,47 +187,45 @@ grouped_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
         }
       }
     }
-    __syncthreads();   // slot st is refilled by the next iteration's prefetch
   }
 
   // flush: partial sums of the k slices meet in shared memory, laid out
-  // [ks][row][col] over the weight ring (every thread is past the loop)
+  // [ks][row][col] over the weight ring once every thread is past the loop
+  cp_wait<0>();
+  __syncthreads();
   float* red = reinterpret_cast<float*>(wring);
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
     *reinterpret_cast<float4*>(red + ((size_t)ks * BM + rg * RPT + r) * BLK + 4 * lane) =
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   __syncthreads();
-  T* ye = y + (size_t)e * C * F;
+  float* ye = y + (size_t)e * C * F;
   for (int i = tid; i < BM * BLK; i += THREADS) {
     const int row = i / BLK, c = i % BLK, grow = c0 + row, gcol = f0 + c;
     if (grow >= C) break;            // rows only grow with i
     if (gcol >= F) continue;
-    float v = 0.f;
+    float v = 0.f;                   // dead rows summed zero-filled x rows
 #pragma unroll
     for (int k = 0; k < KS; ++k) v += red[((size_t)k * BM + row) * BLK + c];
-    ye[(size_t)grow * F + gcol] = from_f<T>(v);
+    ye[(size_t)grow * F + gcol] = v;
   }
 }
 
-// --- bf16 tensor-core instance (prefill: C > 32) -----------------------------
-// The same walk over D, with each 128-deep chunk multiplied by mma.sync
-// (m16n8k16, bf16 in, f32 accumulate) instead of FMAs: 8 warps as 2 x 4,
-// each owning a 32 x 32 piece of the (64, 128) output tile. Rows of the
-// staged tiles are padded to 136 elements (272 bytes), so the ldmatrix
+// --- bf16 tensor-core instances --------------------------------------------------
+// Both multiply on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// accumulate), fragments read from the staged chunks by ldmatrix. Rows of
+// the staged tiles are padded by 8 elements (16 bytes), so the ldmatrix
 // reads of 8 rows hit 8 different 16-byte bank groups.
-
-constexpr int MMA_BM = 64;
-constexpr int SROW = BLK + 8;                      // padded row, elements
-constexpr int MMA_WBYTES = BLK * SROW * 2;         // w chunk (128 x 136)
-constexpr int MMA_XBYTES = MMA_BM * SROW * 2;      // x chunk (64 x 136)
-constexpr int MMA_STAGE = MMA_WBYTES + MMA_XBYTES;
-constexpr int MMA_SMEM = 2 * MMA_STAGE;            // 104,448 bytes
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -250,91 +241,236 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Decode (C <= 32): y[e]^T = w[e]^T x[e]^T, so the expert's weights are the
+// A operand (16 output columns a warp) and its BM = 8, 16 or 32 token rows
+// the n8 tiles of B: the whole tile's products are a few MMAs a 16-deep
+// step, and the kernel streams weights. A block takes a 64-column f-tile
+// (4 warps), narrow so that the blocks a launch spreads over the SMs come
+// out even (a 1408-wide F gives each SM 10.7 blocks of 64 columns, against
+// 5.3 of 128), and a four-stage ring of 128-deep chunks (82,432 bytes at
+// BM = 8: two blocks a SM). A probe of 32-, 64- and 128-column tiles and
+// three, four and six stages on the H100 found 32 columns or six stages
+// slower and the rest alike.
+
+constexpr int DEC_FT = 64;                         // columns a block
+constexpr int DEC_NS = 4;                          // ring stages
+constexpr int DEC_THREADS = DEC_FT * 2;            // one warp a 16 columns
+constexpr int WROW = DEC_FT + 8;                   // padded w row, elements
+constexpr int SROW = BLK + 8;                      // padded 128-wide row
+constexpr int DEC_WBYTES = BLK * WROW * 2;         // w chunk (128 x FT + 8)
+template <int BM>
+__host__ __device__ constexpr int dec_stage() { return DEC_WBYTES + BM * SROW * 2; }
+template <int BM>
+__host__ __device__ constexpr int dec_smem() { return DEC_NS * dec_stage<BM>(); }
+
+template <int BM>
+__global__ void __launch_bounds__(DEC_THREADS)
+grouped_mvm_dec_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       __nv_bfloat16* __restrict__ y,
+                       const int32_t* __restrict__ rows, int C, int D, int F) {
+  constexpr int NT = BM / 8, NS = DEC_NS, STAGE = dec_stage<BM>();
+  constexpr int WCH = DEC_FT / 8, XCH = BLK / 8;   // 16-byte copies a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int e = blockIdx.z, f0 = blockIdx.y * DEC_FT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int live = live_rows(rows, e, C);
+  if (live == 0) {                 // no token chose this expert
+    zero_tile(y, e, 0, BM, C, f0, DEC_FT, F);
+    return;
+  }
+  const __nv_bfloat16* xe = x + (size_t)e * C * D;
+  const __nv_bfloat16* we = w + (size_t)e * D * F;
+  const int nk = (D + BLK - 1) / BLK;
+  // stage D rows [k0, k0 + 128) of the f-tile and of x's live rows
+  auto prefetch = [&](int kc) {
+    const int k0 = kc * BLK;
+    uint8_t* wd = smem + (kc % NS) * STAGE;
+    uint8_t* xd = wd + DEC_WBYTES;
+    for (int i = tid; i < BLK * WCH; i += DEC_THREADS) {
+      const int r = i / WCH, c = i % WCH, row = k0 + r, col = f0 + c * 8;
+      const bool ok = row < D && col < F;
+      cp16(wd + (r * WROW + c * 8) * 2, we + (ok ? (size_t)row * F + col : 0), ok);
+    }
+    for (int i = tid; i < BM * XCH; i += DEC_THREADS) {
+      const int r = i / XCH, c = i % XCH, col = k0 + c * 8;
+      const bool ok = r < live && col < D;
+      cp16(xd + (r * SROW + c * 8) * 2, xe + (ok ? (size_t)r * D + col : 0), ok);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[t][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) prefetch(s);
+    cp_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_wait<NS - 2>();
+    // chunk kc is visible to all; every warp is done with chunk kc - 1,
+    // whose slot the prefetch below refills
+    __syncthreads();
+    if (kc + NS - 1 < nk) prefetch(kc + NS - 1);
+    cp_commit();
+    const __nv_bfloat16* ws =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (kc % NS) * STAGE);
+    const __nv_bfloat16* xs = ws + DEC_WBYTES / 2;
+#pragma unroll
+    for (int kk = 0; kk < BLK; kk += 16) {
+      // A = w^T: matrix j = lane / 8 is (columns +8 (j & 1), k +8 (j / 2)),
+      // read transposed from the [k][f] chunk
+      uint32_t a[4];
+      ldsm_x4_t(a, ws + (kk + (lane >> 4) * 8 + (lane & 7)) * WROW +
+                       warp * 16 + ((lane >> 3) & 1) * 8);
+      // B = x^T: x's rows (n) as stored, k +8 for the second register
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        ldsm_x2(b, xs + (lane & 7) * SROW + kk + ((lane >> 3) & 1) * 8);
+        mma16816(acc[0], a, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t b[4];
+          ldsm_x4(b, xs + (p * 16 + (lane >> 4) * 8 + (lane & 7)) * SROW + kk +
+                         ((lane >> 3) & 1) * 8);
+          mma16816(acc[2 * p], a, b[0], b[1]);
+          mma16816(acc[2 * p + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // flush: d0, d1 = (column g, rows 2t, 2t + 1), d2, d3 = column g + 8, of
+  // each n8 tile; g = lane / 4, t = lane % 4. Rows past the live count
+  // summed zero-filled x rows.
+  __nv_bfloat16* ye = y + (size_t)e * C * F;
+  const int col = f0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = t * 8 + (lane & 3) * 2 + (j & 1), cc = col + (j >> 1) * 8;
+      if (row < C && cc < F) ye[(size_t)row * F + cc] = __float2bfloat16(acc[t][j]);
+    }
+}
+
+// Prefill (C > 32): a 128-row c-tile, 8 warps as 4 x 2, each owning a 32 x
+// 64 piece of the (128, 128) output tile, so up to C = 128 one block holds
+// every row of its (expert, f-tile) and the expert's weights are read once.
+// A warp whose 32 rows are all past the expert's live rows skips its
+// products. 64-deep chunks, three stages (107,520 bytes: two blocks a SM).
+
+constexpr int MMA_BM = 128;
+constexpr int MMA_KC = 64;                         // D rows a chunk
+constexpr int MMA_STAGES = 3;
+constexpr int XROW = MMA_KC + 8;                   // padded x row, elements
+constexpr int MMA_WBYTES = MMA_KC * SROW * 2;      // w chunk (64 x 136)
+constexpr int MMA_XBYTES = MMA_BM * XROW * 2;      // x chunk (128 x 72)
+constexpr int MMA_STAGE = MMA_WBYTES + MMA_XBYTES;
+constexpr int MMA_SMEM = MMA_STAGES * MMA_STAGE;
+
 __global__ void __launch_bounds__(THREADS)
 grouped_mvm_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
-                       __nv_bfloat16* __restrict__ y, int C, int D, int F) {
-  constexpr int VEC = 8, CH = BLK / VEC;           // 16-byte copies a row
+                       __nv_bfloat16* __restrict__ y,
+                       const int32_t* __restrict__ rows, int C, int D, int F) {
+  constexpr int NS = MMA_STAGES;
   extern __shared__ __align__(16) uint8_t smem[];
   const int e = blockIdx.z, c0 = blockIdx.x * MMA_BM, f0 = blockIdx.y * BLK;
+  const int live = live_rows(rows, e, C);
+  if (c0 >= live) {                // no live row here: no weight is read
+    zero_tile(y, e, c0, MMA_BM, C, f0, BLK, F);
+    return;
+  }
   const __nv_bfloat16* xe = x + (size_t)e * C * D;
   const __nv_bfloat16* we = w + (size_t)e * D * F;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;         // 32-row, 32-column piece
-  const int nk = (D + BLK - 1) / BLK;
-
-  auto prefetch = [&](int kc, int st) {
-    const int k0 = kc * BLK;
-    uint8_t* wd = smem + st * MMA_STAGE;
+  const int wm = warp >> 1, wn = warp & 1;         // 32-row, 64-column piece
+  const bool busy = c0 + wm * 32 < live;           // any live row in the piece
+  const int nk = (D + MMA_KC - 1) / MMA_KC;
+  // stage D rows [k0, k0 + 64) of w[e]'s column tile and of x[e]'s live rows
+  auto prefetch = [&](int kc) {
+    constexpr int WCH = BLK / 8, XCH = MMA_KC / 8;   // 16-byte copies a row
+    const int k0 = kc * MMA_KC;
+    uint8_t* wd = smem + (kc % NS) * MMA_STAGE;
     uint8_t* xd = wd + MMA_WBYTES;
-    for (int i = tid; i < BLK * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, row = k0 + r, col = f0 + c * VEC;
-      const bool live = row < D && col < F;
-      cp16(wd + (r * SROW + c * VEC) * 2,
-           we + (live ? (size_t)row * F + col : 0), live);
+    for (int i = tid; i < MMA_KC * WCH; i += THREADS) {
+      const int r = i / WCH, c = i % WCH, row = k0 + r, col = f0 + c * 8;
+      const bool ok = row < D && col < F;
+      cp16(wd + (r * SROW + c * 8) * 2, we + (ok ? (size_t)row * F + col : 0), ok);
     }
-    for (int i = tid; i < MMA_BM * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, row = c0 + r, col = k0 + c * VEC;
-      const bool live = row < C && col < D;
-      cp16(xd + (r * SROW + c * VEC) * 2,
-           xe + (live ? (size_t)row * D + col : 0), live);
+    for (int i = tid; i < MMA_BM * XCH; i += THREADS) {
+      const int r = i / XCH, c = i % XCH, row = c0 + r, col = k0 + c * 8;
+      const bool ok = row < live && col < D;
+      cp16(xd + (r * XROW + c * 8) * 2, xe + (ok ? (size_t)row * D + col : 0), ok);
     }
-    cp_commit();
   };
 
-  float acc[2][4][4];                              // [m16 tile][n8 tile][4]
+  float acc[2][8][4];                              // [m16 tile][n8 tile][4]
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
 
-  prefetch(0, 0);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) prefetch(s);
+    cp_commit();
+  }
   for (int kc = 0; kc < nk; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < nk) {
-      prefetch(kc + 1, st ^ 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
+    cp_wait<NS - 2>();
+    // chunk kc is visible to all; every warp is done with chunk kc - 1,
+    // whose slot the prefetch below refills
     __syncthreads();
+    if (kc + NS - 1 < nk) prefetch(kc + NS - 1);
+    cp_commit();
+    if (!busy) continue;
     const __nv_bfloat16* ws =
-        reinterpret_cast<const __nv_bfloat16*>(smem + st * MMA_STAGE);
+        reinterpret_cast<const __nv_bfloat16*>(smem + (kc % NS) * MMA_STAGE);
     const __nv_bfloat16* xs = ws + MMA_WBYTES / 2;
 #pragma unroll
-    for (int kk = 0; kk < BLK; kk += 16) {
-      uint32_t a[2][4], b[2][4];
+    for (int kk = 0; kk < MMA_KC; kk += 16) {
+      uint32_t a[2][4];
       // A: lane l addresses row l % 16, columns kk + 8 (l / 16)
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a[mi], xs + (wm * 32 + mi * 16 + (lane & 15)) * SROW + kk +
+        ldsm_x4(a[mi], xs + (wm * 32 + mi * 16 + (lane & 15)) * XROW + kk +
                            (lane >> 4) * 8);
       // B (k-major rows), transposed: matrices (k 0-7 | 8-15) x (n 0-7 |
       // 8-15) give b0b1 / b2b3 of two n8 tiles
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4_t(b[nj], ws + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * SROW +
-                             wn * 32 + nj * 16 + (lane >> 4) * 8);
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        ldsm_x4_t(b, ws + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * SROW +
+                         wn * 64 + nj * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma16816(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                   b[ni >> 1][(ni & 1) * 2 + 1]);
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma16816(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
     }
-    __syncthreads();   // slot st is refilled by the next iteration's prefetch
   }
+  cp_wait<0>();
 
   // flush: fragment (row g | g + 8, columns 2t, 2t + 1) of each tile,
-  // g = lane / 4, t = lane % 4; F % 8 == 0 keeps column pairs whole
+  // g = lane / 4, t = lane % 4; F % 8 == 0 keeps column pairs whole. Rows
+  // past the live count hold zeros (their x rows were zero-filled, or the
+  // warp skipped its products).
   __nv_bfloat16* ye = y + (size_t)e * C * F;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = f0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+    for (int ni = 0; ni < 8; ++ni) {
+      const int col = f0 + wn * 64 + ni * 8 + (lane & 3) * 2;
       if (col >= F) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -346,59 +482,95 @@ grouped_mvm_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-cudaError_t launch_mma(const void* x, const void* w, void* y, int E, int C,
-                       int D, int F, cudaStream_t stream) {
-  static_assert(MMA_SMEM <= 232448, "shared memory over the per-block limit");
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        grouped_mvm_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MMA_SMEM);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid((C + MMA_BM - 1) / MMA_BM, (F + BLK - 1) / BLK, E);
-  grouped_mvm_mma_kernel<<<grid, THREADS, MMA_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), C, D, F);
-  return cudaGetLastError();
-}
-
-template <typename T, int BM>
-cudaError_t launch(const void* x, const void* w, void* y, int E, int C,
-                   int D, int F, cudaStream_t stream) {
-  constexpr int bytes = Smem<T, BM>::TOTAL;
-  static_assert(bytes <= 232448, "shared memory over the per-block limit");
-  auto kernel = grouped_mvm_kernel<T, BM>;
-  static bool configured = false;
+// Sets the kernel's dynamic shared memory limit on its first launch (a
+// stream capture must not be the first) and launches the (c-tiles,
+// f-tiles, E) grid, c-tiles fastest. ``configured`` is the kernel's own.
+template <typename T, typename Kernel>
+cudaError_t launch_grid(Kernel kernel, bool& configured, int bytes, int bm,
+                        const void* x, const void* w, void* y,
+                        const int32_t* rows, int E, int C, int D, int F,
+                        cudaStream_t stream) {
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((C + BM - 1) / BM, (F + BLK - 1) / BLK, E);
+  const dim3 grid((C + bm - 1) / bm, (F + BLK - 1) / BLK, E);
   kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(x),
                                            static_cast<const T*>(w),
-                                           static_cast<T*>(y), C, D, F);
+                                           static_cast<T*>(y), rows, C, D, F);
   return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_fma(const void* x, const void* w, void* y,
+                       const int32_t* rows, int E, int C, int D, int F,
+                       cudaStream_t stream) {
+  constexpr int bytes = Smem<BM>::TOTAL;
+  static_assert(bytes <= SMEM_MAX, "shared memory over the per-block limit");
+  static bool configured = false;
+  return launch_grid<float>(grouped_mvm_kernel<BM>, configured, bytes, BM, x,
+                            w, y, rows, E, C, D, F, stream);
+}
+
+template <int BM>
+cudaError_t launch_dec(const void* x, const void* w, void* y,
+                       const int32_t* rows, int E, int C, int D, int F,
+                       cudaStream_t stream) {
+  constexpr int bytes = dec_smem<BM>();
+  static_assert(bytes <= SMEM_MAX, "shared memory over the per-block limit");
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_mvm_dec_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(1, (F + DEC_FT - 1) / DEC_FT, E);
+  grouped_mvm_dec_kernel<BM><<<grid, DEC_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(y), rows, C, D, F);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma(const void* x, const void* w, void* y,
+                       const int32_t* rows, int E, int C, int D, int F,
+                       cudaStream_t stream) {
+  static_assert(MMA_SMEM <= SMEM_MAX, "shared memory over the per-block limit");
+  static bool configured = false;
+  return launch_grid<__nv_bfloat16>(grouped_mvm_mma_kernel, configured,
+                                    MMA_SMEM, MMA_BM, x, w, y, rows, E, C, D,
+                                    F, stream);
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (x, w and y alike). bm: 8 or 64 rows of x per CUDA
-// block; bf16 with 64 rows runs on the tensor cores. Returns cudaError_t.
+// dtype: 0 f32, 1 bf16 (x, w and y alike). bm: rows of x per CUDA block,
+// 8, 16 or 32 (FMAs), or 64 (f32 FMAs) / 128 (bf16 tensor cores). rows:
+// (E,) int32 live rows per expert on the device, or null for all C.
+// Returns cudaError_t.
 extern "C" int grouped_mvm_launch(const void* x, const void* w, void* y,
-                                  int E, int C, int D, int F, int dtype,
-                                  int bm, void* stream) {
+                                  const void* rows, int E, int C, int D,
+                                  int F, int dtype, int bm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const int32_t*>(rows);
   if (E > 65535) return cudaErrorInvalidValue;
-  if (bm != 8 && bm != 64) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return bm == 8 ? launch<float, 8>(x, w, y, E, C, D, F, st)
-                   : launch<float, 64>(x, w, y, E, C, D, F, st);
-  if (dtype == 1)
-    return bm == 8 ? launch<__nv_bfloat16, 8>(x, w, y, E, C, D, F, st)
-                   : launch_mma(x, w, y, E, C, D, F, st);
+  if (dtype == 0) {
+    switch (bm) {
+      case 8: return launch_fma<8>(x, w, y, r, E, C, D, F, st);
+      case 16: return launch_fma<16>(x, w, y, r, E, C, D, F, st);
+      case 32: return launch_fma<32>(x, w, y, r, E, C, D, F, st);
+      case 64: return launch_fma<64>(x, w, y, r, E, C, D, F, st);
+    }
+  } else if (dtype == 1) {
+    switch (bm) {
+      case 8: return launch_dec<8>(x, w, y, r, E, C, D, F, st);
+      case 16: return launch_dec<16>(x, w, y, r, E, C, D, F, st);
+      case 32: return launch_dec<32>(x, w, y, r, E, C, D, F, st);
+      case 128: return launch_mma(x, w, y, r, E, C, D, F, st);
+    }
+  }
   return cudaErrorInvalidValue;
 }

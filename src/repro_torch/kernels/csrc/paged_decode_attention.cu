@@ -1,32 +1,30 @@
 // Decode attention for Hopper (sm_90a): one query token per sequence,
-// grouped-query heads, online softmax over the sequence's cache. Two entries,
-// each on its own routine, both taking a row-address functor that says where
-// token t's K and V rows live (PagedRows / DenseRows):
+// grouped-query heads, online softmax over the sequence's cache. Two entries
+// on one routine, attend_split, which takes a row-address functor that says
+// where token t's K and V rows live (PagedRows / DenseRows):
 //
 //   paged_decode_attention_bf16: a shared page pool addressed by a page table.
 //     Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
-//     paged_decode_attention (_paged_kernel). Routine attend_rows: one block
-//     of dh threads per (kv head, sequence) walks the sequence's pages, TILE
-//     tokens at a time, the G query heads sharing every K/V tile it loads.
+//     paged_decode_attention (_paged_kernel).
 //   decode_attention_bf16: a dense cache (B, KV, T, dh) given by its strides,
 //     so the static path's (B, T, KV, dh) cache layer reaches it as a
 //     transposed view, with no copy. Replaces decode_attention (_kernel) of
-//     the same file. Routine attend_split: split-T flash-decoding, below.
+//     the same file.
 //
 // The TPU grids (B, KV, M) and (B, KV, T/bt) walked the cache in order and
 // carried the softmax state in VMEM scratch; CUDA blocks run in no order.
 //
 // Bound: device-memory bytes. Each live token's K and V row is read once
 // (2 * dh * 2 bytes per kv head) for about 4 * G * dh FLOPs, far below the
-// card's 295 FLOP/byte balance point. Both routines keep the bytes minimal:
-// only tokens below the live length are read (dead table slots, the trash
-// page and cache rows past lengths[b] never are; the dense entry masks by the
-// true T, where the TPU version padded T to its tile), with 16-byte loads, and
-// the scores, weights and accumulators never leave the SM.
+// card's 295 FLOP/byte balance point. Only tokens below the live length are
+// read (dead table slots, the trash page and cache rows past lengths[b] never
+// are; the dense entry masks by the true T, where the TPU version padded T to
+// its tile), with 16-byte loads, and the scores, weights and accumulators
+// never leave the SM.
 //
 // Split-T (attend_split): B * KV blocks alone leave most of the 132 SMs idle
-// and walk T serially, so the dense grid is (KV * ceil(G / 16), B, splits):
-// each block takes one chunk of the sequence's tokens. Its 4 warps split each
+// and walk T serially, so the grid is (KV * ceil(G / 16), B, splits): each
+// block takes one chunk of the sequence's tokens. Its 4 warps split each
 // 64-token tile 16 keys apiece; the G query heads of the kv head (up to 16 a
 // block) are the rows of one mma.sync m16n8k16 for Q K^T and for P V, so any
 // G runs on the same code. K and V stream through a two-stage cp.async ring
@@ -34,7 +32,9 @@
 // the block merges its warps by log-sum-exp and writes either the bf16 result
 // (one split) or an f32 partial (m, l, acc) to a workspace, which a combine
 // kernel merges the same way. A chunk past lengths[b] contributes l = 0; a
-// row whose chunks are all empty (length 0) yields zeros.
+// row whose chunks are all empty (length 0) yields zeros. The paged entry
+// reads the page table once a page: each tile's page ids are staged in shared
+// memory one ring stage ahead of its K/V loads (PagedRows).
 //
 // Layouts: q and out (B, KV, G, DH) bf16, contiguous; lengths (B,) int32.
 // Paged: k/v pages (KV, P, page, DH) bf16; page_table (B, M) int32. Dense:
@@ -49,169 +49,20 @@
 
 namespace {
 
-constexpr int TILE = 64;   // tokens per loaded K/V tile
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Token t's row of one (sequence, kv head) in a page pool: page
-// table[t / page], row t % page. K and V share the offset.
-struct PagedRows {
-  const int32_t* table;   // this sequence's page-table row
-  size_t pool;            // element offset of this kv head's pool
-  int page, dh;
-  __device__ __forceinline__ size_t k(int t) const {
-    return pool + ((size_t)table[t / page] * page + t % page) * dh;
-  }
-  __device__ __forceinline__ size_t v(int t) const { return k(t); }
-};
-
-// Token t's row of one (sequence, kv head) in a strided dense cache.
-struct DenseRows {
-  size_t k0, v0;          // element offsets of row 0
-  long long kt, vt;       // element strides along T
-  __device__ __forceinline__ size_t k(int t) const { return k0 + (size_t)t * kt; }
-  __device__ __forceinline__ size_t v(int t) const { return v0 + (size_t)t * vt; }
-};
-
-// The paged entry's body: blockDim.x == DH, thread d owns output column d of
-// every query head. q and out point at this (sequence, kv head)'s G x DH rows.
-template <int DH, int G, class Rows>
-__device__ __forceinline__ void attend_rows(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const Rows rows, const int len,
-    __nv_bfloat16* __restrict__ out, const float scale) {
-  constexpr int KSTR = DH + 2;    // padded K row: odd 4-byte word stride
-  constexpr int CH = DH / 8;      // 16-byte chunks per row
-  constexpr int NWARP = DH / 32;
-  __shared__ __align__(16) __nv_bfloat16 ks[TILE * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 vs[TILE * DH];
-  __shared__ float qs[G * DH];
-  __shared__ float ps[G * TILE];
-  __shared__ float m_s[G], l_s[G], a_s[G];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < G * DH; i += DH)
-    qs[i] = __bfloat162float(q[i]) * scale;
-  if (tid < G) { m_s[tid] = -INFINITY; l_s[tid] = 0.f; }
-  float acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    // load the tile's K/V rows (TILE * CH chunks over DH threads, TILE / 8
-    // each, every load started before any store); rows past len are zero
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      const int i = tid + j * DH;
-      const int r = i / CH, c = i % CH, t = t0 + r;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (t < len) {
-        kx = *reinterpret_cast<const uint4*>(k + rows.k(t) + c * 8);
-        vx = *reinterpret_cast<const uint4*>(v + rows.v(t) + c * 8);
-      }
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kx);
-      __nv_bfloat162* kd = reinterpret_cast<__nv_bfloat162*>(ks + r * KSTR + c * 8);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) kd[e] = k2[e];
-      *reinterpret_cast<uint4*>(vs + r * DH + c * 8) = vx;
-    }
-    __syncthreads();
-
-    // scores: one (head, token) dot product per thread
-    for (int i = tid; i < G * TILE; i += DH) {
-      const int g = i / TILE, r = i % TILE;
-      float s = -INFINITY;
-      if (t0 + r < len) {
-        const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(ks + r * KSTR);
-        const float* qg = qs + g * DH;
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH / 2; ++d) {
-          const float2 kf = __bfloat1622float2(kr[d]);
-          dot = fmaf(qg[2 * d], kf.x, dot);
-          dot = fmaf(qg[2 * d + 1], kf.y, dot);
-        }
-        s = dot;
-      }
-      ps[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head. Token t0 < len is live, so
-    // the tile max is finite.
-    for (int g = warp; g < G; g += NWARP) {
-      const float s0 = ps[g * TILE + lane], s1 = ps[g * TILE + lane + 32];
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
-      const float p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
-      ps[g * TILE + lane] = p0;
-      ps[g * TILE + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);   // 0 on the first tile
-        a_s[g] = a;
-        l_s[g] = l_s[g] * a + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float pv = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < TILE; ++r)
-        pv = fmaf(ps[g * TILE + r], __bfloat162float(vs[r * DH + tid]), pv);
-      acc[g] = acc[g] * a_s[g] + pv;
-    }
-    __syncthreads();   // the next tile overwrites ks/vs/ps
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float l = l_s[g];
-    out[g * DH + tid] = __float2bfloat16(acc[g] / (l == 0.f ? 1.f : l));
-  }
-}
-
-template <int DH, int G>
-__global__ void __launch_bounds__(DH)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
-                    const int32_t* __restrict__ page_table,
-                    const int32_t* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out,
-                    int KV, int P, int page, int M, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t head = ((size_t)b * KV + h) * G * DH;
-  const PagedRows rows{page_table + (size_t)b * M, (size_t)h * P * page * DH,
-                       page, DH};
-  attend_rows<DH, G>(q + head, k_pages, v_pages, rows, lengths[b], out + head,
-                     scale);
-}
-
-// --- split-T flash-decoding (the dense entry) -----------------------------------
-
 constexpr int SPLIT_TILE = 64;   // tokens per ring stage: 4 warps x 16 keys
 constexpr int SPLIT_NT = 128;
 constexpr int QROWS = 16;        // query heads a block: the rows of one MMA
+constexpr int IDS = SPLIT_TILE + 1;   // most pages a 64-token tile can span
 
+// two (K, V) stages, the query rows, the warps' stats; then the paged
+// entry's two slots of staged page ids
 template <int DH>
-constexpr size_t split_smem() {  // two (K, V) stages, the query rows, stats
+__host__ __device__ constexpr size_t ids_offset() {
   return (size_t)(4 * SPLIT_TILE + QROWS) * (DH + 8) * 2 + 4 * 2 * QROWS * 4;
+}
+template <int DH, bool PAGED>
+__host__ __device__ constexpr size_t split_smem() {
+  return ids_offset<DH>() + (PAGED ? 2 * IDS * 4 : 0);
 }
 
 // 16-byte global -> shared copy; pred false fills zeros and reads nothing
@@ -220,6 +71,11 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(s), "l"(src), "r"(n));
+}
+// 4-byte global -> shared copy (cp.async's .ca form; .cg takes 16 bytes only)
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N> __device__ __forceinline__ void cp_wait() {
@@ -247,6 +103,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
+
+
+// Token t's row of one (sequence, kv head) in a page pool: page
+// table[t / page], row t % page; K and V share the offset. ``stage`` copies
+// the ids of the pages that tokens [ta, min(ta + 64, t1)) lie in to shared
+// slot ``slot`` (one 4-byte cp.async a page, in the caller's copy group);
+// k(t, ta, slot) reads them back for a token of that tile.
+struct PagedRows {
+  static constexpr bool STAGED = true;
+  const int32_t* table;   // this sequence's page-table row
+  size_t pool;            // element offset of this kv head's pool
+  int page, dh;
+  int* ids;               // shared: [2][IDS]
+  __device__ __forceinline__ void stage(int ta, int t1, int slot, int tid) const {
+    const int p0 = ta / page, n = (min(ta + SPLIT_TILE, t1) - 1) / page - p0 + 1;
+    for (int i = tid; i < n; i += SPLIT_NT) cp4(ids + slot * IDS + i, table + p0 + i);
+  }
+  __device__ __forceinline__ size_t k(int t, int ta, int slot) const {
+    return pool + ((size_t)ids[slot * IDS + t / page - ta / page] * page
+                   + t % page) * dh;
+  }
+  __device__ __forceinline__ size_t v(int t, int ta, int slot) const {
+    return k(t, ta, slot);
+  }
+};
+
+// Token t's row of one (sequence, kv head) in a strided dense cache.
+struct DenseRows {
+  static constexpr bool STAGED = false;
+  size_t k0, v0;          // element offsets of row 0
+  long long kt, vt;       // element strides along T
+  __device__ __forceinline__ void stage(int, int, int, int) const {}
+  __device__ __forceinline__ size_t k(int t, int, int) const { return k0 + (size_t)t * kt; }
+  __device__ __forceinline__ size_t v(int t, int, int) const { return v0 + (size_t)t * vt; }
+};
 
 // One block: query rows q[0 .. gn) (gn <= 16, DH apart) of one (sequence, kv
 // head) against tokens [t0, t1) of it. With ``out`` the block owns the whole
@@ -280,16 +171,26 @@ __device__ __forceinline__ void attend_split(
     for (int i = tid; i < SPLIT_TILE * CH; i += SPLIT_NT) {
       const int r = i / CH, c = i % CH, t = ta + r;
       const bool live = t < t1;
-      cp16(ks + r * SROW + c * 8, k + (live ? rows.k(t) + c * 8 : 0), live);
-      cp16(vs + r * SROW + c * 8, v + (live ? rows.v(t) + c * 8 : 0), live);
+      cp16(ks + r * SROW + c * 8, k + (live ? rows.k(t, ta, st) + c * 8 : 0), live);
+      cp16(vs + r * SROW + c * 8, v + (live ? rows.v(t, ta, st) + c * 8 : 0), live);
     }
   };
-  // the query rows (past gn: zeros) and the first tile: one copy group
+  // tile j's row addresses (paged: its page ids, slot j & 1) are staged one
+  // copy group before its K/V loads; the first tile's before anything else
+  if constexpr (Rows::STAGED) {
+    if (ntiles > 0) rows.stage(t0, t1, 0, tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+  }
+  // the query rows (past gn: zeros), the first tile and the second tile's
+  // row addresses: one copy group
   for (int i = tid; i < QROWS * CH; i += SPLIT_NT) {
     const int r = i / CH, c = i % CH;
     cp16(qs + r * SROW + c * 8, q + (r < gn ? r * DH + c * 8 : 0), r < gn);
   }
   if (ntiles > 0) load_kv(t0, 0);
+  if (ntiles > 1) rows.stage(t0 + SPLIT_TILE, t1, 1, tid);
   cp_commit();
 
   const float sl2 = scale * 1.4426950408889634f;   // scores -> log2 units
@@ -306,6 +207,9 @@ __device__ __forceinline__ void attend_split(
     cp_wait<0>();
     __syncthreads();   // tile it is visible to all; every warp is done with it - 1
     if (it + 1 < ntiles) load_kv(ta + SPLIT_TILE, st ^ 1);
+    // slot st held tile it's addresses, whose loads every thread issued
+    // before the barrier above
+    if (it + 2 < ntiles) rows.stage(ta + 2 * SPLIT_TILE, t1, st, tid);
     cp_commit();
     if (it == 0) {
 #pragma unroll
@@ -428,6 +332,27 @@ __device__ __forceinline__ void attend_split(
   }
 }
 
+// Block (kv head h, query rows g0 .. g0 + 16 of G, sequence b, split) of a
+// split-T grid: tokens [split * chunk, min(len, (split + 1) * chunk)).
+template <int DH, class Rows>
+__device__ __forceinline__ void split_block(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const Rows& rows, const int len,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, const int KV, const int G, const int h,
+    const int g0, const int chunk, const float scale) {
+  const int b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const size_t row0 = ((size_t)b * KV + h) * G + g0;   // first query row
+  const int t0 = split * chunk, t1 = min(len, t0 + chunk);
+  if (splits == 1)
+    attend_split<DH>(q + row0 * DH, min(QROWS, G - g0), k, v, rows, t0, t1,
+                     out + row0 * DH, nullptr, nullptr, 1, scale);
+  else
+    attend_split<DH>(q + row0 * DH, min(QROWS, G - g0), k, v, rows, t0, t1,
+                     nullptr, part_acc + (row0 * splits + split) * DH,
+                     part_ml + (row0 * splits + split) * 2, splits, scale);
+}
+
 template <int DH>
 __global__ void __launch_bounds__(SPLIT_NT)
 dense_split_kernel(const __nv_bfloat16* __restrict__ q,
@@ -440,19 +365,35 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,
                    long long vh, long long vt, float scale) {
   const int ngroups = (G + QROWS - 1) / QROWS;
   const int h = blockIdx.x / ngroups, g0 = (blockIdx.x % ngroups) * QROWS;
-  const int b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
-  const size_t row0 = ((size_t)b * KV + h) * G + g0;   // first query row
+  const int b = blockIdx.y;
   const DenseRows rows{(size_t)b * kb + (size_t)h * kh,
                        (size_t)b * vb + (size_t)h * vh, kt, vt};
   const int len = max(0, min(lengths[b], T));    // never past the true T
-  const int t0 = split * chunk, t1 = min(len, t0 + chunk);
-  if (splits == 1)
-    attend_split<DH>(q + row0 * DH, min(QROWS, G - g0), k, v, rows, t0, t1,
-                     out + row0 * DH, nullptr, nullptr, 1, scale);
-  else
-    attend_split<DH>(q + row0 * DH, min(QROWS, G - g0), k, v, rows, t0, t1,
-                     nullptr, part_acc + (row0 * splits + split) * DH,
-                     part_ml + (row0 * splits + split) * 2, splits, scale);
+  split_block<DH>(q, k, v, rows, len, out, part_acc, part_ml, KV, G, h, g0,
+                  chunk, scale);
+}
+
+// The paged twin: sequence b's token t in page table[b, t / page] of kv
+// head h's pool, lengths read on the device and clamped to M * page.
+template <int DH>
+__global__ void __launch_bounds__(SPLIT_NT)
+paged_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pages,
+                   const __nv_bfloat16* __restrict__ v_pages,
+                   const int32_t* __restrict__ page_table,
+                   const int32_t* __restrict__ lengths,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml, int KV, int G, int P, int page,
+                   int M, int chunk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ngroups = (G + QROWS - 1) / QROWS;
+  const int h = blockIdx.x / ngroups, g0 = (blockIdx.x % ngroups) * QROWS;
+  const int b = blockIdx.y;
+  const PagedRows rows{page_table + (size_t)b * M, (size_t)h * P * page * DH,
+                       page, DH, reinterpret_cast<int*>(smem + ids_offset<DH>())};
+  const int len = max(0, min(lengths[b], M * page));
+  split_block<DH>(q, k_pages, v_pages, rows, len, out, part_acc, part_ml, KV,
+                  G, h, g0, chunk, scale);
 }
 
 // Merges one query row's split partials by log-sum-exp: one block of DH
@@ -481,26 +422,40 @@ split_combine_kernel(const float* __restrict__ part_acc,
   out[row * DH + threadIdx.x] = __float2bfloat16(l > 0.f ? a / l : 0.f);
 }
 
-// Instantiates KERNEL<DH, G> for G in {1, 2, 4, 8} and launches it (the
-// paged entry).
-#define LAUNCH_G(KERNEL, DH, G_, GRID, ST, ...)                              \
-  switch (G_) {                                                             \
-    case 1: KERNEL<DH, 1><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
-    case 2: KERNEL<DH, 2><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
-    case 4: KERNEL<DH, 4><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
-    case 8: KERNEL<DH, 8><<<GRID, DH, 0, ST>>>(__VA_ARGS__); break;         \
-    default: return cudaErrorInvalidValue;                                  \
-  }                                                                         \
+// Sets the kernel's dynamic shared memory limit on first use (a stream
+// capture must not be the first use), launches the (KV * ceil(G / 16), B,
+// splits) grid and, with splits > 1, the combine.
+template <int DH, bool PAGED, class Kernel, class... Args>
+cudaError_t launch_split(Kernel kernel, int B, int KV, int G, int splits,
+                         cudaStream_t st, float* part_acc, float* part_ml,
+                         __nv_bfloat16* out, Args... args) {
+  constexpr size_t smem = split_smem<DH, PAGED>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid(KV * ((G + QROWS - 1) / QROWS), B, splits);
+  kernel<<<grid, SPLIT_NT, smem, st>>>(args...);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  split_combine_kernel<DH><<<B * KV * G, DH, 0, st>>>(part_acc, part_ml, out, splits);
   return cudaGetLastError();
+}
 
 template <int DH>
-cudaError_t launch_paged(int G, dim3 grid, cudaStream_t st,
+cudaError_t launch_paged(int B, int KV, int G, int P, int page, int M,
+                         int splits, int chunk, cudaStream_t st,
                          const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, const int32_t* pt,
-                         const int32_t* len, __nv_bfloat16* out, int KV,
-                         int P, int page, int M, float scale) {
-  LAUNCH_G(paged_decode_kernel, DH, G, grid, st, q, k, v, pt, len, out, KV, P,
-           page, M, scale)
+                         const int32_t* len, __nv_bfloat16* out,
+                         float* part_acc, float* part_ml, float scale) {
+  return launch_split<DH, true>(paged_split_kernel<DH>, B, KV, G, splits, st,
+                                part_acc, part_ml, out, q, k, v, pt, len, out,
+                                part_acc, part_ml, KV, G, P, page, M, chunk,
+                                scale);
 }
 
 template <int DH>
@@ -509,34 +464,27 @@ cudaError_t launch_dense(int B, int KV, int G, int T, int splits, int chunk,
                          const __nv_bfloat16* k, const __nv_bfloat16* v,
                          const int32_t* len, __nv_bfloat16* out, float* part_acc,
                          float* part_ml, const long long* s, float scale) {
-  constexpr size_t smem = split_smem<DH>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dense_split_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid(KV * ((G + QROWS - 1) / QROWS), B, splits);
-  dense_split_kernel<DH><<<grid, SPLIT_NT, smem, st>>>(
-      q, k, v, len, out, part_acc, part_ml, KV, G, T, chunk, s[0], s[1], s[2],
-      s[3], s[4], s[5], scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  split_combine_kernel<DH><<<B * KV * G, DH, 0, st>>>(part_acc, part_ml, out, splits);
-  return cudaGetLastError();
+  return launch_split<DH, false>(dense_split_kernel<DH>, B, KV, G, splits, st,
+                                 part_acc, part_ml, out, q, k, v, len, out,
+                                 part_acc, part_ml, KV, G, T, chunk, s[0],
+                                 s[1], s[2], s[3], s[4], s[5], scale);
 }
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success). G in {1, 2, 4, 8},
-// DH in {64, 128}; the Python wrapper checks shapes before calling.
+// Paged pool: token t of sequence b lies in page page_table[b, t / page],
+// row t % page, of each kv head's pool; lengths[b] is clamped to M * page.
+// Any G >= 1, DH in {64, 128}. Splits, chunk and the two f32 workspaces as
+// decode_attention_bf16's below, with M * page for T. Returns the first
+// failing launch's cudaError_t (0 on success).
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* lengths, void* out,
-    int B, int KV, int G, int DH, int P, int page, int M, float scale,
-    void* stream) {
-  const dim3 grid(KV, B);
+    const void* page_table, const void* lengths, void* out, void* part_acc,
+    void* part_ml, int B, int KV, int G, int DH, int P, int page, int M,
+    int splits, int chunk, float scale, void* stream) {
+  if (G < 1 || page < 1 || splits < 1 || chunk % SPLIT_TILE
+      || (long long)splits * chunk < (long long)M * page)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
@@ -544,8 +492,10 @@ extern "C" int paged_decode_attention_bf16(
   const auto* pt = static_cast<const int32_t*>(page_table);
   const auto* ln = static_cast<const int32_t*>(lengths);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (DH == 128) return launch_paged<128>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
-  if (DH == 64) return launch_paged<64>(G, grid, st, qp, kp, vp, pt, ln, op, KV, P, page, M, scale);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* pm = static_cast<float*>(part_ml);
+  if (DH == 128) return launch_paged<128>(B, KV, G, P, page, M, splits, chunk, st, qp, kp, vp, pt, ln, op, pa, pm, scale);
+  if (DH == 64) return launch_paged<64>(B, KV, G, P, page, M, splits, chunk, st, qp, kp, vp, pt, ln, op, pa, pm, scale);
   return cudaErrorInvalidValue;
 }
 

@@ -4,18 +4,21 @@ Counterpart of ``repro.kernels.packed_mvm.grouped_mvm`` (the Pallas TPU
 kernel ``_kernel``): ``y[e] = x[e] @ w[e]`` for every expert at once,
 (E, C, D) @ (E, D, F) -> (E, C, F), f32 accumulation and one rounding to
 x's dtype. The MoE layer's three expert products (gate, up, down) are its
-launches.
+launches. ``rows`` ((E,) int32 on the card) limits expert e to its first
+rows[e] rows: the rest of y[e] is zeros, their x rows are never read, and
+an expert with none reads no weight.
 
-What bounds it: at decode (C = 8 rows an expert) the weight bytes — every
-expert's (D, F) matrix is read once a launch, 369 MB at deepseek-v2-lite
-widths — and at prefill (C = 128) the multiply-adds. The TPU grid stepped
-over D in order with the accumulator in VMEM; here one CUDA block per
-(expert, c-tile, 128-column f-tile) walks D itself through a two-stage
-cp.async ring, so the next weight chunk is in flight while the current
-one is multiplied, and loads and stores are masked by the true C, D and F
-where the reference shrank its tiles to divisors. C <= 32 takes 8-row
-tiles and f32 FMAs; a larger C takes 64-row tiles, on the tensor cores
-(mma.sync) in bf16 and on FMAs in f32.
+What bounds it: at decode (C = 8 rows an expert) the weight bytes of the
+experts with rows, and at prefill (C = 128) the multiply-adds. The TPU
+grid stepped over D in order with the accumulator in VMEM; here one CUDA
+block per (expert, c-tile, f-tile) walks D itself through a cp.async
+ring, and one c-tile covers every row up to C = 32 (8-, 16- or 32-row
+tiles over 64 columns: bf16 on the tensor cores with the weights as the
+A operand, so the block only streams them) or C = 128 (a 128 x 128 bf16
+tile on the tensor cores), so an expert's weights are read once a launch
+there. A larger C takes more 128-row c-tiles. f32 runs on FMAs
+(64-row tiles past C = 32). Loads and stores are masked by the true C,
+D and F where the reference shrank its tiles to divisors.
 
 The plain version is ``ref.grouped_mvm``; ``ops`` picks between them by the
 tensors' device. This wrapper only launches: it takes CUDA tensors and
@@ -31,17 +34,26 @@ import torch
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows of x per CUDA block: the kernel has an 8-row and a 64-row instance
-BM_SMALL, BM_LARGE = 8, 64
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def grouped_mvm(x, w):
-    """x: (E, C, D), w: (E, D, F) -> (E, C, F) in x's dtype.
+def block_rows(C: int, dtype) -> int:
+    """Rows of x a CUDA block takes: the smallest tile of 8, 16 or 32 that
+    holds C, else 128 (bf16) or 64 (f32)."""
+    for bm in (8, 16, 32):
+        if C <= bm:
+            return bm
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+def grouped_mvm(x, w, rows=None):
+    """x: (E, C, D), w: (E, D, F) -> (E, C, F) in x's dtype; ``rows``
+    (E,) int32 or None (all C rows).
 
     x and w are contiguous CUDA tensors of one dtype, float32 or bfloat16;
     D and F are multiples of 16 bytes' worth of elements (8 in bf16, 4 in
-    f32). Any E <= 65535 and any C.
+    f32). Any E <= 65535 and any C. rows[e] is clamped to [0, C] on the
+    card.
     """
     if x.dtype not in DTYPES or w.dtype != x.dtype:
         raise ValueError(f"grouped_mvm: x and w must share float32 or "
@@ -57,6 +69,12 @@ def grouped_mvm(x, w):
                          f"{tuple(w.shape)} are not (E, C, D), (E, D, F)")
     E, C, D = x.shape
     F = w.shape[2]
+    if rows is not None and (rows.device != x.device
+                             or rows.dtype != torch.int32
+                             or rows.shape != (E,)
+                             or not rows.is_contiguous()):
+        raise ValueError(f"grouped_mvm: rows must be a contiguous ({E},) "
+                         f"int32 tensor on {x.device}")
     vec = 16 // x.element_size()
     if D % vec or F % vec:
         raise ValueError(f"grouped_mvm: D ({D}) and F ({F}) must be "
@@ -66,10 +84,10 @@ def grouped_mvm(x, w):
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    bm = BM_SMALL if C <= 32 else BM_LARGE
     fn = _build.function("grouped_mvm", "grouped_mvm_launch", _ARGS)
-    _build.check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), E, C, D, F,
-                    DTYPES[x.dtype], bm,
+    _build.check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    None if rows is None else rows.data_ptr(), E, C, D, F,
+                    DTYPES[x.dtype], block_rows(C, x.dtype),
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "grouped_mvm")
     grouped_mvm.launches += 1

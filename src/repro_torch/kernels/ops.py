@@ -73,20 +73,23 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 # --- grouped MoE GEMM --------------------------------------------------------------
 
-def grouped_mvm(x, w, *, impl: str = "kernel"):
+def grouped_mvm(x, w, rows=None, *, impl: str = "kernel"):
     """x (E, C, D) @ w (E, D, F) -> (E, C, F), f32 accumulation, one
-    rounding to x's dtype."""
+    rounding to x's dtype. ``rows`` ((E,) int32, or None for all C):
+    expert e's rows past rows[e] come out zero and are never read."""
     if _plain(impl, x):
-        return ref.grouped_mvm(x, w)
-    return _gm.grouped_mvm(x, w)
+        return ref.grouped_mvm(x, w, rows)
+    return _gm.grouped_mvm(x, w, rows)
 
 
-def moe_expert_ffn(xe, w_gate, w_up, w_down, *, impl: str = "kernel"):
+def moe_expert_ffn(xe, w_gate, w_up, w_down, rows=None, *,
+                   impl: str = "kernel"):
     """SwiGLU over dispatched expert inputs xe (E, C, D): silu(xe @ Wg) *
-    (xe @ Wu), then @ Wd, each product rounded to xe's dtype."""
-    h = torch.nn.functional.silu(grouped_mvm(xe, w_gate, impl=impl)) \
-        * grouped_mvm(xe, w_up, impl=impl)
-    return grouped_mvm(h, w_down, impl=impl)
+    (xe @ Wu), then @ Wd, each product rounded to xe's dtype; ``rows``
+    as ``grouped_mvm``'s, passed to all three products."""
+    h = torch.nn.functional.silu(grouped_mvm(xe, w_gate, rows, impl=impl)) \
+        * grouped_mvm(xe, w_up, rows, impl=impl)
+    return grouped_mvm(h, w_down, rows, impl=impl)
 
 
 # --- packed canvas -------------------------------------------------------------------
@@ -132,3 +135,12 @@ def packed_canvas_matmul_dq(x_packed, wq_blocks, scales, meta, *,
 
 
 build_block_meta = _pc.build_block_meta
+
+
+def launch_counters() -> tuple:
+    """Every kernel wrapper of the port; each counts its launches in
+    ``.launches`` (one a call)."""
+    return (_dec.paged_decode_attention, _dec.decode_attention,
+            _fa.flash_attention, _gm.grouped_mvm, _pc._packed_canvas_matmul,
+            _pc._packed_canvas_epilogue, _dq._matmul_dq,
+            _dq._matmul_dq_epilogue)

@@ -125,10 +125,16 @@ def packed_canvas_dq(x_packed, wq_blocks, scales, meta, c_blocks: int,
 
 # --- grouped MVM (MoE expert GEMM) -----------------------------------------------
 
-def grouped_mvm(x, w):
+def grouped_mvm(x, w, rows=None):
     """x (E, C, D) @ w (E, D, F) -> (E, C, F): f32 products and sums, one
-    rounding to x's dtype."""
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    rounding to x's dtype. ``rows`` (E,) int or None: rows c >= rows[e]
+    of expert e come out zero, as the kernel writes them."""
+    y = torch.bmm(x.float(), w.float())
+    if rows is not None:
+        c = torch.arange(x.shape[1], device=x.device)
+        y = torch.where((c[None, :] < rows.to(x.device)[:, None])[..., None],
+                        y, 0.0)
+    return y.to(x.dtype)
 
 
 # --- attention -------------------------------------------------------------------
@@ -221,6 +227,15 @@ def decode_attention_split(q, k, v, lengths, splits: int, *, scale=None,
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def _gather_pages(k_pages, v_pages, page_table):
+    """Each sequence's pages as a contiguous (B, M * page, KV, dh) cache."""
+    B, M = page_table.shape
+    P, page, KV, dh = k_pages.shape
+    pt = page_table.long()
+    return (k_pages[pt].reshape(B, M * page, KV, dh),
+            v_pages[pt].reshape(B, M * page, KV, dh))
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale=None):
     """q: (B, H, dh); k/v_pages: (P, page, KV, dh); page_table: (B, M).
@@ -229,10 +244,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     cache and applies decode_attention — the semantics the paged kernel
     matches while touching only the owned pages.
     """
-    B = q.shape[0]
-    M = page_table.shape[1]
-    P, page, KV, dh = k_pages.shape
-    pt = page_table.long()
-    k = k_pages[pt].reshape(B, M * page, KV, dh)
-    v = v_pages[pt].reshape(B, M * page, KV, dh)
-    return decode_attention(q, k, v, lengths, scale=scale)
+    return decode_attention(q, *_gather_pages(k_pages, v_pages, page_table),
+                            lengths, scale=scale)
+
+
+def paged_decode_attention_split(q, k_pages, v_pages, page_table, lengths,
+                                 splits: int, *, scale=None, tile: int = 64):
+    """``paged_decode_attention`` computed as the paged kernel's split-T
+    arithmetic: the pages gathered as there (T = M * page, so lengths
+    past it are clamped), then ``decode_attention_split``. Same layouts
+    as ``paged_decode_attention``; the main path never calls it."""
+    return decode_attention_split(
+        q, *_gather_pages(k_pages, v_pages, page_table), lengths, splits,
+        scale=scale, tile=tile)

@@ -295,7 +295,11 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     outputs are summed in ascending expert order in x's dtype — the
     reference's scatter-add order and rounding — instead of through
     ``index_add_``'s atomics. The (E, C, D) expert batch runs through
-    ``ops.moe_expert_ffn``, three grouped-GEMM launches.
+    ``ops.moe_expert_ffn``, three grouped-GEMM launches, told each
+    expert's kept claims (a ``scatter_add_`` of the keep mask): the kept
+    claims of an expert fill rows 0 .. n - 1 of its batch, the rows past
+    them are zeros and stay zeros through the SwiGLU, so the products
+    skip them (and an expert with none) without changing the result.
     """
     N, D = x2d.shape
     E, K, C = dims.num_experts, dims.top_k, dims.capacity
@@ -326,8 +330,10 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     row = torch.where(keep, e_sorted * C + pos, E * C)
     xe = torch.zeros((E * C + 1, D), dtype=x2d.dtype, device=dev)
     xe[row] = x2d[t_flat[order]]
+    rows = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+        0, e_sorted, keep.to(torch.int32))
     ye = ops.moe_expert_ffn(xe[:E * C].view(E, C, D), p["w_gate"],
-                            p["w_up"], p["w_down"])             # (E, C, D)
+                            p["w_up"], p["w_down"], rows)       # (E, C, D)
     ye = torch.cat([ye.view(E * C, D),
                     torch.zeros((1, D), dtype=ye.dtype, device=dev)])
     # back to (token, slot) order, then each token's slots by expert id
@@ -371,6 +377,34 @@ def init_moe_params(cfg, d_model: int, gen, device):
 
 # --- multi-step decode fusion ----------------------------------------------------
 
+def decode_loop_step(step_fn, step, pending, lengths, remaining, page_table,
+                     mask, teacher, use_teacher, out) -> None:
+    """One iteration of the fused horizon, every operand a device tensor,
+    so the same code runs in ``multi_step_decode``'s loop and inside a
+    captured CUDA graph (``runtime.DecodeGraph``).
+
+    ``step`` (1,) int64 is the step index and advances by one; ``out``
+    (hmax, B) int32 takes row ``step``. Slots in ``mask`` with budget
+    left are live: they feed ``pending`` at ``lengths``, sample greedily
+    (``teacher[step]`` instead where ``use_teacher``, a bool scalar) and
+    advance ``pending``, ``lengths`` and ``remaining`` in place; the others
+    feed token 0 at length 0 and keep their state. ``page_table`` is
+    already masked to the trash page for slots outside ``mask``."""
+    live = mask & (remaining > 0)
+    toks = torch.where(live, pending, 0)
+    lens = torch.where(live, lengths, 0)
+    logits = step_fn(toks, page_table, lens, live)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    forced = teacher.index_select(0, step)[0].to(torch.int32)
+    nxt = torch.where(use_teacher, forced, nxt)
+    pending.copy_(torch.where(live, nxt, pending))
+    out.index_copy_(0, step, torch.where(live, nxt, 0)[None])
+    took = live.to(torch.int32)
+    lengths.add_(took)
+    remaining.sub_(took)
+    step.add_(1)
+
+
 def multi_step_decode(step_fn, hmax: int, pending, lengths, remaining,
                       page_table, mask, h: int, teacher=None):
     """Run ``h`` decode steps of ``step_fn`` with the token feedback on
@@ -387,22 +421,17 @@ def multi_step_decode(step_fn, hmax: int, pending, lengths, remaining,
     feed token 0 and write to the trash page (page 0). ``teacher``
     ((hmax, B) int32 or None) forces the fed-back token per step.
     Returns the (hmax, B) int32 token buffer; rows past ``h`` (or past a
-    slot's budget) are 0.
+    slot's budget) are 0. The loop body is ``decode_loop_step``.
     """
-    B = pending.shape[0]
+    B, dev = pending.shape[0], pending.device
     pt = torch.where(mask[:, None], page_table, 0)
-    out = torch.zeros((hmax, B), dtype=torch.int32, device=pending.device)
-    for i in range(h):
-        live = mask & (remaining > 0)
-        toks = torch.where(live, pending, 0)
-        lens = torch.where(live, lengths, 0)
-        logits = step_fn(toks, pt, lens, live)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        if teacher is not None:
-            nxt = teacher[i]
-        pending.copy_(torch.where(live, nxt, pending))
-        out[i] = torch.where(live, nxt, 0)
-        took = live.to(torch.int32)
-        lengths.add_(took)
-        remaining.sub_(took)
+    out = torch.zeros((hmax, B), dtype=torch.int32, device=dev)
+    step = torch.zeros((1,), dtype=torch.long, device=dev)
+    use_teacher = torch.full((), teacher is not None, dtype=torch.bool,
+                             device=dev)
+    if teacher is None:
+        teacher = out           # never selected
+    for _ in range(h):
+        decode_loop_step(step_fn, step, pending, lengths, remaining, pt,
+                         mask, teacher, use_teacher, out)
     return out

@@ -1,7 +1,9 @@
 """Serving runtime of the port: page allocator, scheduler, prefix index,
-device loop state, the continuous-batching engine (dense and MLA-MoE
-backends) and the static lockstep path (every ported family)."""
+device loop state, the fused horizon's CUDA graphs, the
+continuous-batching engine (dense and MLA-MoE backends) and the static
+lockstep path (every ported family)."""
 
+from .decode_graph import DecodeGraph
 from .device_state import DeviceLoopState
 from .engine import (ENGINE_FAMILIES, Engine, EngineConfig, EngineReport,
                      LatentBackend, PagedTransformerBackend, encdec_extras_fn,
@@ -13,7 +15,7 @@ from .scheduler import (MultiQueueScheduler, Request, Scheduler,
                         poisson_trace, shared_prefix_trace)
 
 __all__ = ["ENGINE_FAMILIES", "NEUTRAL_OWNER", "TRASH_PAGE",
-           "DeviceLoopState", "Engine", "EngineConfig", "EngineReport",
+           "DecodeGraph", "DeviceLoopState", "Engine", "EngineConfig", "EngineReport",
            "LatentBackend", "MultiQueueScheduler", "PageAllocator",
            "PagedTransformerBackend", "PagerConfig", "PrefixIndex",
            "Request", "Scheduler", "encdec_extras_fn", "engine_backend",

@@ -25,8 +25,10 @@ cache. The engine keeps every slot busy instead:
 
 Decode runs in fused horizons: one ``decode_fused`` call advances up to
 ``horizon`` steps on the device with greedy argmax there, and the host
-syncs once per horizon. The schedule, and so every count the report
-keeps, is the reference's step for step.
+syncs once per horizon. On the card a horizon is h replays of a CUDA
+graph of the decode step (decode_graph.py); on the CPU the eager loop.
+The schedule, and so every count the report keeps, is the reference's
+step for step.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..models import get_model
 from ..models import layers as L
 from ..models import moe as MoE
 from ..models import transformer as T
+from .decode_graph import DecodeGraph
 from .device_state import DeviceLoopState
 from .kv_pager import TRASH_PAGE, PageAllocator, PagerConfig
 from .prefix_index import PrefixIndex
@@ -289,6 +292,7 @@ class _PagedBackend:
     def __init__(self, cfg, params, ecfg: EngineConfig):
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = params["embed"].device
+        self.graph: DecodeGraph | None = None   # the card's fused horizon
 
     @classmethod
     def supports(cls, cfg) -> bool:
@@ -312,22 +316,46 @@ class _PagedBackend:
         """One decode step from host arrays; logits come back to the host."""
         def dev(a):
             return torch.as_tensor(a, device=self.device)
-        return _host(self.model.paged_decode_step(
-            self.cfg, self.params, self.state, dev(tokens), dev(page_table),
-            dev(lengths), dev(active)))
+        return _host(self.decode_step(dev(tokens), dev(page_table),
+                                      dev(lengths), dev(active)))
+
+    def decode_step(self, tokens, page_table, lengths, active):
+        """One paged decode step on device tensors; returns logits (B, V)."""
+        return self.model.paged_decode_step(self.cfg, self.params,
+                                            self.state, tokens, page_table,
+                                            lengths, active)
 
     def decode_fused(self, pending, lengths, remaining, page_table, mask,
                      h: int, teacher=None):
         """Advance the engine's persistent loop tensors (DeviceLoopState)
         by up to ``h`` decode steps in one call, greedy sampling on the
         device; returns the (hmax, B) token buffer. ``teacher`` (hmax, B)
-        forces the sampled tokens (fused replay of a recorded sequence)."""
+        forces the sampled tokens (fused replay of a recorded sequence).
+        On the card the horizon is CUDA-graph replays of the step
+        (``self.graph``, captured at the first call's shape); on the CPU
+        the eager loop (``decode_eager``)."""
+        mask = torch.as_tensor(mask, device=self.device)
+        if teacher is not None:
+            teacher = torch.as_tensor(teacher, dtype=torch.int32,
+                                      device=self.device)
+        if self.device.type != "cuda":
+            return self.decode_eager(pending, lengths, remaining, page_table,
+                                     mask, h, teacher)
+        if self.graph is None:
+            B, M = page_table.shape
+            self.graph = DecodeGraph(self.decode_step, B, M,
+                                     self.ecfg.horizon, self.device)
+        return self.graph.run(pending, lengths, remaining, page_table, mask,
+                              h, teacher)
+
+    def decode_eager(self, pending, lengths, remaining, page_table, mask,
+                     h: int, teacher=None):
+        """``decode_fused``'s horizon as the eager loop of the model's
+        ``paged_decode_multi`` (every kernel enqueued from the host), on
+        device tensors."""
         return self.model.paged_decode_multi(
             self.cfg, self.params, self.state, pending, lengths, remaining,
-            page_table, torch.as_tensor(mask, device=self.device), h,
-            hmax=self.ecfg.horizon,
-            teacher=None if teacher is None else torch.as_tensor(
-                teacher, dtype=torch.int32, device=self.device))
+            page_table, mask, h, hmax=self.ecfg.horizon, teacher=teacher)
 
 
 class PagedTransformerBackend(_PagedBackend):

@@ -11,6 +11,8 @@ in and out (the packed canvas, the grouped expert GEMM) within its f32
 TOL (rtol 1e-4, atol 2e-4: summation order only).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +66,41 @@ def test_paged_decode_kernel_matches_plain(dev, B, KV, G, dh, page, lengths):
     got = ops.paged_decode_attention(*args)
     assert dec.paged_decode_attention.launches == n0 + 1
     want = ops.paged_decode_attention(*args, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert torch.all(got[b] == 0)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("B,KV,G,dh,page,lengths", [
+    (3, 2, 7, 128, 16, [0, 130, 1000]),
+    (2, 3, 12, 64, 16, [64, 517]),
+    (2, 2, 16, 128, 8, [33, 0]),
+    (4, 1, 7, 64, 4, [1, 63, 64, 65]),
+])
+def test_paged_decode_kernel_any_g_and_splits(dev, splits, B, KV, G, dh, page,
+                                              lengths):
+    """The paged kernel at G 7, 12 and 16, dh 64 and 128, in one and in
+    three splits (the combine kernel), against its plain version."""
+    rng = np.random.default_rng(G * dh + splits)
+    M = -(-max(lengths) // page) + 2
+    P = 1 + B * M
+    q = _bf16(rng, (B, KV, G, dh), dev)
+    kp, vp = _bf16(rng, (KV, P, page, dh), dev), _bf16(rng, (KV, P, page, dh),
+                                                       dev)
+    table = torch.zeros((B, M), dtype=torch.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b, n in enumerate(lengths):
+        k = -(-n // page)
+        table[b, :k] = torch.tensor(perm[b * M:b * M + k])
+    table, lens = table.to(dev), torch.tensor(lengths, dtype=torch.int32,
+                                              device=dev)
+    n0 = dec.paged_decode_attention.launches
+    got = dec.paged_decode_attention(q, kp, vp, table, lens, splits=splits)
+    assert dec.paged_decode_attention.launches == n0 + 1
+    want = ops.paged_decode_attention(q.view(B, KV * G, dh), kp, vp, table,
+                                      lens, impl="ref").view(B, KV, G, dh)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     for b, n in enumerate(lengths):
         if n == 0:
@@ -238,6 +275,63 @@ def test_packing_entry_point_on_the_card(dev):
     assert all(c.launches > n for c, n in zip(counters, before))
 
 
+# --- the fused horizon as CUDA graphs ---------------------------------------------
+
+
+LEDGER = ("decode_steps", "slot_steps", "useful_slot_steps", "prefill_calls",
+          "prefill_tokens", "preemptions", "peak_live_pages",
+          "device_dispatches", "host_syncs", "page_table_upload_bytes",
+          "new_tokens")
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_graphed_engine_matches_eager_engine(dev, family):
+    """The engine with every fused horizon replayed from CUDA graphs and
+    the same engine with the eager loop, on a small dense config (dh 64,
+    a kernel instance) and reduced deepseek, with preemption: the same
+    tokens, the same ledger and the same kernel launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import DecodeGraph
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=256,
+                      num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=512,
+                      head_dim=64, qkv_bias=True, rope_theta=1e6) \
+        if family == "dense" else get_config("deepseek-v2-lite-16b").reduced()
+    params = get_model(cfg).init_params(cfg, seed=0, device=dev)
+    ecfg = EngineConfig(num_slots=4, page_size=8, num_pages=17,
+                        max_pages_per_seq=8, prefill_bucket=8, horizon=8)
+    trace = poisson_trace(8, mean_interarrival=0.5, prompt_lens=(8, 16),
+                          gen_lens=(20, 36), vocab_size=cfg.vocab_size,
+                          seed=1)
+    counters = ops.launch_counters()
+
+    def run(graphed):
+        engine = Engine(cfg, params, ecfg)
+        be = engine.backend
+        if graphed:
+            be.graph = DecodeGraph(be.decode_step, ecfg.num_slots,
+                                   ecfg.max_pages_per_seq, ecfg.horizon, dev)
+        else:
+            def eager(p, l, r, pt, mask, h, teacher=None):
+                return be.decode_eager(p, l, r, pt,
+                                       torch.as_tensor(mask, device=dev), h,
+                                       teacher)
+            be.decode_fused = eager
+        before = [c.launches for c in counters]
+        rep = engine.run([copy.deepcopy(r) for r in trace])
+        torch.cuda.synchronize()
+        return rep, [c.launches - b for c, b in zip(counters, before)], be
+
+    grep, glaunch, gbe = run(True)
+    erep, elaunch, _ = run(False)
+    assert erep.preemptions > 0
+    assert {r.rid: r.generated for r in grep.completed} == \
+        {r.rid: r.generated for r in erep.completed}
+    for f in LEDGER:
+        assert getattr(grep, f) == getattr(erep, f), f
+    assert glaunch == elaunch and max(glaunch) > 0
+    assert gbe.graph.horizons == grep.host_syncs and gbe.graph.replays > 0
+
+
 # --- grouped expert GEMM --------------------------------------------------------
 
 
@@ -261,6 +355,36 @@ def test_grouped_mvm_kernel_matches_plain(dev, dtype, E, C, D, F):
     assert gm.grouped_mvm.launches == n0 + 1
     assert got.shape == (E, C, F) and got.dtype == dtype
     _close(got, ops.grouped_mvm(x, w, impl="ref"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,C,D,F", [
+    (64, 5, 2048, 1408),
+    (64, 8, 1408, 2048),
+    (16, 16, 256, 136),         # the 16-row FMA tile
+    (16, 32, 256, 128),         # the 32-row FMA tile
+    (64, 64, 2048, 1408),
+    (64, 128, 2048, 1408),
+    (8, 200, 256, 136),         # two c-tiles, the second partly live
+])
+def test_grouped_mvm_kernel_with_rows_matches_plain(dev, dtype, E, C, D, F):
+    """Live rows per expert, some empty, some full, the rest ragged: the
+    kernel writes zeros past each count (x is not zero there, so a row
+    that read x would show) and matches the plain version."""
+    rng = np.random.default_rng(E + C + D)
+    x = torch.tensor(rng.standard_normal((E, C, D)), dtype=torch.float32,
+                     device=dev).to(dtype)
+    w = torch.tensor(rng.standard_normal((E, D, F)) / D ** 0.5,
+                     dtype=torch.float32, device=dev).to(dtype)
+    rows = rng.integers(0, C + 1, E)
+    rows[:3] = (0, C, 1)
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    n0 = gm.grouped_mvm.launches
+    got = ops.grouped_mvm(x, w, rows)
+    assert gm.grouped_mvm.launches == n0 + 1
+    dead = torch.arange(C, device=dev)[None, :] >= rows[:, None]
+    assert torch.all(got[dead] == 0)
+    _close(got, ops.grouped_mvm(x, w, rows, impl="ref"))
 
 
 def test_grouped_mvm_kernel_refuses_what_it_cannot_take(dev):

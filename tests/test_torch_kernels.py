@@ -98,6 +98,86 @@ def test_paged_decode_plain_matches_jax_ref(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+PAGED_SPLIT = [  # (B, KV, G, dh, P, page, M, lengths, splits, tile): the
+    # paged kernel's split-T arithmetic at G 1, 2, 4, 7 and 12, ragged and
+    # length-0 rows, chunks wholly past a row's length, and pages that do
+    # and do not divide the tile
+    (3, 2, 1, 16, 16, 4, 4, [5, 16, 0], 1, 8),
+    (3, 2, 1, 16, 16, 4, 4, [5, 16, 0], 3, 8),
+    (4, 2, 2, 32, 20, 8, 3, [1, 24, 9, 0], 2, 8),
+    (2, 1, 4, 64, 12, 4, 5, [20, 7], 3, 16),
+    (2, 2, 7, 16, 24, 8, 5, [40, 0], 3, 16),
+    (3, 1, 7, 32, 30, 3, 9, [27, 1, 13], 2, 8),
+    (2, 1, 12, 64, 14, 6, 6, [36, 17], 3, 16),
+    (2, 2, 12, 16, 18, 16, 4, [0, 64], 1, 64),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT)
+def test_paged_split_plain_matches_pallas_interpret(case):
+    """The paged kernel's split-and-combine arithmetic in f32 against the
+    reference's Pallas ``_paged_kernel`` in interpret mode and the plain
+    paged decode, at any G."""
+    B, KV, G, dh, P, page, M, lengths, splits, tile = case
+    q, kp, vp, table, lens = _paged_case(7, B, KV, G, dh, P, page, M,
+                                         lengths)
+    want = np.asarray(jdec.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(lens), interpret=True))
+    args = (torch.tensor(q).reshape(B, KV * G, dh),
+            torch.tensor(kp.transpose(1, 2, 0, 3)),
+            torch.tensor(vp.transpose(1, 2, 0, 3)), torch.tensor(table),
+            torch.tensor(lens))
+    got = ref.paged_decode_attention_split(*args, splits, tile=tile)
+    np.testing.assert_allclose(got.reshape(B, KV, G, dh).numpy(), want,
+                               **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), ref.paged_decode_attention(*args).numpy(), **TOL)
+    assert np.all(got.numpy()[lens == 0] == 0.0)
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT[4:7])
+def test_paged_split_plain_bf16(case):
+    B, KV, G, dh, P, page, M, lengths, splits, tile = case
+    q, kp, vp, table, lens = _paged_case(8, B, KV, G, dh, P, page, M,
+                                         lengths)
+    args = (torch.tensor(q).reshape(B, KV * G, dh).to(torch.bfloat16),
+            torch.tensor(kp.transpose(1, 2, 0, 3)).to(torch.bfloat16),
+            torch.tensor(vp.transpose(1, 2, 0, 3)).to(torch.bfloat16),
+            torch.tensor(table), torch.tensor(lens))
+    got = ref.paged_decode_attention_split(*args, splits, tile=tile)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        ref.paged_decode_attention(*args).float().numpy(), **TOL_BF16)
+
+
+def test_paged_decode_dispatch_rules():
+    """CPU tensors take the plain version at any G (7 here); the kernel
+    wrapper refuses them instead of quietly computing, and counts no
+    launch; it has no G check left (a CPU tensor at G 7 is refused for
+    its device, not its G)."""
+    B, KV, G, dh, P, page, M = 2, 1, 7, 64, 6, 4, 2
+    q, kp, vp, table, lens = _paged_case(9, B, KV, G, dh, P, page, M,
+                                         [5, 8])
+    qm = torch.tensor(q).reshape(B, KV * G, dh).to(torch.bfloat16)
+    kpt, vpt = (torch.tensor(a).to(torch.bfloat16) for a in (kp, vp))
+    tt, lt = torch.tensor(table), torch.tensor(lens)
+    torch.testing.assert_close(
+        ops.paged_decode_attention(qm, kpt, vpt, tt, lt),
+        ref.paged_decode_attention(qm, kpt.permute(1, 2, 0, 3),
+                                   vpt.permute(1, 2, 0, 3), tt, lt))
+    with pytest.raises(ValueError, match="impl"):
+        ops.paged_decode_attention(qm, kpt, vpt, tt, lt, impl="auto")
+    n0 = tdec.paged_decode_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.paged_decode_attention(qm.view(B, KV, G, dh), kpt, vpt, tt, lt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.paged_decode_attention(qm.view(B, KV, G, dh), kpt, vpt, tt, lt,
+                                    splits=3)
+    assert tdec.paged_decode_attention.launches == n0
+
+
 DENSE = [  # (B, KV, G, dh, T, bt, lengths): ragged and length-0 rows, and
     # T = 77, 150: off the CUDA kernel's 64-token tile (the Pallas kernel
     # runs at a tile bt that divides T)
@@ -214,6 +294,17 @@ def test_split_plan_covers_t_in_whole_tiles():
     assert tdec.split_plan(8, 6, 1, 1500) == (6, 256)     # whisper cross
     assert tdec.split_plan(8, 16, 1, 640, splits=1) == (1, 640)
     assert tdec.split_plan(8, 16, 1, 640, splits=100) == (10, 64)
+    # a cap: chunks of at most 4 tiles, whatever the grid
+    cap = 4
+    assert tdec.split_plan(8, 32, 1, 2048, max_tiles=cap) == (8, 256)
+    assert tdec.split_plan(8, 32, 1, 640, max_tiles=cap) == (3, 256)
+    assert tdec.split_plan(8, 4, 7, 2048, max_tiles=cap) == (8, 256)
+    assert tdec.split_plan(8, 32, 1, 64, max_tiles=cap) == (1, 64)
+    assert tdec.split_plan(8, 32, 1, 2048, splits=1, max_tiles=cap) == \
+        (1, 2048)
+    # the paged entry's at the engine's table (40 pages of 16): 4 chunks
+    assert tdec.split_plan(8, 32, 1, 640,
+                           max_tiles=tdec.PAGED_CHUNK_TILES) == (4, 192)
 
 
 def test_decode_attention_dispatch_rules():

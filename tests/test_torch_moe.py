@@ -134,6 +134,40 @@ def test_grouped_mvm_rounds_once_to_x_dtype():
     assert torch.equal(got, want.float().to(torch.bfloat16))
 
 
+GROUPED_ROWS = [  # (E, C, D, F, rows): an expert with none, one full,
+    # ragged ones, C off every tile
+    (4, 8, 64, 128, [3, 0, 8, 1]),
+    (3, 5, 40, 24, [5, 0, 2]),
+    (4, 128, 64, 128, [128, 0, 77, 1]),
+]
+
+
+@pytest.mark.parametrize("E,C,D,F,rows", GROUPED_ROWS)
+def test_grouped_mvm_rows_plain_matches_pallas_interpret(E, C, D, F, rows):
+    """x laid out as ``moe_ffn`` lays it out (rows past each expert's count
+    are zeros): the plain version told the counts equals the reference's
+    Pallas kernel in interpret mode (which computes every row) and itself
+    without counts, bit for bit. Where x is not zero past a count, those
+    output rows still come out zero."""
+    rng = np.random.default_rng(E * C + D)
+    x, w = _rand(rng, E, C, D), _rand(rng, E, D, F)
+    dead = np.arange(C)[None, :] >= np.asarray(rows)[:, None]     # (E, C)
+    x[dead] = 0.0
+    want = np.asarray(jops.grouped_mvm(jnp.asarray(x), jnp.asarray(w),
+                                       impl="interpret"))
+    tr = torch.tensor(rows, dtype=torch.int32)
+    got = ref.grouped_mvm(torch.tensor(x), torch.tensor(w), tr)
+    np.testing.assert_allclose(_np(got), want, **TOL32)
+    assert torch.equal(got, ref.grouped_mvm(torch.tensor(x), torch.tensor(w)))
+    full = _rand(rng, E, C, D)
+    got = ops.grouped_mvm(torch.tensor(full), torch.tensor(w), tr,
+                          impl="ref")
+    assert torch.all(got[torch.tensor(dead)] == 0)
+    np.testing.assert_allclose(_np(got)[~dead],
+                               np.einsum("ecd,edf->ecf", full, w)[~dead],
+                               **TOL32)
+
+
 # --- moe_ffn ----------------------------------------------------------------------
 
 
@@ -177,6 +211,51 @@ def test_moe_ffn_matches_reference(N, capacity, replay):
                        keep_override=None if ko is None
                        else torch.tensor(ko))
     assert torch.equal(y_only, ty)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "olmoe-1b-7b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_rows_change_no_bit(arch, dtype, monkeypatch):
+    """``moe_ffn`` tells the grouped products each expert's kept claims;
+    that changes no bit of its output, at the exact-length, dropless and a
+    tight (dropping) capacity, with and without a replayed drop
+    population, on reduced deepseek and olmoe. The counts it passes are
+    the keep mask's per expert, and some expert runs short of C."""
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(3)
+    p = {k: v.to(dtype) for k, v in
+         L.init_moe_params(cfg, 64, gen, "cpu").items()}
+    x = torch.tensor(_rand(np.random.default_rng(4), 13, 64)).to(dtype)
+    ko = torch.tensor(np.random.default_rng(5).random((13, cfg.moe.top_k))
+                      < 0.7)
+    seen, short = [], False
+    grouped = ops.grouped_mvm
+
+    def record(x, w, rows=None, *, impl="kernel"):
+        seen.append(rows)
+        return grouped(x, w, rows, impl=impl)
+
+    def no_rows(x, w, rows=None, *, impl="kernel"):
+        return grouped(x, w, impl=impl)
+
+    for dims in (L.moe_dims(cfg, 13), L.moe_dims_dropless(cfg, 13),
+                 dataclasses.replace(L.moe_dims(cfg, 13), capacity=2)):
+        for override in (None, ko):
+            monkeypatch.setattr(ops, "grouped_mvm", record)
+            y, keep = L.moe_ffn(x, p, dims, keep_override=override,
+                                return_keep=True)
+            monkeypatch.setattr(ops, "grouped_mvm", no_rows)
+            assert torch.equal(y, L.moe_ffn(x, p, dims,
+                                            keep_override=override))
+            _, idx = torch.topk(torch.softmax(
+                x.float() @ p["router"].float(), -1), cfg.moe.top_k)
+            want = torch.zeros(cfg.moe.num_experts, dtype=torch.int32)
+            want.index_add_(0, idx[keep], torch.ones_like(idx[keep],
+                                                          dtype=torch.int32))
+            assert len(seen) == 3 and all(torch.equal(r, want) for r in seen)
+            short |= int(want.min()) < dims.capacity
+            seen.clear()
+    assert short
 
 
 def test_moe_dims_match_reference():
