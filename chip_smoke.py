@@ -38,11 +38,15 @@ into build/repro_torch/), then:
       flash at prefill only;
   (d1) holds the packed-canvas kernels (fp, fused epilogue, int8/int4
       dequant, with and without the epilogue) against their plain
-      versions at full width: one codeqwen1.5-7b decoder layer's seven
-      projections packed on one plane (R 25728, C 59648, 14,176 blocks),
-      whisper-tiny's 24 projections, and each activation on a small
-      layout; times each against its bound and, where one PyTorch call
-      computes the same function, that call;
+      versions at full width, the tolerance printed: one codeqwen1.5-7b
+      decoder layer's seven projections packed on one plane (R 25728, C
+      59648, 14,176 blocks) at B 1, 8, 9, 32, 128 and 200 in bf16, int8
+      and int4 (the epilogues at 8 and 128), whisper-tiny's 24
+      projections (f32 at B 64, also over int8 and int4 payloads, and 32;
+      bf16 at 200), and each activation on a small layout; times each against its bound and, where one
+      PyTorch call computes the same function, that call (at codeqwen
+      ``torch.matmul`` over the dense plane, and the per-matrix cuBLAS
+      loop beside it);
   (d2) runs the packing entry point ``repro_torch.launch.pack`` on the
       card (the paper's case studies, the canvas rows and end-to-end
       passes through all four packed-canvas kernels) and its check(),
@@ -85,10 +89,10 @@ into build/repro_torch/), then:
       as (f) does.
 
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
-attention kernels and grouped GEMM are built into DIR/build and timed in
-the same call beside this tree's, at (a)'s, (e0)'s and (f0)'s shapes (an
-earlier kernel only where it has an instance for G, and the grouped GEMM
-only where every row is live).
+attention kernels, packed canvas and grouped GEMM are built into
+DIR/build and timed in the same call beside this tree's, at (a)'s,
+(d1)'s, (e0)'s and (f0)'s shapes (an earlier kernel only where it has an
+instance for G, and the grouped GEMM only where every row is live).
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -203,9 +207,9 @@ def flash_case(torch, B, H, KV, S, T, window, dh=128, causal=True, seed=0):
 
 
 def load_parent(path):
-    """The attention kernels' ops of an earlier checkout at ``path``,
-    imported as a package of their own (their libraries build into
-    path/build), or None."""
+    """The kernels' ops of an earlier checkout at ``path``, imported as a
+    package of their own (their libraries build into path/build), or
+    None."""
     if path is None:
         return None
     root = Path(path).resolve() / "src" / "repro_torch"
@@ -216,7 +220,8 @@ def load_parent(path):
     sys.modules["parent_repro_torch"] = mod
     spec.loader.exec_module(mod)
     build = importlib.import_module("parent_repro_torch.kernels._build")
-    build.build(["paged_decode_attention", "flash_attention", "grouped_mvm"])
+    build.build(["paged_decode_attention", "flash_attention", "grouped_mvm",
+                 "packed_canvas"])
     return importlib.import_module("parent_repro_torch.kernels.ops")
 
 
@@ -651,38 +656,57 @@ def canvas_cost(torch, x, w, scales, out, G, c_blocks, bias=None,
 
 
 def canvas_case(torch, ops, ref, label, x, w, meta, *, precision=None,
-                scales=None, tol=None, library=None, **epi):
-    """One kernel call against its plain version, timed, with its bound."""
-    if precision is None:
-        def run(impl="kernel"):
-            return ops.packed_canvas_matmul(x, w, meta, impl=impl, **epi)
-    else:
-        def run(impl="kernel"):
-            return ops.packed_canvas_matmul_dq(
-                x, w, scales, meta, precision=precision, impl=impl, **epi)
+                scales=None, tol=None, library=None, parent=None, **epi):
+    """One kernel call against its plain version, timed (and the parent
+    tree's kernel on the same inputs, if given), with its bound."""
+    def runner(o):
+        if precision is None:
+            return lambda impl="kernel": o.packed_canvas_matmul(
+                x, w, meta, impl=impl, **epi)
+        return lambda impl="kernel": o.packed_canvas_matmul_dq(
+            x, w, scales, meta, precision=precision, impl=impl, **epi)
+    run = runner(ops)
     got = run()
     want = run("ref")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all(), f"{label}: non-finite output"
+    tol = tol or (TOL if x.dtype == torch.bfloat16 else TOL_F32)
     err = compare(torch, got, want, label, tol)
-    ms = cuda_ms(torch, run)
-    plain = cuda_ms(torch, lambda: run("ref"), iters=5)
-    lib = cuda_ms(torch, library, iters=10) if library else None
+    # device times: the host's enqueue of a launch (tensor maps, plan
+    # lookup, ctypes) can exceed a small layout's kernel
+    ms = cuda_ms(torch, run, hide_host=True)
+    old = None
+    if parent is not None:
+        old_run = runner(parent)
+        compare(torch, old_run(), want, f"{label} (parent)", tol)
+        old = cuda_ms(torch, old_run, hide_host=True)
+    plain = cuda_ms(torch, lambda: run("ref"), iters=5, hide_host=True)
+    lib = (cuda_ms(torch, library, iters=10, hide_host=True) if library
+           else None)
     G, c_blocks = meta.shape[1], got.shape[1] // 128
     flops, nbytes, peak = canvas_cost(torch, x, w, scales, got, G, c_blocks,
                                       epi.get("bias"), epi.get("residual"))
     b_ms, b_by = bound(flops, nbytes, peak)
     lib_txt = "none" if lib is None else f"{lib:.4f} ms"
-    print(f"  {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+    old_txt = "" if old is None else f"  parent {old:.4f} ms"
+    print(f"  {label}: max_abs_err {err:.3e} (rtol {tol['rtol']:g}, atol "
+          f"{tol['atol']:g})  kernel {ms:.4f} ms{old_txt}  plain "
           f"{plain:.4f} ms  library {lib_txt}  bound {b_ms:.4f} ms "
           f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib, max_abs_err=err)
 
 
-def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
+# (d1)'s batches on the codeqwen layer: decode (1, 8), a batch off every
+# tile (9, 200), the tensor cores' 128-row tile half full (32) and full
+CANVAS_BATCHES = (1, 8, 9, 32, 128, 200)
+
+
+def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config,
+                 parent=None):
     """(d1) the packed-canvas kernels against their plain versions at full
-    width. Returns the four kernels' records (launches filled in later)."""
+    width, and (given) the parent tree's kernels on the same inputs.
+    Returns the four kernels' records (launches filled in later)."""
     import numpy as np
 
     print("== (d1) packed-canvas kernels vs plain versions", flush=True)
@@ -698,41 +722,48 @@ def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
           f"{max(runs)} blocks", flush=True)
     # published widths are 128-multiples: the plane packs losslessly
     assert layout.density == 1.0, layout.density
-    weights, inputs = canvas_problem(torch, mats, 128, seed=1)
+    bmax = max(CANVAS_BATCHES)
+    weights, inputs = canvas_problem(torch, mats, bmax, seed=1)
     wb = layout.build_w_blocks(weights, dtype=bf16, device=DEV)
-    xp = layout.build_x_packed(inputs, 128, dtype=bf16, device=DEV)
+    xp = layout.build_x_packed(inputs, bmax, dtype=bf16, device=DEV)
     wv = layout.build_w_virtual(weights, dtype=bf16, device=DEV)
     per_matrix = {m.name: weights[m.name].to(bf16) for m in mats}
     xs = {m.name: inputs[m.name].to(bf16) for m in mats}
     gen = torch.Generator(device=DEV).manual_seed(2)
     bias = torch.randn((layout.C,), generator=gen, device=DEV).to(bf16)
-    res = torch.randn((128, layout.C), generator=gen, device=DEV).to(bf16)
+    res = torch.randn((bmax, layout.C), generator=gen, device=DEV).to(bf16)
     q8, s8 = ref.quantize_blocks(wb, "int8")
     q4, s4 = ref.quantize_blocks(wb, "int4")
     rec = {k: [] for k in ("fp", "epi", "dq", "dq_epi")}
+    main = {}
 
-    for B in (8, 128):
-        x = xp[:B]
+    for B in CANVAS_BATCHES:
+        x = xp[:B].contiguous()
         loop = cuda_ms(torch, lambda: [xs[n][:B] @ w
                                        for n, w in per_matrix.items()],
-                       iters=10)
+                       iters=10, hide_host=True)
         rec["fp"].append(canvas_case(
             torch, ops, ref, f"fp bf16 codeqwen layer B={B} (per-matrix "
             f"cuBLAS loop, 7 calls: {loop:.4f} ms)", x, wb, meta,
-            library=lambda x=x: torch.matmul(x, wv)))
+            library=lambda x=x: torch.matmul(x, wv), parent=parent))
         for name, q, s in (("int8", q8, s8), ("int4", q4, s4)):
             rec["dq"].append(canvas_case(
                 torch, ops, ref, f"{name} codeqwen layer B={B}", x, q, meta,
-                precision=name, scales=s))
-    x = xp[:8]
-    rec["epi"].append(canvas_case(
-        torch, ops, ref, "epilogue bias+silu+residual bf16 codeqwen B=8", x,
-        wb, meta, bias=bias, residual=res[:8], activation="silu"))
-    rec["dq_epi"].append(canvas_case(
-        torch, ops, ref, "int4 epilogue bias+gelu+residual codeqwen B=8", x,
-        q4, meta, precision="int4", scales=s4, bias=bias, residual=res[:8],
-        activation="gelu"))
-    main = {k: v[0] for k, v in rec.items()}   # codeqwen B=8 rows
+                precision=name, scales=s, parent=parent))
+        if B in (8, 128):
+            epi = dict(bias=bias, residual=res[:B].contiguous())
+            rec["epi"].append(canvas_case(
+                torch, ops, ref, f"epilogue bias+silu+residual bf16 codeqwen "
+                f"B={B}", x, wb, meta, activation="silu", parent=parent,
+                **epi))
+            for name, q, s in (("int8", q8, s8), ("int4", q4, s4)):
+                rec["dq_epi"].append(canvas_case(
+                    torch, ops, ref, f"{name} epilogue bias+gelu+residual "
+                    f"codeqwen B={B}", x, q, meta, precision=name, scales=s,
+                    activation="gelu", parent=parent, **epi))
+        if B == 8:        # the kernels record's rows: codeqwen at B = 8
+            main = {"fp": rec["fp"][-1], "dq": rec["dq"][-2],
+                    "epi": rec["epi"][-1], "dq_epi": rec["dq_epi"][-1]}
     del wb, xp, wv, per_matrix, xs, q8, s8, q4, s4, weights, inputs, res
     torch.cuda.empty_cache()
 
@@ -741,7 +772,9 @@ def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
     mats = pack.whisper_mats()
     layout = pack_canvas(mats)
     meta = layout.block_meta()
-    for B, dt, tol in ((64, torch.float32, TOL_F32), (200, bf16, None)):
+    for B, dt, tol in ((64, torch.float32, TOL_F32), (32, torch.float32,
+                                                      TOL_F32),
+                       (200, bf16, None)):
         weights, inputs = canvas_problem(torch, mats, B, seed=3)
         wb = layout.build_w_blocks(weights, dtype=dt, device=DEV)
         xp = layout.build_x_packed(inputs, B, dtype=dt, device=DEV)
@@ -749,12 +782,20 @@ def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config):
         rec["fp"].append(canvas_case(
             torch, ops, ref, f"fp {str(dt)[6:]} whisper-tiny 24 projections "
             f"(R {layout.R} C {layout.C} G {layout.num_blocks}) B={B}", xp,
-            wb, meta, tol=tol, library=lambda xp=xp, wv=wv: xp @ wv))
+            wb, meta, tol=tol, library=lambda xp=xp, wv=wv: xp @ wv,
+            parent=parent))
+        if B == 64:                 # f32 x over the payloads: FMA routine
+            for name in ("int8", "int4"):
+                q, s = ref.quantize_blocks(wb, name)
+                rec["dq"].append(canvas_case(
+                    torch, ops, ref, f"{name} whisper-tiny f32 x B={B}", xp,
+                    q, meta, precision=name, scales=s, tol=tol,
+                    parent=parent))
         if dt == torch.float32:     # the example's check, every matrix
             y = layout.gather_outputs(ops.packed_canvas_matmul(xp, wb, meta))
             err = max((y[m.name] - inputs[m.name] @ weights[m.name]).abs()
                       .max().item() for m in mats)
-            print(f"  whisper f32 B=64 per-matrix max |err| {err:.3e}")
+            print(f"  whisper f32 B={B} per-matrix max |err| {err:.3e}")
             assert err < 1e-3, err
 
     # each activation once, fp and dequant epilogues, on a small layout
@@ -1286,8 +1327,8 @@ def phase_static_breakdown(torch, api, cfg, params):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None,
-                    help="an earlier checkout whose attention kernels are "
-                         "timed beside this tree's")
+                    help="an earlier checkout whose kernels are timed "
+                         "beside this tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1350,7 +1391,7 @@ def main(argv=None) -> int:
 
     resolve_device(DEV)         # full f32 matmuls in the f32 plain versions
     canvas = phase_canvas(torch, ops, ref, pack, WeightMatrix, pack_canvas,
-                          get_config)
+                          get_config, parent)
     phase_pack(torch, pack, canvas)
     kernels += canvas
 

@@ -10,11 +10,14 @@ for them. A failed build or a missing nvcc raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -82,6 +85,13 @@ def function(lib: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
         f.restype = ctypes.c_int
         _fns[key] = f
     return _fns[key]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``: the kernels' split plans size
+    their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -17,7 +17,6 @@ CUDA tensors and raise on anything the kernel does not take.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -88,7 +87,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"no kernel instance for dh={dh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     n_split, chunk = split_plan(B, KV, G, M * page,
-                                _sm_count(q.device.index or 0), splits,
+                                _build.sm_count(q.device.index or 0), splits,
                                 max_tiles=PAGED_CHUNK_TILES)
     out = torch.empty_like(q)
     part_acc, part_ml = _workspaces(q, n_split)
@@ -105,11 +104,6 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 paged_decode_attention.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_plan(B: int, KV: int, G: int, T: int, sms: int = 132,
@@ -174,8 +168,8 @@ def decode_attention(q, k, v, lengths, *, scale=None, splits=None):
     if dh not in (64, 128):
         raise ValueError(f"no kernel instance for dh={dh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    n_split, chunk = split_plan(B, KV, G, T, _sm_count(q.device.index or 0),
-                                splits)
+    n_split, chunk = split_plan(B, KV, G, T,
+                                _build.sm_count(q.device.index or 0), splits)
     out = torch.empty_like(q)
     part_acc, part_ml = _workspaces(q, n_split)
     strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])

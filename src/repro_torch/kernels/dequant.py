@@ -2,10 +2,13 @@
 
 Counterpart of ``repro.kernels.dequant`` (the Pallas TPU kernels
 ``_kernel_dq`` and ``_kernel_dq_epilogue``). The block loop of
-``csrc/packed_canvas.cu`` reads the int8 or int4 payload and expands
-each weight to f32 with its channel's scale in the CUDA block, right
-before its products: the fp weight plane is never written to device
-memory, so a launch reads the payload's bytes and no more.
+``csrc/packed_canvas.cu`` reads the int8 or int4 payload raw and expands
+each weight to bf16 in registers as the tensor-core fragment is formed
+(bf16 x; the integers are exact in bf16), or to f32 on the FMA routine
+(f32 x). The per-column scale multiplies each block's f32 partial sum
+once: acc[:, c] += s[g, c] * sum_k x[:, k] q[k, c]. The fp weight plane
+is never written to device memory, so a launch reads the payload's
+bytes and no more.
 
 Encoding, per 128x128 block and output channel (column) c — the same
 bits as the reference's ``quantize_blocks``:
@@ -33,8 +36,9 @@ from .ref import QMAX
 def packed_canvas_matmul_dq(x_packed, wq_blocks, scales, meta, *,
                             precision: str, bb: int = 128, bias=None,
                             residual=None, activation=None):
-    """``packed_canvas_matmul`` over QUANTIZED blocks: each block is
-    dequantized in f32 inside the block loop, and the optional
+    """``packed_canvas_matmul`` over QUANTIZED blocks: each block's
+    integers multiply x inside the block loop, its f32 partial sum meets
+    the block's per-column scales once, and the optional
     bias/activation/residual epilogue fuses at the flush exactly as in
     the fp kernel.
 

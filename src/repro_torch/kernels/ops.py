@@ -118,9 +118,9 @@ def packed_canvas_matmul_dq(x_packed, wq_blocks, scales, meta, *,
                             precision: str, impl: str = "kernel", bb=128,
                             bias=None, residual=None, activation=None):
     """Packed-canvas MVM over quantized blocks: int8/int4 payload plus
-    per-channel scales from ``ref.quantize_blocks``, dequantized in f32
-    inside the block loop. The plain version dequantizes the blocks and
-    takes the fp plain version in f32, the kernel's arithmetic.
+    per-channel scales from ``ref.quantize_blocks``; each block's f32
+    partial sum over its integers times its columns' scales, in the
+    kernel and in the plain version alike (``ref.packed_canvas_dq``).
     """
     if (activation or "none") not in _pc.ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")

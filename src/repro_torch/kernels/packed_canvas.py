@@ -10,16 +10,23 @@ order of ``meta (4, G)``:
     y (B, C) = act(x_packed (B, R) @ W_virtual + bias) + residual
 
 The TPU grid stepped over the blocks in order and carried an f32
-accumulator across grid steps; here one CUDA block per (batch tile,
-output block cb) walks cb's run of blocks ``[cb_start[cb],
-cb_start[cb+1])`` itself. ``cb_start`` and ``c_blocks`` are derived from
-``meta`` on the host once per layout and cached (``canvas_runs``), so a
-launch never reads ``meta`` back from the card.
+accumulator across grid steps; here one CUDA block per (chunk, batch
+tile) walks a chunk of output block cb's run ``[cb_start[cb],
+cb_start[cb+1])`` itself. bf16 x over bf16 (and int8/int4, ``dequant``)
+blocks multiplies on the tensor cores (wgmma) in a batch tile of 8 to 128
+rows, so a launch reads each stored block once for B <= 128; f32 x, and
+bf16 x over f32 blocks, on f32 FMAs. ``split_plan`` cuts the runs into chunks
+only where whole runs would leave SMs idle; the chunks' f32 sums are then
+added in a fixed order by a combine kernel in the same call.
+``cb_start``, ``c_blocks`` and the plans are derived from ``meta`` on
+the host once per layout and cached (``canvas_runs``, ``canvas_plan``),
+so a launch never reads ``meta`` back from the card.
 
-The plain versions are ``ref.packed_canvas`` over
-``ref.blocks_to_dense``; ``ops`` picks between them by the tensors'
-device. This module's launch functions take CUDA tensors only and raise
-on anything the kernel does not take.
+The plain versions are ``ref.packed_canvas_blocks`` (which also takes a
+plan's chunks) and ``ref.packed_canvas`` over ``ref.blocks_to_dense``;
+``ops`` picks between them by the tensors' device. This module's launch
+functions take CUDA tensors only and raise on anything the kernel does
+not take.
 """
 
 from __future__ import annotations
@@ -49,8 +56,13 @@ ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 # the kernel's weight formats and x types
 W_FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int4": 3}
 X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-# batch rows per CUDA block: the kernel has an 8-row and a 64-row instance
-BM_SMALL, BM_LARGE = 8, 64
+# batch rows per CUDA block: the tensor-core routine (bf16 x over bf16,
+# int8 or int4 blocks; the wgmma's N) and the f32 FMA routine (f32 x, or
+# f32 blocks)
+TC_TILES = (8, 16, 32, 64, 128)
+FMA_TILES = (8, 64)
+#: a split plan aims at this many chunks an SM
+CHUNKS_PER_SM = 2
 
 _META_CACHE: dict[tuple, tuple[np.ndarray, np.ndarray]] = {}
 # id() fast path: maps id(blocks) -> (strong ref to blocks, result). The
@@ -108,6 +120,18 @@ class CanvasRuns(NamedTuple):
     kb_end: int                  # 1 + the largest kb: x needs R >= 128 * this
     meta: torch.Tensor           # (4, G) int32 on the launch device
     cb_start: torch.Tensor       # (c_blocks + 1,) int32: cb's run offsets
+    cb_host: np.ndarray          # the same offsets on the host
+    plans: dict                  # (row tiles, SMs) -> CanvasPlan
+
+
+class CanvasPlan(NamedTuple):
+    """A split plan on the launch device (``split_plan``)."""
+    n_chunks: int
+    split: bool                  # chunks write f32 sums; a combine follows
+    chunk_off: torch.Tensor      # (n_chunks + 1,) int32 block offsets
+    chunk_cb: torch.Tensor       # (n_chunks,) int32 output block of each
+    order: torch.Tensor          # (n_chunks,) int32 launch order
+    cb_chunk: torch.Tensor       # (c_blocks + 1,) int32 chunk offsets
 
 
 # id(meta) -> (strong ref to meta, its version, device, CanvasRuns); the
@@ -147,14 +171,69 @@ def canvas_runs(meta, device) -> CanvasRuns:
     cb_start = np.searchsorted(cb, np.arange(c_blocks + 1)).astype(np.int32)
     runs = CanvasRuns(c_blocks, int(kb.max()) + 1,
                       torch.tensor(host, device=dev),
-                      torch.tensor(cb_start, device=dev))
+                      torch.tensor(cb_start, device=dev), cb_start, {})
     if len(_RUNS_CACHE) >= 256:
         _RUNS_CACHE.pop(next(iter(_RUNS_CACHE)))
     _RUNS_CACHE[key] = (meta, version, runs)
     return runs
 
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def split_plan(cb_start, row_tiles: int, sms: int):
+    """Chunks of the runs for a grid of ``row_tiles`` batch tiles on
+    ``sms`` SMs: (chunk_off (n + 1,), chunk_cb (n,), cb_chunk (c_blocks +
+    1,), order (n,)) int32 arrays. Chunk i holds blocks ``[chunk_off[i],
+    chunk_off[i+1])`` of output block ``chunk_cb[i]``; cb's chunks are
+    ``[cb_chunk[cb], cb_chunk[cb+1])``, in cb-major order, so a run's
+    chunks add up in block order. Whole runs (one chunk each) while
+    ``row_tiles * c_blocks`` gives every SM a CUDA block; else every run
+    is cut into chunks of at most ``ceil(G * row_tiles / (CHUNKS_PER_SM *
+    sms))`` blocks, as even as can be (the first ones a block longer).
+    ``order`` launches the longest chunks first (stable), so the last
+    wave holds the short ones."""
+    cb_start = np.asarray(cb_start, np.int64)
+    lengths = np.diff(cb_start)
+    c_blocks, G = len(lengths), int(cb_start[-1])
+    if row_tiles * c_blocks >= sms:
+        per_run = np.ones_like(lengths)
+    else:
+        cap = max(1, -(-G * row_tiles // (CHUNKS_PER_SM * sms)))
+        per_run = -(-lengths // cap)
+    sizes = np.concatenate([
+        n // k + (np.arange(k) < n % k) for n, k in zip(lengths, per_run)])
+    chunk_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    chunk_cb = np.repeat(np.arange(c_blocks), per_run).astype(np.int32)
+    cb_chunk = np.concatenate([[0], np.cumsum(per_run)]).astype(np.int32)
+    order = np.argsort(-sizes, kind="stable").astype(np.int32)
+    return chunk_off, chunk_cb, cb_chunk, order
+
+
+def canvas_plan(runs: CanvasRuns, row_tiles: int, sms: int) -> CanvasPlan:
+    """``split_plan`` of a layout on its launch device, cached on
+    ``runs``."""
+    key = (row_tiles, sms)
+    plan = runs.plans.get(key)
+    if plan is None:
+        chunk_off, chunk_cb, cb_chunk, order = split_plan(runs.cb_host,
+                                                          row_tiles, sms)
+        dev = runs.meta.device
+        plan = CanvasPlan(len(chunk_cb), len(chunk_cb) > runs.c_blocks,
+                          *(torch.tensor(a, device=dev) for a in
+                            (chunk_off, chunk_cb, order, cb_chunk)))
+        runs.plans[key] = plan
+    return plan
+
+
+def batch_tile(B: int, bb: int, tensor_cores: bool) -> int:
+    """Batch rows a CUDA block: on the tensor cores the smallest tile
+    that holds min(bb, B) rows, 128 past it; on the FMA routine 8 up to
+    32 rows (its 8-row tile splits k), else 64."""
+    rows = min(bb, B)
+    if tensor_cores:
+        return next((t for t in TC_TILES if t >= rows), TC_TILES[-1])
+    return FMA_TILES[0] if rows <= 32 else FMA_TILES[1]
+
+
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def launch(x_packed, w, scales, w_format: str, meta, *, bias=None,
@@ -162,15 +241,15 @@ def launch(x_packed, w, scales, w_format: str, meta, *, bias=None,
     """Launch one packed-canvas kernel instance and return y (B, C) in
     x's dtype. ``w``: (G, 128, 128) f32/bf16 blocks, or the int8
     (G, 128, 128) / int4 (G, 64, 128) payload with ``scales`` (G, 128)
-    f32. The epilogue instance runs when any of bias, residual or
-    activation is given; bias (C,) and residual (B, C) are in x's dtype
-    and None means none (nothing is allocated for them).
+    f32. bias (C,) and residual (B, C) are in x's dtype and None means
+    none (nothing is allocated for them); the epilogue runs at the flush
+    (or in the combine) with whatever is given.
 
     Rows are masked by the true B: there is no B % tile requirement.
-    ``bb`` caps the batch rows per CUDA block; the kernel takes 8 when
-    min(bb, B) <= 32 and 64 otherwise.
+    ``bb`` caps the batch rows per CUDA block (``batch_tile``). bf16 x
+    over bf16, int8 or int4 blocks runs on the tensor cores; any other
+    pair on f32 FMAs.
     """
-    epilogue = not (bias is None and residual is None and activation is None)
     activation = activation or "none"
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
@@ -189,7 +268,7 @@ def launch(x_packed, w, scales, w_format: str, meta, *, bias=None,
         if t is not None:
             checks.append((name, t, x_packed.dtype))
     for name, t, dt in checks:
-        # 16-byte cp.async copies: contiguous and 16-byte aligned
+        # 16-byte copies (cp.async, TMA): contiguous and 16-byte aligned
         if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: need a contiguous, 16-byte aligned "
@@ -210,22 +289,30 @@ def launch(x_packed, w, scales, w_format: str, meta, *, bias=None,
         raise ValueError(f"bias must be ({C},)")
     if residual is not None and residual.shape != (B, C):
         raise ValueError(f"residual must be ({B}, {C})")
-    if runs.c_blocks > 65535:
-        raise ValueError(f"{runs.c_blocks} output blocks exceed the grid")
     out = torch.empty((B, C), dtype=x_packed.dtype, device=x_packed.device)
     if B == 0:
         return out
-    bm = BM_SMALL if min(bb, B) <= 32 else BM_LARGE
+    tensor_cores = x_packed.dtype == torch.bfloat16 and w_format != "f32"
+    bm = batch_tile(B, bb, tensor_cores)
+    plan = canvas_plan(runs, -(-B // bm),
+                       _build.sm_count(x_packed.device.index or 0))
+    if plan.n_chunks * -(-B // bm) >= 2 ** 31:
+        raise ValueError(f"{plan.n_chunks} chunks x {-(-B // bm)} batch "
+                         f"tiles exceed the grid")
+    ws = (torch.empty((plan.n_chunks, B, BLK), dtype=torch.float32,
+                      device=x_packed.device) if plan.split else None)
     fn = _build.function("packed_canvas", "packed_canvas_launch", _ARGS)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     _build.check(fn(x_packed.data_ptr(), w.data_ptr(), ptr(scales),
-                    runs.meta.data_ptr(), runs.cb_start.data_ptr(),
-                    ptr(bias), ptr(residual), out.data_ptr(), B, R, C,
+                    runs.meta.data_ptr(), plan.chunk_off.data_ptr(),
+                    plan.chunk_cb.data_ptr(), plan.order.data_ptr(),
+                    plan.cb_chunk.data_ptr(), ptr(bias), ptr(residual),
+                    out.data_ptr(), ptr(ws), B, R, C, G, plan.n_chunks,
                     X_TYPES[x_packed.dtype], W_FORMATS[w_format], bm,
-                    int(epilogue), ACT_CODES[activation],
+                    ACT_CODES[activation],
                     torch.cuda.current_stream(x_packed.device).cuda_stream),
                  "packed_canvas")
     return out
@@ -248,7 +335,8 @@ def packed_canvas_matmul(x_packed, w_blocks, meta, *, bb: int = 128,
     (4, G) from build_block_meta. R, C are 128-multiples; any B.
     Optional fused epilogue ``y = act(y + bias) + residual`` with bias
     (C,), residual (B, C), activation in ACTIVATIONS; any subset may be
-    given. f32 accumulation, one rounding to x's dtype at the end.
+    given. f32 accumulation, one rounding to x's dtype at the end: bf16
+    x over bf16 blocks on the tensor cores, anything else on f32 FMAs.
     """
     if bias is None and residual is None and activation is None:
         return _packed_canvas_matmul(x_packed, w_blocks, meta, bb=bb)

@@ -44,19 +44,35 @@ def packed_canvas(x_packed, w_virtual, *, bias=None, residual=None,
 
 
 def packed_canvas_blocks(x_packed, w_blocks, meta, c_blocks: int, *,
-                         bias=None, residual=None, activation=None):
-    """The packed-canvas kernels' plain version: the same function as
-    ``packed_canvas`` over ``blocks_to_dense``, computed over the stored
-    blocks only (memory in proportion to the blocks, not the plane).
-    Each block's (B, 128) product in f32, summed into its output block,
-    then the epilogue and one rounding."""
-    meta = torch.as_tensor(meta).to(x_packed.device, torch.long)
+                         scales=None, chunk_off=None, bias=None,
+                         residual=None, activation=None):
+    """The packed-canvas kernels' plain version, in their arithmetic
+    order: the same function as ``packed_canvas`` over
+    ``blocks_to_dense``, computed over the stored blocks only (memory in
+    proportion to the blocks, not the plane). Each block's (B, 128)
+    product in f32, times its per-column ``scales`` (G, 128) where given
+    (the quantized formats: once a block, after the block's sum), summed
+    in block order into its chunk (``chunk_off``, a ``split_plan``'s
+    block offsets; default one chunk a run), the chunks summed in order
+    into their output block, then the epilogue and one rounding."""
+    dev = x_packed.device
+    meta = torch.as_tensor(meta).to(dev, torch.long)
     B, R = x_packed.shape
     xb = x_packed.float().reshape(B, R // BLK, BLK)[:, meta[META_KB]]
     prod = torch.einsum("bgk,gkn->bgn", xb, w_blocks.float())
-    y = torch.zeros((B, c_blocks, BLK), dtype=torch.float32,
-                    device=x_packed.device)
-    y.index_add_(1, meta[META_CB], prod)
+    if scales is not None:
+        prod = prod * scales.float()
+    cb = meta[META_CB]
+    if chunk_off is not None:
+        off = torch.as_tensor(chunk_off).to(dev, torch.long)
+        sizes = off[1:] - off[:-1]
+        chunk_of = torch.repeat_interleave(
+            torch.arange(len(sizes), device=dev), sizes)
+        prod = torch.zeros((B, len(sizes), BLK), dtype=torch.float32,
+                           device=dev).index_add_(1, chunk_of, prod)
+        cb = cb[off[:-1]]
+    y = torch.zeros((B, c_blocks, BLK), dtype=torch.float32, device=dev)
+    y.index_add_(1, cb, prod)
     return _epilogue(y.view(B, c_blocks * BLK), x_packed.dtype, bias,
                      residual, activation)
 
@@ -99,28 +115,38 @@ def quantize_blocks(w_blocks, precision: str):
     return lo | (hi << 4), scales
 
 
-def dequantize_blocks(payload, scales, precision: str):
-    """Inverse of ``quantize_blocks`` -> f32 (G, 128, 128)."""
+def unpack_blocks(payload, precision: str):
+    """The integers q of ``quantize_blocks``' payload -> f32 (G, 128,
+    128), exact: int8 as stored, int4 unbiased with its row pairs
+    unpacked."""
     if precision not in QMAX:
         raise ValueError(f"unknown precision {precision!r}")
-    s = scales.float()[:, None, :]
     if precision == "int8":
-        return payload.float() * s
+        return payload.float()
     lo = (payload & 0xF).float() - 8.0
     hi = ((payload >> 4) & 0xF).float() - 8.0
     G = payload.shape[0]
-    return torch.stack([lo, hi], dim=2).reshape(G, BLK, BLK) * s
+    return torch.stack([lo, hi], dim=2).reshape(G, BLK, BLK)
+
+
+def dequantize_blocks(payload, scales, precision: str):
+    """Inverse of ``quantize_blocks`` -> f32 (G, 128, 128)."""
+    return unpack_blocks(payload, precision) * scales.float()[:, None, :]
 
 
 def packed_canvas_dq(x_packed, wq_blocks, scales, meta, c_blocks: int,
-                     precision: str, *, bias=None, residual=None,
-                     activation=None):
-    """The dequant kernels' plain version: blocks dequantized in f32,
-    then ``packed_canvas_blocks`` in f32 (the weights are never rounded
-    to x's dtype, as in the kernel)."""
+                     precision: str, *, chunk_off=None, bias=None,
+                     residual=None, activation=None):
+    """The dequant kernels' plain version, in their order:
+    ``packed_canvas_blocks`` over the blocks' integers in f32, each
+    block's f32 partial sum times its columns' scales once, acc[:, c] +=
+    s[g, c] * sum_k x[:, k] q[k, c] (the reference multiplies x by q * s
+    weight by weight), then the chunks (``chunk_off``) and runs in
+    order."""
     return packed_canvas_blocks(
-        x_packed, dequantize_blocks(wq_blocks, scales, precision), meta,
-        c_blocks, bias=bias, residual=residual, activation=activation)
+        x_packed, unpack_blocks(wq_blocks, precision), meta, c_blocks,
+        scales=scales, chunk_off=chunk_off, bias=bias, residual=residual,
+        activation=activation)
 
 
 # --- grouped MVM (MoE expert GEMM) -----------------------------------------------

@@ -263,6 +263,46 @@ def test_dequant_epilogue_kernel_matches_plain(dev, precision, activation, B,
                                             impl="ref", **kw))
 
 
+# (kb, cb) cover with 150 output blocks: more than the card's SMs, so one
+# batch tile keeps whole runs (the small cover above is always split)
+WIDE_BLOCKS = [(0, cb) for cb in range(150)] + [
+    (kb, cb) for cb in range(0, 150, 3) for kb in (1 + cb % 5, 6)]
+
+
+@pytest.mark.parametrize("layout", ["small", "wide"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129,
+                               200])
+def test_tensor_core_routine_matches_plain(dev, layout, fmt, B):
+    """bf16 x over bf16, int8 and int4 blocks at every batch tile (8 to
+    128 rows) and off them, on split runs (small) and whole runs (wide);
+    two launches give the same bits (a fixed order, no atomics)."""
+    from repro_torch.kernels import packed_canvas as pc
+    from repro_torch.kernels import ref
+    blocks = CANVAS_BLOCKS if layout == "small" else WIDE_BLOCKS
+    meta, _ = pc.build_block_meta(np.asarray(blocks))
+    G, R, C = len(blocks), 128 * (int(meta[0].max()) + 1), \
+        128 * (int(meta[1].max()) + 1)
+    rng = np.random.default_rng(B)
+    x = torch.tensor(rng.standard_normal((B, R)), dtype=torch.float32,
+                     device=dev).to(torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((G, 128, 128)) / 16,
+                     dtype=torch.float32, device=dev)
+    if fmt == "bf16":
+        def run(impl="kernel"):
+            return ops.packed_canvas_matmul(x, w.bfloat16(), meta, impl=impl)
+    else:
+        q, s = ref.quantize_blocks(w, fmt)
+
+        def run(impl="kernel"):
+            return ops.packed_canvas_matmul_dq(x, q, s, meta, precision=fmt,
+                                               impl=impl)
+    got = run()
+    assert got.shape == (B, C) and got.dtype == torch.bfloat16
+    assert torch.equal(got, run())
+    _close(got, run("ref"))
+
+
 def test_packing_entry_point_on_the_card(dev):
     """launch.pack on the card: every row, its check(), all four kernels."""
     from repro_torch.kernels import dequant as dq

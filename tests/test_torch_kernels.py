@@ -523,6 +523,123 @@ def test_canvas_oracles_match_jax_ref(dtype):
         **(TOL if dtype == "f32" else TOL_BF16))
 
 
+# --- the kernels' arithmetic order: per-block scale, chunks in plan order -------
+#
+# The CUDA routines sum each block's products in f32, multiply a quantized
+# block's f32 sum by its columns' scales once, add a split run's chunks in
+# plan order, then the runs. ``ref.packed_canvas_blocks`` / ``packed_canvas_dq``
+# with a plan's ``chunk_off`` is that order; it is held here against the
+# Pallas kernels (per-weight dequant, one accumulator a run). x and the fp
+# blocks are rounded to bf16 first (the tensor cores' inputs) and computed
+# in f32: the products are exact on both sides, so they differ by summation
+# order and the scale's place only, within the f32 TOL.
+
+
+def _bf16_grid(*arrays):
+    return [np.asarray(torch.tensor(a).bfloat16().float()) for a in arrays]
+
+
+def _chunks(meta, sms):
+    """A split plan's block offsets for the test layout, one batch tile,
+    on a card of ``sms`` SMs (5: runs of 1, 3, 5, 2 cut into at most 2)."""
+    runs = tpc.canvas_runs(meta, "cpu")
+    return tpc.split_plan(runs.cb_host, 1, sms)[0]
+
+
+def _order(tx, tw, meta, precision, chunk_off, **epi):
+    runs = tpc.canvas_runs(meta, "cpu")
+    if precision is None:
+        return ref.packed_canvas_blocks(tx, tw, runs.meta, runs.c_blocks,
+                                        chunk_off=chunk_off, **epi)
+    q, s = ref.quantize_blocks(tw, precision)
+    return ref.packed_canvas_dq(tx, q, s, runs.meta, runs.c_blocks,
+                                precision, chunk_off=chunk_off, **epi)
+
+
+@pytest.mark.parametrize("precision,epilogue", [
+    (None, False), ("int8", True), ("int4", False)])
+def test_kernel_order_matches_pallas_interpret(precision, epilogue):
+    """Case 1, B = 128 (the reference's tile: every row written)."""
+    meta, x, w, bias, res = _canvas(14, 128, scale=0.1)
+    x, w = _bf16_grid(x, w)
+    epi = dict(bias=bias, residual=res, activation="gelu") if epilogue else {}
+    jepi = {k: jnp.asarray(v) if k != "activation" else v
+            for k, v in epi.items()}
+    tepi = {k: torch.tensor(v) if k != "activation" else v
+            for k, v in epi.items()}
+    if precision is None:
+        want = jops.packed_canvas_matmul(jnp.asarray(x), jnp.asarray(w),
+                                         jnp.asarray(meta), impl="interpret",
+                                         **jepi)
+    else:
+        jq, js = jdq.quantize_blocks(jnp.asarray(w), precision)
+        want = jops.packed_canvas_matmul_dq(
+            jnp.asarray(x), jq, js, jnp.asarray(meta), precision=precision,
+            impl="interpret", **jepi)
+    got = _order(torch.tensor(x), torch.tensor(w), meta, precision,
+                 _chunks(meta, 5), **tepi)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **TOL)
+
+
+@pytest.mark.parametrize("B", [1, 9, 200])
+def test_kernel_order_matches_f64_oracle(B):
+    """Case 2, at batches off the reference's tile (it leaves rows past its
+    last full tile unwritten): the order against the dense plane in f64,
+    fp, int8 and int4."""
+    meta, x, w, _, _ = _canvas(15, B, scale=0.1)
+    x, w = _bf16_grid(x, w)
+    chunk_off = _chunks(meta, 5)
+    for precision in (None, "int8", "int4"):
+        wf = w if precision is None else ref.dequantize_blocks(
+            *ref.quantize_blocks(torch.tensor(w), precision),
+            precision).double().numpy()
+        want = x.astype(np.float64) @ _dense(meta, wf)
+        got = _order(torch.tensor(x), torch.tensor(w), meta, precision,
+                     chunk_off)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("sms", [4, 5, 132])
+def test_split_plan_chunks_against_whole_runs(sms):
+    """Case 3: a plan's chunks partition each run in block order, evenly
+    and in launch order longest first; whole runs while the runs give
+    every SM a CUDA block; summed in plan order they give the whole runs'
+    result (f32 TOL: order only)."""
+    meta, x, w, _, _ = _canvas(16, 9, scale=0.1)
+    cb_start = tpc.canvas_runs(meta, "cpu").cb_host
+    off, chunk_cb, cb_chunk, order = tpc.split_plan(cb_start, 1, sms)
+    lengths = np.diff(cb_start)
+    if len(lengths) >= sms:
+        assert off.tolist() == cb_start.tolist()
+    cap = max(1, -(-int(cb_start[-1]) // (tpc.CHUNKS_PER_SM * sms)))
+    assert off[0] == 0 and off[-1] == cb_start[-1]
+    for cb, n in enumerate(lengths):
+        first, last = cb_chunk[cb], cb_chunk[cb + 1]
+        assert off[first] == cb_start[cb] and off[last] == cb_start[cb + 1]
+        assert np.all(chunk_cb[first:last] == cb)
+        sizes = np.diff(off[first:last + 1])
+        assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+        assert len(lengths) >= sms or sizes.max() <= cap
+    sizes = np.diff(off)
+    assert sorted(order.tolist()) == list(range(len(sizes)))
+    assert np.all(np.diff(sizes[order]) <= 0)
+    tx, tw = torch.tensor(x), torch.tensor(w)
+    for precision in (None, "int8"):
+        np.testing.assert_allclose(
+            _order(tx, tw, meta, precision, off).numpy(),
+            _order(tx, tw, meta, precision, None).numpy(), **TOL)
+
+
+def test_batch_tile_is_the_smallest_instance_that_holds_b():
+    tc = [tpc.batch_tile(B, 128, True) for B in (1, 8, 9, 16, 17, 33, 64,
+                                                 65, 128, 129, 200)]
+    assert tc == [8, 8, 16, 16, 32, 64, 64, 128, 128, 128, 128]
+    assert tpc.batch_tile(200, 16, True) == 16          # bb caps the tile
+    fma = [tpc.batch_tile(B, 128, False) for B in (1, 32, 33, 200)]
+    assert fma == [8, 8, 64, 64]
+
+
 def _quant_inputs():
     """Random blocks plus columns that probe the encoding's edges: exact
     halves (round half to even), the clip range, an all-zero column."""
