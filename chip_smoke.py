@@ -86,7 +86,31 @@ into build/repro_torch/), then:
   (g) serves whisper-tiny at full width through the static path (frames
       from the seed, prompts 16-64, generations 64-224), counting 8
       decode-attention launches a step (4 self, 4 cross), and checks it
-      as (f) does.
+      as (f) does;
+  (h) serves qwen2-vl-7b (vlm, M-RoPE) at full width and depth through
+      the engine on (b)'s settings and trace, each request carrying 4
+      patch embeddings drawn by ``vlm_extras_fn``, prefix sharing asked
+      for and refused by the backend: every kernel counter zeroed just
+      before and read just after (28 paged-decode launches a decode
+      step, 28 flash launches a prefill, nothing else), its eager twin
+      as in (b), and the tokens teacher-forced through the static path
+      with the same patches;
+  (h') profiles one qwen2-vl-7b decode step and one 512-token prefill;
+  (h'') the eager-vs-graphed horizons of (b'') on qwen2-vl-7b;
+  (h+) serves the same 16 requests through the static path, counting one
+      dense decode launch a layer a step and flash at prefill only;
+  (i) serves rwkv6-7b (ssm) at full width and depth through the engine's
+      recurrent backend (no pages; a constant state per slot, written in
+      place at admission; fused horizons replayed from the one-step graph
+      over a dummy one-row table) on (b)'s settings and trace: every
+      request completes, no kernel of the eight launches, the report
+      counts the state as ``slot_state_bytes`` in ``kv_bytes_peak``, the
+      eager twin as in (b), and the same requests served one at a time
+      give the same tokens;
+  (i') profiles one rwkv6-7b decode step and one 512-token prefill and
+      gives the WKV routine's share of each one's device time;
+  (i'') the eager-vs-graphed horizons of (b'') on rwkv6-7b's state, 8
+      steps each.
 
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
 attention kernels, packed canvas and grouped GEMM are built into
@@ -358,12 +382,27 @@ def greedy_gap(torch, T, cfg, params, req) -> float:
     return gaps.max().item()
 
 
+def engine_config(rt, **kw):
+    """Every engine phase's settings: 8 slots, page 16, 40-page table
+    rows, prefill bucket 128, greedy, fused horizons of 32."""
+    return rt.EngineConfig(num_slots=8, page_size=16, num_pages=1 + 8 * 40,
+                           max_pages_per_seq=40, prefill_bucket=128,
+                           greedy=True, horizon=32, **kw)
+
+
+def engine_trace(rt, cfg, **kw):
+    """(b)'s seeded Poisson trace: 16 requests, prompts 128-512,
+    generations 32-128."""
+    return rt.poisson_trace(16, mean_interarrival=4.0,
+                            prompt_lens=(128, 256, 384, 512),
+                            gen_lens=(32, 64, 96, 128),
+                            vocab_size=cfg.vocab_size, seed=0, **kw)
+
+
 def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     """(b) the full-width engine, counting the kernels' launches."""
     print("== (b) engine, codeqwen1.5-7b full width", flush=True)
-    ecfg = rt.EngineConfig(num_slots=8, page_size=16, num_pages=1 + 8 * 40,
-                           max_pages_per_seq=40, prefill_bucket=128,
-                           greedy=True, horizon=32)
+    ecfg = engine_config(rt)
     engine = rt.Engine(cfg, params, ecfg)
     for k in kernels:
         k["counter"].launches = 0
@@ -383,16 +422,8 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     assert counts["flash_attention"] == \
         cfg.num_layers * rep.prefill_calls, counts
     print_graph(engine.backend.graph, rep)
-    assert len(rep.completed) == len(trace)
-    for r in rep.completed:
-        assert not r.truncated and len(r.generated) == r.max_new_tokens
-        assert all(0 <= t < cfg.vocab_size for t in r.generated)
-    n_tok = rep.new_tokens
-    print(f"  decode wall {rep.decode_wall_s:.3f} s (+ first horizon "
-          f"{rep.compile_wall_s:.3f} s)  prefill wall "
-          f"{rep.prefill_wall_s:.3f} s  tokens/s "
-          f"{summary['tokens_per_s']}  host syncs per token "
-          f"{rep.host_syncs / n_tok:.4f}", flush=True)
+    finish_check(rep, trace, cfg)
+    print_rates(rep, summary)
     steps = eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
     from repro_torch.kernels import decode_attention as dec
     paged_at_run_lengths(torch, dec, cfg, steps)
@@ -412,6 +443,23 @@ def phase_engine(torch, T, rt, cfg, params, trace, kernels):
     # corrupted cache would put it O(scale) away
     assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
     return rep
+
+
+def finish_check(rep, trace, cfg) -> None:
+    """Every request of ``trace`` completed at its budget, with tokens in
+    the vocabulary."""
+    assert len(rep.completed) == len(trace)
+    for r in rep.completed:
+        assert not r.truncated and len(r.generated) == r.max_new_tokens
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+
+
+def print_rates(rep, summary) -> None:
+    print(f"  decode wall {rep.decode_wall_s:.3f} s (+ first horizon "
+          f"{rep.compile_wall_s:.3f} s)  prefill wall "
+          f"{rep.prefill_wall_s:.3f} s  tokens/s {summary['tokens_per_s']}"
+          f"  host syncs per token {rep.host_syncs / rep.new_tokens:.4f}",
+          flush=True)
 
 
 # the engine report's ledger: what a graphed run must share with an eager one
@@ -560,12 +608,14 @@ def breakdown(torch, label: str, fn, steps: int = 4) -> None:
              if busy else "not measured"), flush=True)
     for key, ms in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"    {ms:8.3f} ms  {key[:90]}")
+    return busy
 
 
-def phase_breakdown(torch, T, cfg, params):
+def phase_breakdown(torch, T, cfg, params, label="(b')", extras=None):
     """(b') one decode step at the main path's batch (8 slots, 400 live
-    tokens each) and one 512-token prefill, profiled."""
-    print("== (b') where the time goes", flush=True)
+    tokens each) and one 512-token prefill (with ``extras``, a batch of
+    one's vlm patches), profiled."""
+    print(f"== {label} where the time goes, {cfg.name}", flush=True)
     B, page, M = 8, 16, 40
     state = T.init_paged_decode_state(cfg, 1 + B * M, page, device=DEV)
     table = torch.arange(1, 1 + B * M, dtype=torch.int32,
@@ -576,39 +626,41 @@ def phase_breakdown(torch, T, cfg, params):
     breakdown(torch, f"decode step B={B}", lambda: T.paged_decode_step(
         cfg, params, state, toks, table, lens, act))
     prompt = {"tokens": torch.zeros((1, 512), dtype=torch.int32,
-                                    device=DEV)}
+                                    device=DEV), **(extras or {})}
     plen = torch.tensor([512], dtype=torch.int32, device=DEV)
     breakdown(torch, "prefill S=512", lambda: T.paged_prefill(
         cfg, params, prompt, plen), steps=2)
 
 
-def phase_static(torch, rt, cfg, params, trace, label="(c)", attn=None):
-    """(c) the static lockstep baseline on the first 8 requests. With
-    ``attn`` = (decode kernel, flash kernel) wrappers, their counters are
-    zeroed just before and read just after: one decode launch a layer a
-    decode step, flash at prefill only."""
-    print(f"== {label} static baseline, {cfg.name}, first 8 requests",
+def phase_static(torch, rt, cfg, params, trace, label="(c)", attn=None,
+                 n=8):
+    """(c) the static lockstep baseline on the first ``n`` requests, in
+    groups of 8. With ``attn`` = (decode kernel, flash kernel) wrappers,
+    their counters are zeroed just before and read just after: one decode
+    launch a layer a decode step, flash at prefill only."""
+    print(f"== {label} static baseline, {cfg.name}, first {n} requests",
           flush=True)
     for c in attn or ():
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    rep = rt.run_static(cfg, params, copy.deepcopy(trace[:8]), num_slots=8)
+    rep = rt.run_static(cfg, params, copy.deepcopy(trace[:n]), num_slots=8)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     print(json.dumps(rep.summary()), flush=True)
     print(f"  wall {wall:.3f} s  prefill wall {rep.prefill_wall_s:.3f} s  "
           f"decode wall {rep.decode_wall_s:.3f} s  decode steps "
           f"{rep.decode_steps}", flush=True)
-    assert len(rep.completed) == 8
+    assert len(rep.completed) == n
     assert all(len(r.generated) == r.max_new_tokens for r in rep.completed)
+    counts = tuple(c.launches for c in attn or ())
     if attn:
-        dec_n, fa_n = (c.launches for c in attn)
+        dec_n, fa_n = counts
         print(f"  launches decode_attention: {dec_n}  flash_attention: "
               f"{fa_n}", flush=True)
         assert dec_n == cfg.num_layers * rep.decode_steps, dec_n
         assert fa_n == cfg.num_layers * rep.prefill_calls, fa_n
-    return rep
+    return rep, counts
 
 
 # f32 kernel vs its f32 plain version: summation order only (as
@@ -947,11 +999,13 @@ def static_gap(torch, api, cfg, params, req) -> float:
     which routes every token as the engine did (the full-sequence
     forward's prefill capacity would drop generated tokens that dropless
     decode kept): the largest gap between a position's max logit and the
-    logit of the token the engine chose there."""
-    logits, state = api.prefill(
-        cfg, params, {"tokens": torch.tensor([list(req.prompt)],
-                                             device=DEV)},
-        len(req.prompt) + len(req.generated))
+    logit of the token the engine chose there. A request's extras (vlm
+    patches) ride along as a batch of one."""
+    batch = {"tokens": torch.tensor([list(req.prompt)], device=DEV),
+             **{k: torch.as_tensor(v[None], device=DEV)
+                for k, v in (req.extras or {}).items()}}
+    logits, state = api.prefill(cfg, params, batch,
+                                len(req.prompt) + len(req.generated))
     rows = [logits[0]]
     for t in req.generated[:-1]:
         logits, state = api.decode_step(cfg, params, state,
@@ -969,9 +1023,7 @@ def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
     expert product (3 a layer, each decode step and each prefill)."""
     print("== (e) engine, deepseek-v2-lite-16b full width and depth",
           flush=True)
-    ecfg = rt.EngineConfig(num_slots=8, page_size=16, num_pages=1 + 8 * 40,
-                           max_pages_per_seq=40, prefill_bucket=128,
-                           greedy=True, horizon=32)
+    ecfg = engine_config(rt)
     engine = rt.Engine(cfg, params, ecfg)
     assert type(engine.backend).__name__ == "LatentBackend"
     counters = [grouped["counter"], *others]
@@ -991,10 +1043,7 @@ def phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others):
     assert grouped["launches"] == per_call * (rep.decode_steps
                                               + rep.prefill_calls), counts
     print_graph(engine.backend.graph, rep)
-    assert len(rep.completed) == len(trace)
-    for r in rep.completed:
-        assert not r.truncated and len(r.generated) == r.max_new_tokens
-        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    finish_check(rep, trace, cfg)
     n_tok = rep.new_tokens
     print(f"  decode wall {rep.decode_wall_s:.3f} s (+ first horizon "
           f"{rep.compile_wall_s:.3f} s)  prefill wall "
@@ -1055,25 +1104,33 @@ def phase_moe_breakdown(torch, MoE, cfg, params):
 
 def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
     """One engine backend's state (8 slots x 400 cached tokens, random
-    pool, page 16, 40 table rows): the same fused horizon of ``h`` greedy
-    steps from the same loop tensors through the eager loop
+    pool, page 16, 40 table rows; or a random recurrent state and the
+    dummy one-row table): the same fused horizon of ``h`` greedy steps
+    from the same loop tensors and state through the eager loop
     (``decode_eager``) and the engine's one-step graph replays
     (``DecodeGraph``). Each is run once first (the graph captures there),
     then timed: host enqueue, wall and device busy a step, tokens/s.
-    Tokens, loop tensors and kernel launch counts must be equal; a graphed
-    horizon then runs with the card's sync check set to error."""
+    Tokens, loop tensors, state and kernel launch counts must be equal; a
+    graphed horizon then runs with the card's sync check set to error."""
     print(f"== {label} fused horizon, eager vs graphed, {cfg.name}",
           flush=True)
-    B, page, M = 8, 16, 40
+    B, page = 8, 16
+    M = 40 if rt.resolve_backend(cfg).paged else 1
     ecfg = rt.EngineConfig(num_slots=B, page_size=page, num_pages=1 + B * M,
                            max_pages_per_seq=M, prefill_bucket=128,
                            greedy=True, horizon=h)
     be = rt.resolve_backend(cfg)(cfg, params, ecfg)
     gen = torch.Generator(device=DEV).manual_seed(9)
-    for pool in vars(be.state).values():
-        pool.normal_(generator=gen)
+    state = [v for v in vars(be.state).values()
+             if isinstance(v, torch.Tensor)]
+    for t in state:
+        t.normal_(generator=gen)
+    # every horizon starts from this state (a recurrent step advances it;
+    # a paged step rewrites the same rows)
+    start_state = [t.clone() for t in state]
     table = torch.arange(1, 1 + B * M, dtype=torch.int32,
-                         device=DEV).view(B, M)
+                         device=DEV).view(B, M) if be.paged else \
+        torch.zeros((B, 1), dtype=torch.int32, device=DEV)
     start = dict(
         pending=torch.randint(0, cfg.vocab_size, (B,), generator=gen,
                               device=DEV, dtype=torch.int32),
@@ -1089,12 +1146,19 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
         out = run(t["pending"], t["lengths"], t["remaining"], table, mask, h)
         return out, t
 
+    def restore():
+        for t, t0 in zip(state, start_state):
+            t.copy_(t0)
+        torch.cuda.synchronize()
+
     results = {}
     for name, run in runs.items():
+        restore()
         t0 = time.monotonic()
         horizon(run)                    # warm-up; the graphs capture here
         torch.cuda.synchronize()
         first = time.monotonic() - t0
+        restore()
         before = [c.launches for c in counters]
         t0 = time.monotonic()
         out, t = horizon(run)
@@ -1102,19 +1166,23 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         rise = [c.launches - b for c, b in zip(counters, before)]
+        after = [v.clone() for v in state]
+        restore()
         busy = device_busy(torch, lambda run=run: horizon(run))
-        results[name] = (out, t, rise)
+        results[name] = (out, t, rise, after)
         print(f"  {name}: first horizon {first:.2f} s; then a step: host "
               f"enqueue {enqueue * 1e3 / h:.3f} ms  wall "
               f"{wall * 1e3 / h:.3f} ms  device busy "
               + (f"{busy / h:.3f} ms" if busy else "not measured")
               + f"  tokens/s {B * h / wall:.1f}", flush=True)
-    base_out, base_t, base_rise = results["eager"]
-    for name, (out, t, rise) in results.items():
+    base_out, base_t, base_rise, base_after = results["eager"]
+    for name, (out, t, rise, after) in results.items():
         assert torch.equal(out, base_out), f"{name}: tokens differ"
         for k, v in t.items():
             assert torch.equal(v, base_t[k]), f"{name}: {k} differs"
         assert rise == base_rise, (name, rise, base_rise)
+        assert all(torch.equal(a, b) for a, b in zip(after, base_after)), \
+            f"{name}: the state after the horizon differs"
     print(f"  equal tokens, loop tensors and launches "
           f"{dict(zip((c.__name__ for c in counters), base_rise))}; "
           f"{graph.replays} replays in {graph.horizons} horizons",
@@ -1126,7 +1194,7 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
         torch.cuda.set_sync_debug_mode("default")
     print("  graphed horizon: no host sync inside (sync debug mode error)",
           flush=True)
-    del be, graph, runs
+    del be, graph, runs, state, start_state, results
     torch.cuda.empty_cache()
 
 
@@ -1324,6 +1392,165 @@ def phase_static_breakdown(torch, api, cfg, params):
         cfg, params, prompt, 512), steps=2)
 
 
+# --- the vlm and ssm engine families (qwen2-vl-7b, rwkv6-7b) ------------------------
+
+
+def phase_vlm_engine(torch, rt, ops, api, cfg, params, trace):
+    """(h) qwen2-vl-7b through the paged engine, every request carrying
+    its patch embeddings, with prefix sharing asked for (the vlm backend
+    must refuse it: same token ids are not the same KV). Every kernel
+    counter zeroed just before and read just after: one paged-decode
+    launch a layer a decode step and one flash launch a layer a prefill,
+    nothing else; the eager twin as in (b); the engine's tokens teacher-
+    forced through the static path with the same patches. Returns the
+    launch counts."""
+    print("== (h) engine, qwen2-vl-7b full width and depth (patches)",
+          flush=True)
+    ecfg = engine_config(rt, prefix_sharing=True)
+    engine = rt.Engine(cfg, params, ecfg)
+    assert type(engine.backend).__name__ == "PagedTransformerBackend"
+    assert not engine.backend.prefix_sharing
+    counters = ops.launch_counters()
+    for c in counters:
+        c.launches = 0
+    rep, rise = run_counted(torch, engine, trace)
+    counts = {c.__name__: c.launches for c in counters}
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    print(f"  launches {counts}; per decode step and per prefill: "
+          f"{cfg.num_layers} (decode steps {rep.decode_steps}, prefill calls "
+          f"{rep.prefill_calls})", flush=True)
+    want = {"paged_decode_attention": cfg.num_layers * rep.decode_steps,
+            "flash_attention": cfg.num_layers * rep.prefill_calls}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert rep.shared_page_hits == 0 and rep.cow_copies == 0
+    print_graph(engine.backend.graph, rep)
+    finish_check(rep, trace, cfg)
+    print_rates(rep, summary)
+    eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
+    worst = max(static_gap(torch, api, cfg, params, r)
+                for r in rep.completed[:3])
+    req = rep.completed[0]
+    lg = api.forward(cfg, params, {
+        "tokens": torch.tensor([list(req.prompt)], device=DEV),
+        "patch_embeds": torch.as_tensor(req.extras["patch_embeds"][None],
+                                        device=DEV)})
+    assert torch.isfinite(lg).all()
+    scale = lg.abs().max().item()
+    print(f"  teacher-forced greedy gap (static path, patches) {worst:.4e} "
+          f"(logit scale {scale:.3e})", flush=True)
+    # engine (paged kernel, batch of 8) and static path (dense decode
+    # kernel, batch of 1) round in bf16 at different places: a choice may
+    # trail the argmax by a few bf16 quanta of the logit scale
+    assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
+    return counts
+
+
+def phase_ssm_engine(torch, rt, ops, R, cfg, params, trace):
+    """(i) rwkv6-7b through the recurrent backend (no pages; a constant
+    state per slot): every request completes; no kernel of the eight
+    launches (the WKV, token shift and group norm are torch ops); the
+    report counts the state as slot_state_bytes in kv_bytes_peak; the
+    eager twin as in (b); and the same requests served one at a time (each
+    arriving after the previous one finished) give the same tokens."""
+    print("== (i) engine, rwkv6-7b full width and depth (recurrent)",
+          flush=True)
+    ecfg = engine_config(rt)
+    engine = rt.Engine(cfg, params, ecfg)
+    assert type(engine.backend).__name__ == "RecurrentBackend"
+    counters = ops.launch_counters()
+    for c in counters:
+        c.launches = 0
+    rep, rise = run_counted(torch, engine, trace)
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    assert not any(c.launches for c in counters), rise
+    print_graph(engine.backend.graph, rep)
+    finish_check(rep, trace, cfg)
+    L, B, D = cfg.num_layers, ecfg.num_slots, cfg.d_model
+    state_bytes = 2 * (2 * L * B * D
+                       + L * B * cfg.num_heads * cfg.head_dim ** 2) + 4
+    assert rep.slot_state_bytes == rep.kv_bytes_peak == state_bytes, \
+        (rep.slot_state_bytes, rep.kv_bytes_peak, state_bytes)
+    assert rep.page_bytes == 0 and rep.peak_live_pages == 0
+    print(f"  slot_state_bytes = kv_bytes_peak = {state_bytes} (bf16 shift "
+          f"registers and WKV state of {B} slots, int32 position)",
+          flush=True)
+    print_rates(rep, summary)
+    eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
+    solo, t = [], 0
+    for r in sorted(trace, key=lambda r: r.arrival):
+        solo.append(rt.Request(rid=r.rid, prompt=r.prompt.copy(),
+                               max_new_tokens=r.max_new_tokens, arrival=t))
+        t += r.max_new_tokens + 2
+    srep = rt.Engine(cfg, params, ecfg).run(solo)
+    done = sorted(srep.completed, key=lambda r: r.admitted_step)
+    for a, b in zip(done, done[1:]):
+        assert b.admitted_step >= a.done_step, "solo runs overlapped"
+    want = {r.rid: r.generated for r in rep.completed}
+    for r in srep.completed:
+        assert r.generated == want[r.rid], f"request {r.rid} != its solo run"
+    lg = R.forward(cfg, params, {"tokens": torch.tensor(
+        [list(trace[0].prompt)], device=DEV)})
+    assert torch.isfinite(lg).all()
+    print(f"  each of the {len(solo)} requests served alone: the same "
+          f"tokens; forward logits finite (scale "
+          f"{lg.abs().max().item():.3e})", flush=True)
+
+
+def phase_ssm_breakdown(torch, R, cfg, params):
+    """(i') one rwkv6 decode step (8 slots, a random state) and one
+    512-token prefill, profiled; the WKV's share of each one's device
+    time: the WKV routine alone (the scan at S = 1, the chunked routine at
+    S = 512), once a layer, on inputs of the step's shapes."""
+    print("== (i') where the time goes, rwkv6-7b", flush=True)
+    B, Lc, H, dh = 8, cfg.num_layers, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    state = R.init_decode_state(cfg, B, device=DEV)
+    for t in (state.att_prev, state.ffn_prev, state.wkv):
+        t.normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    step_busy = breakdown(torch, f"decode step B={B}", lambda: R.decode_step(
+        cfg, params, state, toks))
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, 512),
+                                      generator=gen, device=DEV)}
+    prefill_busy = breakdown(torch, "prefill S=512", lambda: R.prefill(
+        cfg, params, prompt), steps=2)
+
+    def wkv_args(b, S):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=DEV)
+        w = torch.exp(-torch.exp(rnd(b, S, H, dh)))
+        return [t.to(torch.bfloat16) for t in (
+            rnd(b, S, H, dh), rnd(b, S, H, dh), rnd(b, S, H, dh), w,
+            0.5 * rnd(H, dh), torch.zeros((b, H, dh, dh), device=DEV))]
+
+    dec_args, pre_args = wkv_args(B, 1), wkv_args(1, 512)
+    wkv_dec = device_busy(torch, lambda: [R._wkv_scan(*dec_args)
+                                          for _ in range(Lc)])
+    wkv_pre = device_busy(torch, lambda: [R._wkv_chunked(*pre_args)
+                                          for _ in range(Lc)])
+
+    def share(part, whole):
+        return f"{part / whole:.3f}" if part and whole else "not measured"
+
+    print(f"  WKV device time: decode step {wkv_dec:.3f} of {step_busy:.3f}"
+          f" ms (share {share(wkv_dec, step_busy)}); prefill S=512 "
+          f"{wkv_pre:.3f} of {prefill_busy:.3f} ms (share "
+          f"{share(wkv_pre, prefill_busy)})", flush=True)
+
+
+def init(torch, api, cfg):
+    """Random weights of ``cfg`` from seed 0 on the card, timed."""
+    t0 = time.monotonic()
+    params = api.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return params
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None,
@@ -1346,6 +1573,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import grouped_mvm as gm
     from repro_torch.models import get_model
     from repro_torch.models import moe as MoE
+    from repro_torch.models import rwkv6 as R
     from repro_torch.models import transformer as T
     from repro_torch import runtime as rt
     from repro_torch import resolve_device
@@ -1360,7 +1588,7 @@ def main(argv=None) -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card {smi}", flush=True)
 
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     logs = _build.build()
     print(f"== build: {sorted(logs)} in {time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
@@ -1372,15 +1600,8 @@ def main(argv=None) -> int:
     kernels = phase_kernels(torch, ops, dec, fa, parent)
 
     cfg = get_config("codeqwen1.5-7b")
-    t0 = time.monotonic()
-    params = T.init_params(cfg, seed=0, device=DEV)
-    torch.cuda.synchronize()
-    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
-    trace = rt.poisson_trace(16, mean_interarrival=4.0,
-                             prompt_lens=(128, 256, 384, 512),
-                             gen_lens=(32, 64, 96, 128),
-                             vocab_size=cfg.vocab_size, seed=0)
+    params = init(torch, get_model(cfg), cfg)
+    trace = engine_trace(rt, cfg)
     phase_engine(torch, T, rt, cfg, params, trace, kernels)
     phase_breakdown(torch, T, cfg, params)
     phase_horizon(torch, rt, ops, cfg, params, "(b'')")
@@ -1399,15 +1620,8 @@ def main(argv=None) -> int:
     cfg = get_config("deepseek-v2-lite-16b")
     api = get_model(cfg)
     torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    params = api.init_params(cfg, seed=0, device=DEV)
-    torch.cuda.synchronize()
-    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
-    trace = rt.poisson_trace(16, mean_interarrival=4.0,
-                             prompt_lens=(128, 256, 384, 512),
-                             gen_lens=(32, 64, 96, 128),
-                             vocab_size=cfg.vocab_size, seed=0)
+    params = init(torch, api, cfg)
+    trace = engine_trace(rt, cfg)
     others = (dec.paged_decode_attention, fa.flash_attention,
               *canvas_counters())
     phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others)
@@ -1423,15 +1637,8 @@ def main(argv=None) -> int:
                 dec.paged_decode_attention, *canvas_counters())
     cfg = get_config("olmoe-1b-7b")
     api = get_model(cfg)
-    t0 = time.monotonic()
-    params = api.init_params(cfg, seed=0, device=DEV)
-    torch.cuda.synchronize()
-    print(f"== init_params {cfg.name}: {time.monotonic() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
-    trace = rt.poisson_trace(16, mean_interarrival=4.0,
-                             prompt_lens=(128, 256, 384, 512),
-                             gen_lens=(32, 64, 96, 128),
-                             vocab_size=cfg.vocab_size, seed=0)
+    params = init(torch, api, cfg)
+    trace = engine_trace(rt, cfg)
     moe_calls = 3 * cfg.num_layers
     _, counts = phase_static_family(
         torch, rt, api, cfg, params, trace, counters,
@@ -1459,8 +1666,39 @@ def main(argv=None) -> int:
         per_step={dec.decode_attention: 2 * L},          # self and cross
         per_prefill={fa.flash_attention: n_enc + 2 * L}, label="(g)")
     del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen2-vl-7b")
+    api = get_model(cfg)
+    params = init(torch, api, cfg)
+    trace = engine_trace(rt, cfg, extras_fn=rt.vlm_extras_fn(cfg))
+    vlm = phase_vlm_engine(torch, rt, ops, api, cfg, params, trace)
+    phase_breakdown(torch, T, cfg, params, "(h')", extras={
+        "patch_embeds": torch.randn((1, 4, cfg.d_model), device=DEV)})
+    phase_horizon(torch, rt, ops, cfg, params, "(h'')")
+    _, static_counts = phase_static(
+        torch, rt, cfg, params, trace, "(h+)", n=16,
+        attn=(dec.decode_attention, fa.flash_attention))
+    print(f"  qwen2-vl-7b launches: paged_decode_attention "
+          f"{vlm['paged_decode_attention']} and flash_attention "
+          f"{vlm['flash_attention']} in (h), decode_attention "
+          f"{static_counts[0]} and flash_attention {static_counts[1]} in "
+          f"(h+)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("rwkv6-7b")
+    params = init(torch, get_model(cfg), cfg)
+    trace = engine_trace(rt, cfg)
+    phase_ssm_engine(torch, rt, ops, R, cfg, params, trace)
+    phase_ssm_breakdown(torch, R, cfg, params)
+    # 8 steps: an eager rwkv6 step enqueues ~3,200 kernels, each of which
+    # torch.profiler records, so a 32-step horizon is slow to profile
+    phase_horizon(torch, rt, ops, cfg, params, "(i'')", h=8)
+    del params
     kernels.append(dense_dec)
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+    print(f"all phases {time.monotonic() - t_start:.0f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")
 
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,9 @@ A copy of part of ``repro.configs.base.ModelConfig``: the port imports
 nothing of the JAX package, so it keeps its own. The fields, derived
 sizes and ``reduced()`` of the dense and MoE families match the reference
 exactly, so a reduced config names the same shapes in both packages,
-the encoder tower of the ``encdec`` family (whisper) included. The
-``ssm`` config (rwkv6) carries its widths for the packing path; its model
-is not ported yet.
+the encoder tower of the ``encdec`` family (whisper), the patch stub of
+the ``vlm`` family (qwen2-vl) and the recurrence of the ``ssm`` family
+(rwkv6) included.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "encdec"]
+Family = Literal["dense", "vlm", "moe", "ssm", "encdec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +67,7 @@ class ModelConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    mrope: bool = False            # Qwen2-VL multimodal 3-D RoPE
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     recurrent: RecurrentConfig | None = None

@@ -8,12 +8,15 @@ engine where ``engine_backend`` finds a backend for the config and the
 static path otherwise. Weights are random (``init_params`` from
 ``--seed``). ``--full`` serves the published width of ``--arch``;
 without it, the reduced config. The dense archs (codeqwen1.5-7b,
-olmo-1b) serve through the paged-KV backend, deepseek-v2-lite-16b
-(MLA-MoE) through the latent-page backend. olmoe-1b-7b (GQA-MoE) and
-whisper-tiny (encoder-decoder) have no engine backend, as in the
-reference, so ``auto`` serves them static (``--mode engine`` raises),
-whisper's requests carrying random frame embeddings drawn from the
-trace's rng. The run is on the card unless ``--device cpu`` is given.
+olmo-1b) and qwen2-vl-7b (vlm) serve through the paged-KV backend,
+deepseek-v2-lite-16b (MLA-MoE) through the latent-page backend,
+rwkv6-7b (ssm) through the recurrent backend (a constant state per
+slot, no pages). olmoe-1b-7b (GQA-MoE) and whisper-tiny
+(encoder-decoder) have no engine backend, as in the reference, so
+``auto`` serves them static (``--mode engine`` raises). qwen2-vl's
+requests carry random patch embeddings and whisper's random frame
+embeddings, drawn from the trace's rng. The run is on the card unless
+``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full
@@ -22,6 +25,10 @@ trace's rng. The run is on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --full --greedy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --full --greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
+      --full --greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --full --greedy
 """
 
@@ -33,16 +40,19 @@ import json
 from ..configs import get_config
 from ..models import get_model
 from ..runtime import (Engine, EngineConfig, encdec_extras_fn, engine_backend,
-                       poisson_trace, run_static)
+                       poisson_trace, run_static, vlm_extras_fn)
+
+EXTRAS = {"encdec": encdec_extras_fn, "vlm": vlm_extras_fn}
 
 
 def _trace(cfg, args):
+    extras_fn = EXTRAS.get(cfg.family)
     return poisson_trace(
         args.requests, mean_interarrival=args.mean_interarrival,
         prompt_lens=(max(args.prompt_len // 2, 1), args.prompt_len),
         gen_lens=(max(args.gen // 4, 1), max(args.gen // 2, 1), args.gen),
         vocab_size=cfg.vocab_size, seed=args.seed,
-        extras_fn=encdec_extras_fn(cfg) if cfg.family == "encdec" else None)
+        extras_fn=extras_fn(cfg) if extras_fn else None)
 
 
 def run_engine(cfg, params, args):

@@ -1,14 +1,14 @@
-"""Models of the port: the dense decoder-only transformer, the MoE
-decoders (MLA and GQA) and the whisper encoder-decoder, behind
-``get_model(cfg)`` (the reference's registry, without the training
-entries)."""
+"""Models of the port: the dense decoder-only transformer (with the vlm
+backbone), the MoE decoders (MLA and GQA), RWKV-6 and the whisper
+encoder-decoder, behind ``get_model(cfg)`` (the reference's registry,
+without the training entries)."""
 
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
-from . import moe, transformer, whisper
+from . import moe, rwkv6, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,9 +17,11 @@ class ModelApi:
     forward: Callable
     prefill: Callable
     decode_step: Callable
+    init_decode_state: Callable | None   # None: the family has none
 
 
-_FAMILIES = {"dense": transformer, "moe": moe, "encdec": whisper}
+_FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
+             "ssm": rwkv6, "encdec": whisper}
 
 
 def get_model(cfg) -> ModelApi:
@@ -29,7 +31,9 @@ def get_model(cfg) -> ModelApi:
                          f"{sorted(_FAMILIES)}")
     mod = _FAMILIES[cfg.family]
     return ModelApi(init_params=mod.init_params, forward=mod.forward,
-                    prefill=mod.prefill, decode_step=mod.decode_step)
+                    prefill=mod.prefill, decode_step=mod.decode_step,
+                    init_decode_state=getattr(mod, "init_decode_state",
+                                              None))
 
 
-__all__ = ["ModelApi", "get_model", "moe", "transformer", "whisper"]
+__all__ = ["ModelApi", "get_model", "moe", "rwkv6", "transformer", "whisper"]

@@ -1,5 +1,6 @@
 """Model building blocks of the port (the serving subset of
-``repro.models.layers``: dense, MoE and encoder-decoder), in PyTorch.
+``repro.models.layers``: dense, vlm, MoE, ssm and encoder-decoder), in
+PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -156,6 +157,33 @@ def rotate(x, cos, sin):
 def apply_rope(x, positions, theta):
     """x: (B, S, H, dh); positions: (B, S) int."""
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL M-RoPE splits the half-dim into (temporal, height, width)
+    sections; for dh=128 the split is (16, 24, 24)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return t, h, half - t - h
+
+
+def mrope_cos_sin(positions3, head_dim: int, theta: float):
+    """(cos, sin) of the M-RoPE angles, each (B, S, 1, dh/2) f32, from
+    ``positions3`` (3, B, S) int: section i of the frequencies turns with
+    position row i (t, h, w). Three equal rows give ``rope_cos_sin``."""
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    parts, off = [], 0
+    for i, s in enumerate(mrope_sections(head_dim)):
+        parts.append(positions3[i][..., None].float() * freqs[off:off + s])
+        off += s
+    angles = torch.cat(parts, dim=-1)                          # (B,S,half)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_mrope(x, positions3, theta):
+    """x: (B, S, H, dh); positions3: (3, B, S) int (t/h/w position ids)."""
+    return rotate(x, *mrope_cos_sin(positions3, x.shape[-1], theta))
 
 
 # --- attention core --------------------------------------------------------------

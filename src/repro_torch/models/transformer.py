@@ -1,6 +1,8 @@
-"""Dense decoder-only transformer (codeqwen1.5-7b, olmo-1b), in PyTorch.
+"""Dense decoder-only transformer (codeqwen1.5-7b, olmo-1b) and the
+qwen2-vl-7b backbone (M-RoPE and patch-embedding injection; the vision
+frontend is a stub, as in the reference), in PyTorch.
 
-Counterpart of the dense family of ``repro.models.transformer``. Block
+Counterpart of ``repro.models.transformer``. Block
 params are stacked on a leading layer axis as in the reference; the
 reference's ``lax.scan`` over layers is a Python loop here, with each
 layer's KV pool a view ``k_pages[l]`` updated in place.
@@ -77,6 +79,8 @@ def init_params(cfg, seed: int = 0, device="cuda"):
               "ln_f": norm_init(D, dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = matrix(D, V)
+    if cfg.family == "vlm":
+        params["patch_proj"] = matrix(D, D)
     return params
 
 
@@ -115,6 +119,18 @@ def _embed(params, tokens):
     return params["embed"][tokens.long()]
 
 
+def _embed_batch(cfg, params, batch):
+    """Embeddings of batch["tokens"]; for the vlm family the first P rows
+    become batch["patch_embeds"] (B, P, D) projected through
+    ``patch_proj`` in bf16, where the batch carries them."""
+    x = _embed(params, batch["tokens"])
+    pe = batch.get("patch_embeds")
+    if cfg.family == "vlm" and pe is not None:
+        pe = pe.to(L.COMPUTE_DTYPE) @ params["patch_proj"]
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
 def _head(cfg, params, x):
     _, norm = L.make_norm(cfg)
     h = norm(x, params["ln_f"]).to(L.COMPUTE_DTYPE)
@@ -122,18 +138,27 @@ def _head(cfg, params, x):
     return (h @ w).float()
 
 
-def _rope(cfg, positions):
+def _rope(cfg, positions, pos3=None):
+    """The rotary (cos, sin) of ``positions`` (B, S); with M-RoPE, of the
+    (3, B, S) triple ``pos3``, which defaults to ``positions`` on all
+    three rows, as the reference builds it."""
+    if cfg.mrope:
+        if pos3 is None:
+            pos3 = positions[None].expand(3, *positions.shape)
+        return L.mrope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta)
     return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _trunk(cfg, params, batch, return_kv: bool):
     """The blocks over the whole sequence with causal flash attention.
-    Returns (hidden (B, S, D), (k, v) each (L, B, S, KV, dh) or None)."""
+    ``batch`` may carry "positions" (B, S), "pos3" (3, B, S) and, for the
+    vlm family, "patch_embeds". Returns (hidden (B, S, D), (k, v) each
+    (L, B, S, KV, dh) or None)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     rope = _rope(cfg, batch.get("positions", torch.arange(
-        S, device=tokens.device).expand(B, S)))
-    x = _embed(params, tokens)
+        S, device=tokens.device).expand(B, S)), batch.get("pos3"))
+    x = _embed_batch(cfg, params, batch)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         p = _layer(params, i)

@@ -1,7 +1,7 @@
-"""Continuous-batching decode engine over a paged KV cache (port of the
-dense and MLA-MoE paths of ``repro.runtime.engine``), and the static
-lockstep path, which also serves the families with no engine backend
-(GQA-MoE olmoe, the whisper encoder-decoder), as in the reference.
+"""Continuous-batching decode engine (port of the dense, vlm, ssm and
+MLA-MoE paths of ``repro.runtime.engine``), and the static lockstep path,
+which also serves the families with no engine backend (GQA-MoE olmoe,
+the whisper encoder-decoder), as in the reference.
 
 The static path (``run_static``) prefills one lockstep batch and decodes
 until the longest request finishes, holding a dense ``batch x max_len``
@@ -19,6 +19,9 @@ cache. The engine keeps every slot busy instead:
   * with prefix sharing (dense only), admission maps prompt prefixes
     already in the pool onto refcounted pages and copies a shared page on
     its first divergent write;
+  * the recurrent backend (ssm, rwkv6) holds no pages: each slot owns a
+    constant-size state, written in place at admission, so the loop runs
+    without allocator, page table growth or prefill bucketing;
   * a routed (MoE) backend records each request's expert-drop population
     at its first prefill and replays it at every re-prefill, so
     preemption never changes a request's tokens.
@@ -42,6 +45,7 @@ import torch
 from ..models import get_model
 from ..models import layers as L
 from ..models import moe as MoE
+from ..models import rwkv6 as R
 from ..models import transformer as T
 from .decode_graph import DecodeGraph
 from .device_state import DeviceLoopState
@@ -134,7 +138,8 @@ class EngineReport:
     cow_copies: int = 0                # divergence-write page copies
     prefill_tokens_saved: int = 0      # bucketed tokens NOT recomputed
     peak_demand_pages: int = 0         # live minus index-only cache
-    page_bytes: int = 0                # 0 -> dense (static) cache
+    page_bytes: int = 0                # 0 -> non-paged backend or static
+    slot_state_bytes: int = 0          # per-slot non-paged state
     cache_bytes_alloc: int = 0         # full backing allocation
     wall_s: float = 0.0
     decode_wall_s: float = 0.0         # steady state (see _charge_wall)
@@ -171,10 +176,11 @@ class EngineReport:
 
     @property
     def kv_bytes_peak(self) -> int:
-        """Peak cache bytes holding live tokens (paged) or the full dense
-        allocation (static)."""
+        """Peak cache bytes holding live tokens (paged, plus any per-slot
+        state) or the full allocation (static, recurrent)."""
         if self.page_bytes:
-            return self.peak_live_pages * self.page_bytes
+            return (self.peak_live_pages * self.page_bytes
+                    + self.slot_state_bytes)
         return self.cache_bytes_alloc
 
     @property
@@ -182,7 +188,8 @@ class EngineReport:
         """Peak cache bytes some request references (shared pages once,
         index-only warm cache excluded)."""
         if self.page_bytes:
-            return self.peak_demand_pages * self.page_bytes
+            return (self.peak_demand_pages * self.page_bytes
+                    + self.slot_state_bytes)
         return self.cache_bytes_alloc
 
     def latency_percentiles(self, qs=(50, 95)) -> dict[str, float]:
@@ -240,6 +247,16 @@ def _state_bytes(state) -> int:
     return total
 
 
+def vlm_extras_fn(cfg, num_patches: int = 4):
+    """Per-request extras of a vlm trace (a ``poisson_trace`` hook): the
+    stub vision frontend's patch embeddings (num_patches, d_model) f32,
+    drawn from the trace's rng."""
+    def extras(rng: np.random.Generator) -> dict:
+        return {"patch_embeds": rng.standard_normal(
+            (num_patches, cfg.d_model)).astype(np.float32)}
+    return extras
+
+
 def encdec_extras_fn(cfg):
     """Per-request extras of an encoder-decoder trace (a ``poisson_trace``
     hook): the stub frontend's frame embeddings (T_enc, d_model) f32,
@@ -250,7 +267,16 @@ def encdec_extras_fn(cfg):
     return extras
 
 
-# --- backend -------------------------------------------------------------------
+# --- backends ------------------------------------------------------------------
+# The engine drives a backend through the reference's protocol:
+#   paged             -- does the backend allocate KV pages at all
+#   page_bytes        -- bytes one page holds across layers (0 if unpaged)
+#   slot_state_bytes  -- bytes of the non-paged per-slot state
+#   routed            -- records/replays MoE drop masks across preemption
+#   prefix_sharing    -- may map shared prompt pages (dense only)
+#   can_ever_fit(...) / admission_rows(...) -- page geometry (paged only)
+#   prefill(ctx, extras, slot, pages) / decode(...) / decode_fused(...) /
+#   release_slot(slot)
 
 
 def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int]
@@ -266,26 +292,29 @@ def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int]
     return toks, pids
 
 
-def _routed_prefill(backend, req: Request, ctx, pages) -> np.ndarray:
+def _routed_prefill(backend, req: Request, ctx, slot: int, pages
+                    ) -> np.ndarray:
     """Prefill dispatch that records/replays MoE routing: a routed
     backend's first prefill of a request stores the realized expert-drop
     mask on the request, and every re-prefill after preemption replays
     it, so a request's tokens are the same with or without preemption."""
     if not backend.routed:
-        return backend.prefill(ctx, pages)
-    logits = backend.prefill(ctx, pages, replay=req.route_trace)
+        return backend.prefill(ctx, req.extras, slot, pages)
+    logits = backend.prefill(ctx, req.extras, slot, pages,
+                             replay=req.route_trace)
     if req.route_trace is None:
         req.route_trace = backend.last_route_trace
     return logits
 
 
-class _PagedBackend:
-    """What the linear-table paged backends share: the page geometry and
-    the decode dispatch into ``self.model`` (a module with
-    ``paged_decode_step`` and ``paged_decode_multi``). Every call updates
-    the pool in place (the reference donates it)."""
+class _Backend:
+    """What every backend shares: the device, the per-step decode from
+    host arrays and the fused horizon. A subclass gives ``decode_step``
+    (one step on device tensors, updating ``self.state`` in place) and
+    ``decode_eager`` (a horizon as the eager loop)."""
 
-    model = None
+    page_bytes = 0
+    slot_state_bytes = 0               # no per-slot non-paged state
     routed = False                     # records/replays MoE drop masks
     prefix_sharing = False             # maps shared prompt pages
 
@@ -302,14 +331,9 @@ class _PagedBackend:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
 
-    # -- geometry: the page table grows with the context
-    def can_ever_fit(self, pgr, prompt_len: int, max_new_tokens: int,
-                     ctx_len: int) -> bool:
-        return pgr.can_ever_fit(prompt_len, max_new_tokens, ctx_len,
-                                pgr.num_pages)
-
-    def admission_rows(self, pgr, ctx_len: int) -> list[int]:
-        return list(range(pgr.pages_for(ctx_len)))
+    def release_slot(self, slot: int) -> None:
+        """Nothing to free: pages go back through the allocator, and a
+        recurrent slot's state is overwritten at its next admission."""
 
     # -- decode
     def decode(self, tokens, page_table, lengths, active) -> np.ndarray:
@@ -318,12 +342,6 @@ class _PagedBackend:
             return torch.as_tensor(a, device=self.device)
         return _host(self.decode_step(dev(tokens), dev(page_table),
                                       dev(lengths), dev(active)))
-
-    def decode_step(self, tokens, page_table, lengths, active):
-        """One paged decode step on device tensors; returns logits (B, V)."""
-        return self.model.paged_decode_step(self.cfg, self.params,
-                                            self.state, tokens, page_table,
-                                            lengths, active)
 
     def decode_fused(self, pending, lengths, remaining, page_table, mask,
                      h: int, teacher=None):
@@ -348,6 +366,32 @@ class _PagedBackend:
         return self.graph.run(pending, lengths, remaining, page_table, mask,
                               h, teacher)
 
+
+class _PagedBackend(_Backend):
+    """What the linear-table paged backends share: the page geometry and
+    the decode dispatch into ``self.model`` (a module with
+    ``paged_decode_step`` and ``paged_decode_multi``). Every call updates
+    the pool in place (the reference donates it)."""
+
+    paged = True
+    model = None
+
+    # -- geometry: the page table grows with the context
+    def can_ever_fit(self, pgr, prompt_len: int, max_new_tokens: int,
+                     ctx_len: int) -> bool:
+        return pgr.can_ever_fit(prompt_len, max_new_tokens, ctx_len,
+                                pgr.num_pages)
+
+    def admission_rows(self, pgr, ctx_len: int) -> list[int]:
+        return list(range(pgr.pages_for(ctx_len)))
+
+    # -- decode
+    def decode_step(self, tokens, page_table, lengths, active):
+        """One paged decode step on device tensors; returns logits (B, V)."""
+        return self.model.paged_decode_step(self.cfg, self.params,
+                                            self.state, tokens, page_table,
+                                            lengths, active)
+
     def decode_eager(self, pending, lengths, remaining, page_table, mask,
                      h: int, teacher=None):
         """``decode_fused``'s horizon as the eager loop of the model's
@@ -359,39 +403,47 @@ class _PagedBackend:
 
 
 class PagedTransformerBackend(_PagedBackend):
-    """Dense family: a paged KV cache read by the paged-decode kernel,
-    prompts prefilled through the flash kernel, prefix sharing with
-    copy-on-write."""
+    """Dense and vlm families: a paged KV cache read by the paged-decode
+    kernel, prompts prefilled through the flash kernel (a vlm request's
+    patch embeddings ride along as extras), prefix sharing with
+    copy-on-write for the dense family only."""
 
     model = T
-    prefix_sharing = True
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
         super().__init__(cfg, params, ecfg)
         self.page_bytes = ecfg.pager.page_bytes(cfg)
         self.state = T.init_paged_decode_state(
             cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+        # vlm stays out: M-RoPE position triples and per-request patch
+        # embeds make "same token ids" insufficient for "same KV"
+        self.prefix_sharing = cfg.family == "dense"
 
     # -- prefill
-    def prefill(self, ctx: np.ndarray, page_ids: list[int]) -> np.ndarray:
+    def prefill(self, ctx: np.ndarray, extras, slot: int,
+                page_ids: list[int]) -> np.ndarray:
         """Prefill one request (padded to its bucket), scatter its KV into
-        ``page_ids``, return the last live token's logits (V,)."""
+        ``page_ids``, return the last live token's logits (V,). The
+        request's ``extras`` (vlm patches) join the batch with a leading
+        axis of 1."""
         toks, pids = _bucket_prompt(ctx, self.ecfg, page_ids)
-        last, (k, v) = T.paged_prefill(
-            self.cfg, self.params, {"tokens": self._tensor(toks)},
-            self._tensor([len(ctx)]))
+        batch = {"tokens": self._tensor(toks),
+                 **{k: torch.as_tensor(v[None], device=self.device)
+                    for k, v in (extras or {}).items()}}
+        last, (k, v) = T.paged_prefill(self.cfg, self.params, batch,
+                                       self._tensor([len(ctx)]))
         T.write_prefill_pages(self.cfg, self.state, (k[:, 0], v[:, 0]),
                               self._tensor(pids))
         return _host(last[0])
 
-    def prefill_shared(self, ctx: np.ndarray, page_ids: list[int],
-                       prefix_pages: list[int], prefix_tokens: int
-                       ) -> np.ndarray:
+    def prefill_shared(self, ctx: np.ndarray, extras, slot: int,
+                       page_ids: list[int], prefix_pages: list[int],
+                       prefix_tokens: int) -> np.ndarray:
         """Prefill only the suffix past ``prefix_tokens`` (a page
         multiple) whose KV already sits in ``prefix_pages``; scatter the
         suffix KV into ``page_ids``, return last-live-token logits. The
         prefix-page operand is padded to the table width, as in the
-        reference."""
+        reference. Dense only: ``extras`` is unused."""
         suffix = ctx[prefix_tokens:]
         toks, pids = _bucket_prompt(suffix, self.ecfg, page_ids)
         pref = np.full((1, self.ecfg.max_pages_per_seq), TRASH_PAGE,
@@ -436,10 +488,11 @@ class LatentBackend(_PagedBackend):
             cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
         self.last_route_trace: dict | None = None
 
-    def prefill(self, ctx: np.ndarray, page_ids: list[int],
-                replay: dict | None = None) -> np.ndarray:
+    def prefill(self, ctx: np.ndarray, extras, slot: int,
+                page_ids: list[int], replay: dict | None = None
+                ) -> np.ndarray:
         """Prefill one request, scatter its latents into ``page_ids``,
-        return the last live token's logits (V,).
+        return the last live token's logits (V,). ``extras`` is unused.
 
         ``replay`` is the route trace of this request's first prefill
         ({"keep": (L, plen0, k) bool, "capacity": int}): its prompt keeps
@@ -475,7 +528,62 @@ class LatentBackend(_PagedBackend):
         return _host(last[0])
 
 
-ENGINE_FAMILIES = {"dense": PagedTransformerBackend, "moe": LatentBackend}
+class RecurrentBackend(_Backend):
+    """ssm family (rwkv6): a constant-size state per slot, no pages.
+
+    The recurrence consumes every token it sees, so prompts prefill at
+    their exact length (no bucket). A B = 1 prefill's state is written
+    into its slot of the batch state in place. A released slot keeps its
+    state: masked slots consume token 0 every step, as in the reference,
+    and the next admission overwrites it. The fused horizon is the same
+    ``DecodeGraph`` over a dummy (B, 1) page table, the reference's; its
+    step updates the state's tensors in place, whose addresses the graph
+    holds."""
+
+    paged = False
+
+    def __init__(self, cfg, params, ecfg: EngineConfig):
+        super().__init__(cfg, params, ecfg)
+        self.state = R.init_decode_state(cfg, ecfg.num_slots,
+                                         device=self.device)
+        # the whole cache is per-slot constant state
+        self.slot_state_bytes = _state_bytes(self.state)
+        self._no_pages = torch.zeros((ecfg.num_slots, 1), dtype=torch.int32,
+                                     device=self.device)
+
+    def prefill(self, ctx: np.ndarray, extras, slot: int,
+                page_ids=None) -> np.ndarray:
+        """Prefill one request at its exact length into slot ``slot``;
+        return the last token's logits (V,)."""
+        logits, single = R.prefill(self.cfg, self.params,
+                                   {"tokens": self._tensor(ctx[None])})
+        for name in ("att_prev", "ffn_prev", "wkv"):
+            getattr(self.state, name)[:, slot].copy_(
+                getattr(single, name)[:, 0])
+        return _host(logits[0])
+
+    def decode_step(self, tokens, page_table, lengths, active):
+        """One step of every slot (inactive ones feed token 0); returns
+        logits (B, V)."""
+        return R.decode_step(self.cfg, self.params, self.state, tokens)[0]
+
+    def decode_fused(self, pending, lengths, remaining, page_table, mask,
+                     h: int, teacher=None):
+        return super().decode_fused(pending, lengths, remaining,
+                                    self._no_pages, mask, h, teacher)
+
+    def decode_eager(self, pending, lengths, remaining, page_table, mask,
+                     h: int, teacher=None):
+        """A horizon as ``rwkv6.decode_multi``'s eager loop."""
+        return R.decode_multi(self.cfg, self.params, self.state, pending,
+                              lengths, remaining, mask, h,
+                              hmax=self.ecfg.horizon, teacher=teacher)
+
+
+ENGINE_FAMILIES = {"dense": PagedTransformerBackend,
+                   "vlm": PagedTransformerBackend,
+                   "ssm": RecurrentBackend,
+                   "moe": LatentBackend}
 
 
 def engine_backend(cfg):
@@ -547,7 +655,8 @@ class _PrefixSharing:
 
 
 class Engine:
-    """Host-driven continuous-batching loop around a paged backend."""
+    """Host-driven continuous-batching loop around a backend (paged, or
+    the recurrent one's per-slot state)."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig | None = None):
         self.cfg = cfg
@@ -564,12 +673,14 @@ class Engine:
     def run(self, requests: list[Request]) -> EngineReport:
         e, pgr = self.ecfg, self.ecfg.pager
         B, M, page = e.num_slots, pgr.max_pages_per_seq, pgr.page_size
+        paged = self.backend.paged
         sched = Scheduler(requests)
         # one allocator over the whole pool: the reference's single-tenant
-        # arena lease (all num_pages - 1 usable pages)
-        alloc = PageAllocator(e.num_pages)
+        # arena lease (all num_pages - 1 usable pages); none unpaged
+        alloc = PageAllocator(e.num_pages) if paged else None
         sharer = _PrefixSharing(pgr) if (
-            e.prefix_sharing and self.backend.prefix_sharing) else None
+            paged and e.prefix_sharing and self.backend.prefix_sharing) \
+            else None
 
         slots: list[Request | None] = [None] * B
         page_table = np.zeros((B, M), np.int32)
@@ -581,6 +692,7 @@ class Engine:
         rep = EngineReport(
             name=f"engine/{self.cfg.name}", num_slots=B,
             page_bytes=self.backend.page_bytes,
+            slot_state_bytes=self.backend.slot_state_bytes,
             cache_bytes_alloc=_state_bytes(self.backend.state))
         t_run = time.monotonic()
         step = 0
@@ -598,7 +710,9 @@ class Engine:
             pending[s] = 0
             remaining[s] = 0
             ds.touch(s)
-            alloc.free_owner(req.rid)
+            if paged:
+                alloc.free_owner(req.rid)
+            self.backend.release_slot(s)
 
         def finish(s: int) -> None:
             slots[s].done_step = step
@@ -625,58 +739,70 @@ class Engine:
                         break
                     ctx = req.context_tokens
                     assert len(ctx) >= 1, "empty prompts are not admissible"
-                    rows = self.backend.admission_rows(pgr, len(ctx))
-                    if not self.backend.can_ever_fit(
-                            pgr, len(req.prompt), req.max_new_tokens,
-                            len(ctx)):
-                        sched.pop_ready()       # can never fit: fail fast
-                        req.truncated = True
-                        req.done_step = step
-                        rep.completed.append(req)
-                        continue
-                    sh_pages, sh_tokens = (
-                        sharer.plan(req, ctx) if sharer is not None
-                        else ([], 0))
-                    need = len(rows) - len(sh_pages)
-                    if not alloc.can_alloc(need) and sharer is not None:
-                        # index-only pages are cache: reclaim them before
-                        # making the request wait
-                        sharer.index.evict_lru(
-                            alloc, need - alloc.free_count,
-                            protect=set(sh_pages))
-                    if not alloc.can_alloc(need):
-                        admitting = False       # FCFS: wait for free pages
-                        break
-                    sched.pop_ready()
-                    if sh_pages:
-                        alloc.share(req.rid, sh_pages)
-                        req.shared_pages += len(sh_pages)
-                        rep.shared_page_hits += len(sh_pages)
-                    pages = alloc.alloc(req.rid, need)
-                    page_table[s, :] = TRASH_PAGE
-                    page_table[s, rows] = sh_pages + pages
-                    t0 = time.monotonic()
-                    if sh_tokens >= len(ctx):
-                        logits = None           # fully cached re-admission
-                    elif sh_tokens:
-                        logits = self.backend.prefill_shared(
-                            ctx, pages, sh_pages, sh_tokens)
-                    else:
-                        logits = _routed_prefill(self.backend, req, ctx,
-                                                 pages)
-                    rep.prefill_wall_s += time.monotonic() - t0
-                    full = (-(-len(ctx) // e.prefill_bucket)
+                    if paged:
+                        rows = self.backend.admission_rows(pgr, len(ctx))
+                        if not self.backend.can_ever_fit(
+                                pgr, len(req.prompt), req.max_new_tokens,
+                                len(ctx)):
+                            sched.pop_ready()   # can never fit: fail fast
+                            req.truncated = True
+                            req.done_step = step
+                            rep.completed.append(req)
+                            continue
+                        sh_pages, sh_tokens = (
+                            sharer.plan(req, ctx) if sharer is not None
+                            else ([], 0))
+                        need = len(rows) - len(sh_pages)
+                        if not alloc.can_alloc(need) and sharer is not None:
+                            # index-only pages are cache: reclaim them
+                            # before making the request wait
+                            sharer.index.evict_lru(
+                                alloc, need - alloc.free_count,
+                                protect=set(sh_pages))
+                        if not alloc.can_alloc(need):
+                            admitting = False   # FCFS: wait for free pages
+                            break
+                        sched.pop_ready()
+                        if sh_pages:
+                            alloc.share(req.rid, sh_pages)
+                            req.shared_pages += len(sh_pages)
+                            rep.shared_page_hits += len(sh_pages)
+                        pages = alloc.alloc(req.rid, need)
+                        page_table[s, :] = TRASH_PAGE
+                        page_table[s, rows] = sh_pages + pages
+                        t0 = time.monotonic()
+                        if sh_tokens >= len(ctx):
+                            logits = None       # fully cached re-admission
+                        elif sh_tokens:
+                            logits = self.backend.prefill_shared(
+                                ctx, req.extras, s, pages, sh_pages,
+                                sh_tokens)
+                        else:
+                            logits = _routed_prefill(self.backend, req,
+                                                     ctx, s, pages)
+                        rep.prefill_wall_s += time.monotonic() - t0
+                        full = (-(-len(ctx) // e.prefill_bucket)
+                                * e.prefill_bucket)
+                        computed = 0 if sh_tokens >= len(ctx) else (
+                            -(-(len(ctx) - sh_tokens) // e.prefill_bucket)
                             * e.prefill_bucket)
-                    computed = 0 if sh_tokens >= len(ctx) else (
-                        -(-(len(ctx) - sh_tokens) // e.prefill_bucket)
-                        * e.prefill_bucket)
-                    rep.prefill_tokens += computed
-                    rep.prefill_tokens_saved += full - computed
-                    if computed:
+                        rep.prefill_tokens += computed
+                        rep.prefill_tokens_saved += full - computed
+                        if computed:
+                            rep.prefill_calls += 1
+                            req.prefills += 1
+                        if sharer is not None:
+                            sharer.record(alloc, ctx, len(ctx),
+                                          page_table[s])
+                    else:
+                        sched.pop_ready()
+                        t0 = time.monotonic()
+                        logits = _routed_prefill(self.backend, req, ctx, s,
+                                                 None)
+                        rep.prefill_wall_s += time.monotonic() - t0
                         rep.prefill_calls += 1
+                        rep.prefill_tokens += len(ctx)   # exact length
                         req.prefills += 1
-                    if sharer is not None:
-                        sharer.record(alloc, ctx, len(ctx), page_table[s])
                     req.admitted_step = step
                     slots[s] = req
                     lengths[s] = len(ctx)
@@ -698,7 +824,7 @@ class Engine:
             active = [s for s in range(B) if slots[s] is not None]
 
             # -- page growth / CoW / preemption --------------------------
-            if active:
+            if paged and active:
                 def claim_one(s: int) -> bool:
                     """Free one page for slot ``s``: index cache first,
                     then victim preemption. False if ``s`` itself was
@@ -768,8 +894,10 @@ class Engine:
                             any(slots[s] is None for s in range(B)):
                         h = 1   # a free slot retries admission per step
                     for s in active:
-                        h = min(h, int(remaining[s]),   # finish at budget
-                                pgr.steps_to_boundary(int(lengths[s])))
+                        h = min(h, int(remaining[s]))  # finish at budget
+                        if paged:                      # page growth
+                            h = min(h, pgr.steps_to_boundary(
+                                int(lengths[s])))
                     h = max(1, h)
                     ds.sync(page_table, lengths, pending, remaining)
                     t0 = time.monotonic()
@@ -813,10 +941,11 @@ class Engine:
                         pending[s] = tok
                         if req.done:
                             finish(s)
-                rep.peak_live_pages = max(rep.peak_live_pages,
-                                          alloc.live_count)
-                rep.peak_demand_pages = max(rep.peak_demand_pages,
-                                            alloc.demand_count)
+                if paged:
+                    rep.peak_live_pages = max(rep.peak_live_pages,
+                                              alloc.live_count)
+                    rep.peak_demand_pages = max(rep.peak_demand_pages,
+                                                alloc.demand_count)
             elif not sched.exhausted:
                 nxt = sched.next_arrival()
                 if nxt is not None and nxt > step:
@@ -829,10 +958,11 @@ class Engine:
             if step > e.max_steps:
                 raise RuntimeError("engine exceeded max_steps")
 
-        if sharer is not None:          # drop the index's neutral refs
-            sharer.index.release_all(alloc)
-        alloc.check()
-        assert alloc.live_count == 0, "pages leaked past completion"
+        if paged:
+            if sharer is not None:      # drop the index's neutral refs
+                sharer.index.release_all(alloc)
+            alloc.check()
+            assert alloc.live_count == 0, "pages leaked past completion"
         rep.preemptions = sched.preemptions
         rep.device_dispatches = ds.device_dispatches
         rep.host_syncs = ds.host_syncs

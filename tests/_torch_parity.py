@@ -8,7 +8,8 @@ streams must be equal or, where they differ, teacher-forced greedy-
 consistent at bf16 (README "Prefix sharing", *Numerics*): every token the
 port chose sits within a few bf16 quanta of the argmax of the
 reference's clean run at that position — the full-sequence forward for
-the dense family, and for a routed (MoE) model the static path at B = 1
+the dense, vlm (with the request's patch embeddings) and ssm families,
+and for a routed (MoE) model the static path at B = 1
 (``prefill`` of the prompt, then ``decode_step`` per token), which routes
 as the engine does: the forward's prefill capacity would drop generated
 tokens that dropless decode kept.
@@ -38,8 +39,9 @@ REPORT_FIELDS = (
     "decode_steps", "slot_steps", "useful_slot_steps", "prefill_calls",
     "prefill_tokens", "preemptions", "peak_live_pages", "shared_page_hits",
     "cow_copies", "prefill_tokens_saved", "peak_demand_pages", "page_bytes",
-    "cache_bytes_alloc", "device_dispatches", "host_syncs",
-    "page_table_upload_bytes", "new_tokens")
+    "slot_state_bytes", "cache_bytes_alloc", "kv_bytes_peak",
+    "device_dispatches", "host_syncs", "page_table_upload_bytes",
+    "new_tokens")
 REQUEST_FIELDS = ("rid", "arrival", "admitted_step", "done_step", "prefills",
                   "truncated", "shared_pages", "cow_copies")
 # the reference's own churn bound (test_runtime.py): 0.0625 in logits of
@@ -72,15 +74,18 @@ def ledger(rep) -> dict:
     return out
 
 
-def teacher_forced_logits(jcfg, jp, prompt, generated) -> np.ndarray:
+def teacher_forced_logits(jcfg, jp, prompt, generated, extras=None
+                          ) -> np.ndarray:
     """The reference's logits (len(generated), V) before each generated
     token, with the generated tokens fed back: the full-sequence forward
-    for the dense family, the static prefill + per-token decode for a
-    routed model."""
+    (given the request's ``extras``) for the dense, vlm and ssm families,
+    the static prefill + per-token decode for a routed model."""
     api = jget_model(jcfg)
     if jcfg.moe is None:
         seq = jnp.asarray([list(prompt) + list(generated)], jnp.int32)
-        logits = api.forward(jcfg, jp, {"tokens": seq})[0]
+        batch = {"tokens": seq, **{k: jnp.asarray(v)[None]
+                                   for k, v in (extras or {}).items()}}
+        logits = api.forward(jcfg, jp, batch)[0]
         return np.asarray(logits, np.float64)[len(prompt) - 1:-1]
     prefill, decode_step = _jitted_static(jcfg)
     # one cache length for most requests: one compile serves them all
@@ -108,9 +113,40 @@ def _jitted_static(jcfg):
 def greedy_gap(jcfg, jp, req) -> float:
     """Largest gap between the reference's max logit and the logit of the
     token ``req`` generated, over its generated positions."""
-    rows = teacher_forced_logits(jcfg, jp, req.prompt, req.generated)
+    rows = teacher_forced_logits(jcfg, jp, req.prompt, req.generated,
+                                 req.extras)
     return max(float(row.max() - row[t])
                for row, t in zip(rows, req.generated))
+
+
+def static_teacher_gap(jcfg, jp, group) -> float:
+    """The reference's static path on one lockstep group of finished
+    requests (left-padded prompts and the requests' extras stacked, as
+    run_static batches them), teacher-forced with the port's tokens: the
+    largest gap between a step's max logit and the logit of the token
+    the port chose there."""
+    jm = jget_model(jcfg)
+    plen = max(len(r.prompt) for r in group)
+    gen = max(r.max_new_tokens for r in group)
+    toks = np.zeros((len(group), plen), np.int32)
+    for b, r in enumerate(group):
+        toks[b, plen - len(r.prompt):] = r.prompt
+    batch = {"tokens": jnp.asarray(toks),
+             **{k: jnp.asarray(np.stack([r.extras[k] for r in group]))
+                for k in (group[0].extras or {})}}
+    logits, state = jm.prefill(jcfg, jp, batch, plen + gen)
+    gap = 0.0
+    for j in range(gen):
+        rows = np.asarray(logits, np.float64)
+        for b, r in enumerate(group):
+            if j < len(r.generated):
+                gap = max(gap, rows[b].max() - rows[b, r.generated[j]])
+        if j == gen - 1:
+            break
+        feed = [r.generated[min(j, len(r.generated) - 1)] for r in group]
+        logits, state = jm.decode_step(jcfg, jp, state,
+                                       jnp.asarray(feed, jnp.int32))
+    return gap
 
 
 def traces(kind: str, **kw):
@@ -125,7 +161,7 @@ def assert_engines_agree(trace_kind: str, trace_kw: dict, *,
     """Run both engines on one seeded trace, each built by its own
     package; return (jax report, port report). ``jrep`` reuses a JAX
     engine run of the same trace and config; ``models`` a ``setup(arch)``
-    result."""
+    result. ``trace_kw`` may name an ``extras_fn`` (vlm patches)."""
     jcfg, jp, cfg, tp = models or setup(arch)
     jtrace, ttrace = traces(trace_kind, vocab_size=cfg.vocab_size,
                             **trace_kw)

@@ -612,3 +612,96 @@ def test_static_family_on_the_card_matches_the_cpu_plain_path(dev, arch):
         tok = lc.argmax(-1).to(torch.int32)
         lc, sc = api.decode_step(cfg, cpu, sc, tok)
         lg, sg = api.decode_step(cfg, params, sg, tok.to(dev))
+
+
+# --- the vlm and ssm engine families -------------------------------------------
+
+
+def test_vlm_engine_on_the_card_launches_the_kernels(dev):
+    """A small vlm config at a kernel head size (dh 64, G 7, M-RoPE)
+    served by the engine on the card, requests carrying patches, fused
+    horizons graphed: one paged-decode launch a layer a decode step, one
+    flash launch a layer a prefill, no shared page; the same schedule as
+    the CPU's plain path, and every token within a few bf16 quanta of
+    the greedy choice of the CPU forward with the request's patches."""
+    from repro_torch.runtime import vlm_extras_fn
+    cfg = ModelConfig(name="tiny-vl", family="vlm", num_layers=2,
+                      d_model=256, num_heads=14, num_kv_heads=2, d_ff=512,
+                      vocab_size=512, head_dim=64, qkv_bias=True, mrope=True,
+                      rope_theta=1e6)
+    params = T.init_params(cfg, seed=0, device=dev)
+    cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+               else v.cpu()) for k, v in params.items()}
+    ecfg = EngineConfig(num_slots=4, page_size=16, num_pages=33,
+                        max_pages_per_seq=8, prefill_bucket=16,
+                        prefix_sharing=True)
+
+    def trace():
+        return poisson_trace(6, mean_interarrival=0.5, prompt_lens=(20, 40),
+                             gen_lens=(8, 30), vocab_size=512, seed=3,
+                             extras_fn=vlm_extras_fn(cfg))
+
+    n0, f0 = dec.paged_decode_attention.launches, fa.flash_attention.launches
+    engine = Engine(cfg, params, ecfg)
+    g = engine.run(trace())
+    assert dec.paged_decode_attention.launches - n0 == \
+        cfg.num_layers * g.decode_steps
+    assert fa.flash_attention.launches - f0 == \
+        cfg.num_layers * g.prefill_calls
+    assert engine.backend.graph.replays > 0 and g.shared_page_hits == 0
+    c = Engine(cfg, cpu, ecfg).run(trace())
+    assert (g.decode_steps, g.prefill_calls, g.host_syncs) == \
+        (c.decode_steps, c.prefill_calls, c.host_syncs)
+    for r in g.completed:
+        seq = torch.tensor([list(r.prompt) + r.generated], device="cpu")
+        pe = torch.tensor(r.extras["patch_embeds"])[None]
+        logits = T.forward(cfg, cpu, {"tokens": seq, "patch_embeds": pe})[0]
+        rows = logits[len(r.prompt) - 1:-1]
+        gap = (rows.max(-1).values
+               - rows.gather(1, torch.tensor(r.generated)[:, None])[:, 0])
+        assert gap.max().item() <= 0.0625, (r.rid, gap.max().item())
+
+
+def test_graphed_recurrent_engine_matches_eager_engine(dev):
+    """Reduced rwkv6 through the recurrent backend, every fused horizon
+    replayed from the one-step CUDA graph over the dummy (B, 1) table,
+    against the same engine on the eager loop: the same tokens and
+    ledger, one dispatch and one sync a horizon; each request equals its
+    solo run."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Request
+    cfg = get_config("rwkv6-7b").reduced()
+    params = get_model(cfg).init_params(cfg, seed=0, device=dev)
+    ecfg = EngineConfig(num_slots=4, page_size=8, num_pages=17,
+                        max_pages_per_seq=8, prefill_bucket=8, horizon=8)
+    trace = poisson_trace(8, mean_interarrival=0.5, prompt_lens=(8, 16),
+                          gen_lens=(20, 36), vocab_size=cfg.vocab_size,
+                          seed=1)
+
+    def run(graphed, reqs):
+        engine = Engine(cfg, params, ecfg)
+        be = engine.backend
+        if not graphed:
+            def eager(p, l, r, pt, mask, h, teacher=None):
+                return be.decode_eager(p, l, r, pt,
+                                       torch.as_tensor(mask, device=dev), h,
+                                       teacher)
+            be.decode_fused = eager
+        rep = engine.run([copy.deepcopy(r) for r in reqs])
+        torch.cuda.synchronize()
+        return rep, be
+
+    grep, gbe = run(True, trace)
+    erep, ebe = run(False, trace)
+    assert ebe.graph is None and gbe.graph.graphed
+    assert tuple(gbe.graph.table.shape) == (ecfg.num_slots, 1)
+    assert {r.rid: r.generated for r in grep.completed} == \
+        {r.rid: r.generated for r in erep.completed}
+    for f in LEDGER + ("slot_state_bytes", "kv_bytes_peak"):
+        assert getattr(grep, f) == getattr(erep, f), f
+    assert gbe.graph.horizons == grep.host_syncs and gbe.graph.replays > 0
+    assert grep.kv_bytes_peak == grep.slot_state_bytes > 0
+    for r in grep.completed[:3]:
+        solo, _ = run(True, [Request(rid=r.rid, prompt=r.prompt.copy(),
+                                     max_new_tokens=r.max_new_tokens)])
+        assert solo.completed[0].generated == r.generated, r.rid

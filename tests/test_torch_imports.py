@@ -19,7 +19,7 @@ import sys
 from repro_torch import convert, core, kernels, planner  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.kernels import dequant, grouped_mvm, ops, packed_canvas  # noqa: F401,E501
-from repro_torch.models import get_model, moe, whisper  # noqa: F401
+from repro_torch.models import get_model, moe, rwkv6, whisper  # noqa: F401
 from repro_torch.launch import pack, serve  # noqa: F401
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Engine, EngineConfig, poisson_trace, run_static
@@ -41,7 +41,15 @@ for serve_once in (lambda t: Engine(cfg, params, ecfg).run(t),
     trace = poisson_trace(3, mean_interarrival=0.5, prompt_lens=(6, 10),
                           gen_lens=(3, 5), vocab_size=cfg.vocab_size, seed=0)
     assert len(serve_once(trace).completed) == 3
-from repro_torch.runtime import encdec_extras_fn
+from repro_torch.runtime import encdec_extras_fn, vlm_extras_fn
+for arch in ("qwen2-vl-7b", "rwkv6-7b"):
+    cfg = get_config(arch).reduced()
+    params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
+    trace = poisson_trace(
+        3, mean_interarrival=0.5, prompt_lens=(6, 10), gen_lens=(3, 5),
+        vocab_size=cfg.vocab_size, seed=0,
+        extras_fn=vlm_extras_fn(cfg) if cfg.family == "vlm" else None)
+    assert len(Engine(cfg, params, ecfg).run(trace).completed) == 3
 for arch in ("olmoe-1b-7b", "whisper-tiny"):
     cfg = get_config(arch).reduced()
     params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
@@ -86,7 +94,7 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.convert import canvas_from_jax, params_from_jax
     from repro_torch.launch import pack, serve
-    from repro_torch.models import moe
+    from repro_torch.models import moe, rwkv6
     from repro_torch.models import transformer as T
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -102,6 +110,11 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         moe.init_params(get_config("deepseek-v2-lite-16b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "whisper-tiny", "--mode", "static"])
+    for arch in ("qwen2-vl-7b", "rwkv6-7b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rwkv6.init_params(get_config("rwkv6-7b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -116,7 +129,7 @@ def test_state_constructors_default_to_the_card(monkeypatch):
     building a CPU cache."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
-    from repro_torch.models import moe, whisper
+    from repro_torch.models import moe, rwkv6, whisper
     from repro_torch.models import transformer as T
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -129,11 +142,17 @@ def test_state_constructors_default_to_the_card(monkeypatch):
                  lambda: moe.init_decode_state(gqa, 2, 8),
                  lambda: moe.init_paged_decode_state(mla, 4, 8),
                  lambda: whisper.init_decode_state(
-                     get_config("whisper-tiny").reduced(), 2, 8)):
+                     get_config("whisper-tiny").reduced(), 2, 8),
+                 lambda: rwkv6.init_decode_state(
+                     get_config("rwkv6-7b").reduced(), 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     st = moe.init_decode_state(gqa, 2, 8, device="cpu")
     assert st.kv.shape == (2, 2, 2, 8, 2, 16) and st.kv.device.type == "cpu"
+    st = rwkv6.init_decode_state(get_config("rwkv6-7b").reduced(), 2,
+                                 device="cpu")
+    assert st.wkv.shape == (2, 2, 4, 16, 16)
+    assert st.wkv.dtype == torch.bfloat16 and st.wkv.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -22,8 +22,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import get_model
 from repro_torch.runtime import (ENGINE_FAMILIES, Engine, EngineConfig,
                                  LatentBackend, PagedTransformerBackend,
-                                 Request, engine_backend, poisson_trace,
-                                 run_static)
+                                 RecurrentBackend, Request, engine_backend,
+                                 poisson_trace, run_static)
 
 ARCH = "deepseek-v2-lite-16b"
 ECFG = EngineConfig(num_slots=2, page_size=8, num_pages=33,
@@ -200,7 +200,8 @@ def test_backend_registry_and_error_message(models):
     assert engine_backend(get_config("codeqwen1.5-7b").reduced()) \
         is PagedTransformerBackend
     assert engine_backend(get_config("olmoe-1b-7b").reduced()) is None
-    assert engine_backend(get_config("rwkv6-7b").reduced()) is None
+    assert engine_backend(get_config("rwkv6-7b").reduced()) \
+        is RecurrentBackend
     with pytest.raises(ValueError) as ei:
         Engine(get_config("olmoe-1b-7b").reduced(), tp, ECFG)
     assert "no engine backend" in str(ei.value)

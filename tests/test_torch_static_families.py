@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import GREEDY_GAP, both_runs, close_to_reference
+from _torch_parity import (GREEDY_GAP, both_runs, close_to_reference,
+                           static_teacher_gap)
 from repro.configs import get_config as jget
 from repro.models import get_model as jget_model
 from repro.models import layers as JL
@@ -189,33 +190,6 @@ def test_forward_prefill_and_decode_match_reference(models):
 # --- run_static (fault: extras were dropped) --------------------------------------
 
 
-def _teacher_gap(jcfg, jp, group, extras) -> float:
-    """The reference's static path on one lockstep group (left-padded
-    prompts, as run_static batches them), teacher-forced with the port's
-    tokens: the largest gap between a step's max logit and the logit of
-    the token the port chose there."""
-    jm = jget_model(jcfg)
-    plen = max(len(r.prompt) for r in group)
-    gen = max(r.max_new_tokens for r in group)
-    toks = np.zeros((len(group), plen), np.int32)
-    for b, r in enumerate(group):
-        toks[b, plen - len(r.prompt):] = r.prompt
-    batch = {"tokens": jnp.asarray(toks), **extras}
-    logits, state = jm.prefill(jcfg, jp, batch, plen + gen)
-    gap = 0.0
-    for j in range(gen):
-        rows = np.asarray(logits, np.float64)
-        for b, r in enumerate(group):
-            if j < len(r.generated):
-                gap = max(gap, rows[b].max() - rows[b, r.generated[j]])
-        if j == gen - 1:
-            break
-        feed = [r.generated[min(j, len(r.generated) - 1)] for r in group]
-        logits, state = jm.decode_step(jcfg, jp, state,
-                                       jnp.asarray(feed, jnp.int32))
-    return gap
-
-
 def test_run_static_ledger_matches_reference(models):
     """One seeded trace (whisper's requests carry their frames as extras)
     through both packages' run_static: the same ledger, cache bytes
@@ -239,9 +213,7 @@ def test_run_static_ledger_matches_reference(models):
     for group in groups:
         if all(r.generated == jtok[r.rid] for r in group):
             continue
-        extras = {k: jnp.asarray(np.stack([r.extras[k] for r in group]))
-                  for k in (group[0].extras or {})}
-        assert _teacher_gap(jcfg, jp, group, extras) <= GREEDY_GAP
+        assert static_teacher_gap(jcfg, jp, group) <= GREEDY_GAP
 
 
 def test_run_static_refuses_a_group_with_mixed_extras():
