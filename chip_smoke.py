@@ -35,7 +35,11 @@ into build/repro_torch/), then:
   (c) runs the static lockstep baseline on the first 8 requests, with the
       attention kernels' launch counters zeroed just before and read just
       after: one dense decode-attention launch a layer a decode step, and
-      flash at prefill only;
+      flash at prefill only; then the entry point's lockstep static mode
+      (``launch.serve`` ``run_static_mode``, part of (j+)) on the same
+      params: B 8, 512-token prompts, 32 greedy steps, one dense decode
+      launch a layer a step, one flash launch a layer, nothing else, and
+      no plain attention called;
   (d1) holds the packed-canvas kernels (fp, fused epilogue, int8/int4
       dequant, with and without the epilogue) against their plain
       versions at full width, the tolerance printed: one codeqwen1.5-7b
@@ -66,7 +70,7 @@ into build/repro_torch/), then:
       which routes as the engine does;
   (e') profiles one deepseek decode step and one 512-token prefill, and
       runs one fused horizon with the card's sync check set to error;
-  (e+) the eager-vs-graphed horizons of (b'') on deepseek;
+  (e+) the eager-vs-graphed horizons of (b'') on deepseek, 8 steps each;
   (e'') runs the static lockstep baseline on deepseek, first 8 requests;
   (f0) holds the dense decode-attention kernel against its plain version
       at the static paths' shapes (olmoe-1b-7b B 8, KV 16, dh 128, T 640;
@@ -110,8 +114,27 @@ into build/repro_torch/), then:
   (i') profiles one rwkv6-7b decode step and one 512-token prefill and
       gives the WKV routine's share of each one's device time;
   (i'') the eager-vs-graphed horizons of (b'') on rwkv6-7b's state, 8
-      steps each.
+      steps each;
+  (j) serves recurrentgemma-9b (hybrid: RG-LRU recurrence and local
+      attention over a 2,048-token window, MQA at head dim 256) at full
+      width and depth through the engine's hybrid backend on (b)'s
+      settings with 129-row tables (the window ring) and (b)'s trace plus
+      a 2,560-token prompt and a 1,984-token one that generates past the
+      window: every kernel counter zeroed just before and read just after
+      (none of the eight launches: the attention is torch ops), every
+      request complete, at most 129 pages a request, pages freed on ring
+      wraps and none left at the end (the engine's leak check), the eager
+      twin as in (b), and five requests' tokens (the first three and the
+      two past the window) teacher-forced through the full forward;
+  (j') profiles one recurrentgemma decode step and one 512-token
+      prefill, and gives the RG-LRU scan's share of each;
+  (j'') the eager-vs-graphed horizons of (b'') on its ring, 8 steps, and
+      the graphed step's device time beside its bound;
+  (j+) runs the entry point ``launch.serve --arch recurrentgemma-9b
+      --full --mode static --batch 8 --prompt-len 512 --gen 32`` (the
+      reference's lockstep static mode; codeqwen1.5-7b's run is in (c)).
 
+The script prints the seconds of each phase as it ends, and its total.
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
 attention kernels, packed canvas and grouped GEMM are built into
 DIR/build and timed in the same call beside this tree's, at (a)'s,
@@ -368,13 +391,13 @@ def phase_kernels(torch, ops, dec, fa, parent=None):
     ]
 
 
-def greedy_gap(torch, T, cfg, params, req) -> float:
+def greedy_gap(torch, model, cfg, params, req) -> float:
     """Teacher-force a finished request through the full-sequence forward:
     the largest gap between a position's max logit and the logit of the
     token the engine chose there (0 when every choice was its argmax)."""
     seq = list(req.prompt) + list(req.generated)
     toks = torch.tensor([seq], dtype=torch.int32, device=DEV)
-    logits = T.forward(cfg, params, {"tokens": toks})[0]
+    logits = model.forward(cfg, params, {"tokens": toks})[0]
     start = len(req.prompt)
     rows = logits[start - 1:start - 1 + len(req.generated)]
     chosen = torch.tensor(req.generated, device=DEV)
@@ -384,10 +407,12 @@ def greedy_gap(torch, T, cfg, params, req) -> float:
 
 def engine_config(rt, **kw):
     """Every engine phase's settings: 8 slots, page 16, 40-page table
-    rows, prefill bucket 128, greedy, fused horizons of 32."""
-    return rt.EngineConfig(num_slots=8, page_size=16, num_pages=1 + 8 * 40,
-                           max_pages_per_seq=40, prefill_bucket=128,
-                           greedy=True, horizon=32, **kw)
+    rows, prefill bucket 128, greedy, fused horizons of 32; ``kw``
+    overrides (the hybrid ring's 129-row tables)."""
+    return rt.EngineConfig(**{**dict(
+        num_slots=8, page_size=16, num_pages=1 + 8 * 40,
+        max_pages_per_seq=40, prefill_bucket=128, greedy=True, horizon=32),
+        **kw})
 
 
 def engine_trace(rt, cfg, **kw):
@@ -564,13 +589,14 @@ def print_graph(graph, rep) -> None:
 
 def device_busy(torch, fn) -> float:
     """Kernel time (ms) of one call of ``fn`` from torch.profiler, 0.0
-    where the trace shows none."""
+    where the trace shows none. Only the card's activity is traced: the
+    kernel rows are all either function reads, and a CPU trace of an
+    eager prefill's ~10^5 launches takes minutes to process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
@@ -592,12 +618,12 @@ def breakdown(torch, label: str, fn, steps: int = 4) -> None:
     enqueue = (time.monotonic() - t0) / steps
     torch.cuda.synchronize()
     wall = (time.monotonic() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    # kernel rows only: a CPU op's row repeats its kernels' device time
+    # kernel rows only (the card's activity alone is traced, as in
+    # device_busy)
     rows = [(e.key, e.self_device_time_total / 1e3 / steps)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -1104,18 +1130,22 @@ def phase_moe_breakdown(torch, MoE, cfg, params):
 
 def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
     """One engine backend's state (8 slots x 400 cached tokens, random
-    pool, page 16, 40 table rows; or a random recurrent state and the
-    dummy one-row table): the same fused horizon of ``h`` greedy steps
+    pool, page 16, 40 table rows, or the hybrid's 129-row window ring and
+    a random recurrent state; or a random recurrent state and the dummy
+    one-row table): the same fused horizon of ``h`` greedy steps
     from the same loop tensors and state through the eager loop
     (``decode_eager``) and the engine's one-step graph replays
     (``DecodeGraph``). Each is run once first (the graph captures there),
     then timed: host enqueue, wall and device busy a step, tokens/s.
     Tokens, loop tensors, state and kernel launch counts must be equal; a
-    graphed horizon then runs with the card's sync check set to error."""
+    graphed horizon then runs with the card's sync check set to error.
+    Returns each way's device busy ms a step (0.0 where not measured)."""
     print(f"== {label} fused horizon, eager vs graphed, {cfg.name}",
           flush=True)
     B, page = 8, 16
     M = 40 if rt.resolve_backend(cfg).paged else 1
+    if cfg.family == "hybrid":          # the window ring's rows
+        M = -(-cfg.recurrent.window // page) + 1
     ecfg = rt.EngineConfig(num_slots=B, page_size=page, num_pages=1 + B * M,
                            max_pages_per_seq=M, prefill_bucket=128,
                            greedy=True, horizon=h)
@@ -1151,7 +1181,7 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
             t.copy_(t0)
         torch.cuda.synchronize()
 
-    results = {}
+    results, step_busy = {}, {}
     for name, run in runs.items():
         restore()
         t0 = time.monotonic()
@@ -1170,6 +1200,7 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
         restore()
         busy = device_busy(torch, lambda run=run: horizon(run))
         results[name] = (out, t, rise, after)
+        step_busy[name] = busy / h
         print(f"  {name}: first horizon {first:.2f} s; then a step: host "
               f"enqueue {enqueue * 1e3 / h:.3f} ms  wall "
               f"{wall * 1e3 / h:.3f} ms  device busy "
@@ -1196,6 +1227,7 @@ def phase_horizon(torch, rt, ops, cfg, params, label, h=32):
           flush=True)
     del be, graph, runs, state, start_state, results
     torch.cuda.empty_cache()
+    return step_busy
 
 
 # --- static-only families (olmoe-1b-7b, whisper-tiny) ------------------------------
@@ -1541,6 +1573,271 @@ def phase_ssm_breakdown(torch, R, cfg, params):
           f"{share(wkv_pre, prefill_busy)})", flush=True)
 
 
+# --- the hybrid family (recurrentgemma-9b) -------------------------------------------
+
+
+def hybrid_trace(rt, cfg):
+    """(b)'s 16 requests plus two that reach the window (2,048): request
+    16, a 2,560-token prompt (longer than the window: admission maps only
+    its 128 in-window pages) generating 64 tokens; request 17, a
+    1,984-token prompt generating 160, whose ring wraps at positions
+    2,064-2,128. Prompts from a seeded rng."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    long = [rt.Request(rid=16, prompt=rng.integers(
+                0, cfg.vocab_size, 2560).astype(np.int32),
+                max_new_tokens=64, arrival=8),
+            rt.Request(rid=17, prompt=rng.integers(
+                0, cfg.vocab_size, 1984).astype(np.int32),
+                max_new_tokens=160, arrival=16)]
+    return engine_trace(rt, cfg) + long
+
+
+def phase_hybrid_engine(torch, rt, ops, api, cfg, params, trace):
+    """(j) recurrentgemma-9b through the hybrid backend (a recurrent
+    state per slot, the attention window's KV in a ring of 129 pages a
+    slot): every kernel counter zeroed just before and read just after
+    (none of the eight launches: Griffin's attention is torch ops at head
+    dim 256); every request completes untruncated; no slot holds more
+    than 129 pages; pages are freed on ring wraps; the eager twin as in
+    (b); each request's tokens teacher-forced through the static path at
+    B = 1."""
+    print("== (j) engine, recurrentgemma-9b full width and depth (hybrid "
+          "ring)", flush=True)
+    from repro_torch.runtime import engine as eng
+    R = -(-cfg.recurrent.window // 16) + 1
+    ecfg = engine_config(rt, max_pages_per_seq=R, num_pages=1 + 8 * R)
+    engine = rt.Engine(cfg, params, ecfg)
+    assert type(engine.backend).__name__ == "HybridBackend"
+    assert engine.backend.ring_rows == R
+    wraps = {"frees": 0, "most": 0}
+    growth_row = eng._growth_row
+
+    def counted(backend, alloc, table, s, pi, rid):
+        freed = int(table[s, pi % R]) != rt.TRASH_PAGE
+        row = growth_row(backend, alloc, table, s, pi, rid)
+        wraps["frees"] += freed
+        wraps["most"] = max(wraps["most"], len(alloc.owned(rid)) + 1)
+        return row
+
+    counters = ops.launch_counters()
+    for c in counters:
+        c.launches = 0
+    eng._growth_row = counted
+    try:
+        rep, rise = run_counted(torch, engine, trace)
+    finally:
+        eng._growth_row = growth_row
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    assert not any(c.launches for c in counters), rise
+    print_graph(engine.backend.graph, rep)
+    finish_check(rep, trace, cfg)
+    assert rep.peak_live_pages <= 8 * R, rep.peak_live_pages
+    assert wraps["most"] <= R, wraps
+    assert wraps["frees"] > 0, "no ring wrap freed a page"
+    print(f"  ring: {R} rows a slot, at most {wraps['most']} pages held by "
+          f"a request, {wraps['frees']} pages freed on wraps, peak live "
+          f"pages {rep.peak_live_pages} of {8 * R}; page bytes "
+          f"{rep.page_bytes}, slot state bytes {rep.slot_state_bytes}",
+          flush=True)
+    print_rates(rep, summary)
+    eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
+    # the first three requests and the two that reach the window (16, 17:
+    # past 2,048 tokens the forward takes the chunked windowed attention)
+    done = {r.rid: r for r in rep.completed}
+    checked = [done[i] for i in (0, 1, 2, 16, 17)]
+    worst = max(greedy_gap(torch, api, cfg, params, r) for r in checked)
+    lg = api.forward(cfg, params, {"tokens": torch.tensor(
+        [list(trace[0].prompt)], device=DEV)})
+    assert torch.isfinite(lg).all()
+    scale = lg.abs().max().item()
+    print(f"  teacher-forced greedy gap (full forward, requests "
+          f"{[r.rid for r in checked]}) {worst:.4e} (logit scale "
+          f"{scale:.3e})", flush=True)
+    # engine (paged ring, batch of 8) and forward (the whole sequence at
+    # once) round in bf16 at different places: a choice may trail the
+    # argmax by a few bf16 quanta of the logit scale
+    assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
+    return rep
+
+
+def print_hybrid_bound(torch, cfg, params, rep, step_ms: float) -> None:
+    """(j)'s rates beside the graphed decode step's device time (from
+    (j'')'s horizon: 8 slots at 400 tokens) and its bound: the bytes one
+    step must move over the card's memory rate. Every weight is read once
+    (of the embedding table only the 8 rows looked up), the recurrent
+    state read and written, the ring's 400 live keys and values a slot
+    read, the f32 logits written; the step's operations are far below
+    the bf16 peak at 8 rows."""
+    from repro_torch.models import griffin as G
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    B, n_tok = 8, 400
+    emb = params["embed"]
+    weights = nbytes(params) - nbytes(emb) + B * emb[0].numel() \
+        * emb.element_size()
+    n_rec, n_attn = G._state_counts(cfg)
+    W = cfg.recurrent.lru_width or cfg.d_model
+    state = 2 * n_rec * B * W * ((cfg.recurrent.conv_width - 1) * 2 + 4)
+    kv = n_attn * B * n_tok * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    logits = B * cfg.vocab_size * 4
+    total = weights + state + kv + logits
+    bound_ms = total / PEAK_BYTES_PER_S * 1e3
+    print(f"  (j) tokens/s {rep.summary()['tokens_per_s']} (engine, "
+          f"graphed); graphed decode step {step_ms:.3f} ms device busy; "
+          f"bound {bound_ms:.3f} ms ({total / 2**30:.2f} GiB a step: "
+          f"weights {weights / 2**30:.2f} GiB, state and ring KV "
+          f"{(state + kv) / 2**20:.1f} MiB) at {PEAK_BYTES_PER_S / 1e12} "
+          f"TB/s; step / bound "
+          + (f"{step_ms / bound_ms:.2f}" if step_ms else "not measured"),
+          flush=True)
+
+
+def phase_hybrid_breakdown(torch, G, cfg, params):
+    """(j') one recurrentgemma decode step (8 slots x 400 tokens in a
+    129-row ring, a random state) and one 512-token prefill, profiled:
+    host enqueue against device busy; the RG-LRU scan's share of each
+    one's device time: the scan alone, once a rec layer, on inputs of the
+    call's shapes."""
+    print("== (j') where the time goes, recurrentgemma-9b", flush=True)
+    B, page = 8, 16
+    R = G.ring_rows(cfg.recurrent.window, page)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    state = G.init_paged_decode_state(cfg, B, 1 + B * R, page, device=DEV)
+    for t in (state.conv, state.h, state.k_pages, state.v_pages):
+        t.normal_(generator=gen)
+    table = torch.arange(1, 1 + B * R, dtype=torch.int32,
+                         device=DEV).view(B, R)
+    lens = torch.full((B,), 400, dtype=torch.int32, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    act = torch.ones((B,), dtype=torch.bool, device=DEV)
+    busy = {"decode step": breakdown(
+        torch, f"decode step B={B}", lambda: G.paged_decode_step(
+            cfg, params, state, toks, table, lens, act))}
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, 512),
+                                      generator=gen, device=DEV)}
+    plen = torch.tensor([512], dtype=torch.int32, device=DEV)
+    busy["prefill S=512"] = breakdown(
+        torch, "prefill S=512", lambda: G.paged_prefill(
+            cfg, params, prompt, plen), steps=1)
+    n_rec, _ = G._state_counts(cfg)
+    W = cfg.recurrent.lru_width or cfg.d_model
+    lam = params["super"]["rec1"]["lam"][0]
+    parts = []
+    for label, b, S in (("decode step", B, 1), ("prefill S=512", 1, 512)):
+        x, r, i = (torch.randn((b, S, W), generator=gen, device=DEV).to(
+            torch.bfloat16) for _ in range(3))
+        h0 = torch.zeros((b, W), device=DEV)
+        scan = device_busy(torch, lambda: [G._rglru(x, r, i, lam, h0)
+                                           for _ in range(n_rec)])
+        whole = busy[label]
+        parts.append(f"{label} {scan:.3f} of {whole:.3f} ms (share "
+                     + (f"{scan / whole:.3f})" if scan and whole
+                        else "not measured)"))
+    print("  RG-LRU scan device time: " + "; ".join(parts), flush=True)
+
+
+def static_mode_lines(out: list[str], args) -> None:
+    """The static mode's printed lines, as the reference prints them for
+    the flags ``args``: the header, prefill ms and decode ms a token, up
+    to two seq rows of ``--gen`` tokens, ``ok``."""
+    for line in out:
+        print(f"  {line}")
+    assert out[-1] == "ok", out
+    assert out[0].endswith(
+        f"mode=static batch={args.batch} prompt={args.prompt_len} "
+        f"gen={args.gen}"), out[0]
+    assert out[1].startswith("prefill: ") and out[1].endswith("ms/token")
+    rows = out[2:-1]
+    assert len(rows) == min(args.batch, 2), rows
+    for b, row in enumerate(rows):
+        assert row.startswith(f"  seq{b}: ["), row
+        assert len(row.split(",")) == args.gen, row
+
+
+def run_captured(torch, fn) -> list[str]:
+    """``fn()`` with its standard output captured: its lines (it must
+    return 0)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    torch.cuda.synchronize()
+    assert rc == 0, rc
+    return buf.getvalue().rstrip().splitlines()
+
+
+def phase_static_mode(torch, serve, L, ref, cfg, params, argv, counters):
+    """(j+, dense) the entry point's lockstep static mode
+    (``serve.run_static_mode``, the reference's ``run_static``) on
+    codeqwen1.5-7b at full width, on the params (b) and (c) hold: every
+    kernel counter zeroed just before and read just after (one dense
+    decode launch a layer a decode step, one flash launch a layer for the
+    one prefill, nothing else), and no plain attention or expert GEMM
+    called."""
+    print(f"== (j+) static mode, {cfg.name} ((b)'s params): "
+          f"{' '.join(argv)}", flush=True)
+    args = serve.parse_args(argv)
+    plain = {"ref.mha_attention": (ref, "mha_attention"),
+             "ref.decode_attention": (ref, "decode_attention"),
+             "ref.paged_decode_attention": (ref, "paged_decode_attention"),
+             "ref.grouped_mvm": (ref, "grouped_mvm"),
+             "layers.gqa_attention": (L, "gqa_attention")}
+    calls = dict.fromkeys(plain, 0)
+    saved = {k: getattr(m, n) for k, (m, n) in plain.items()}
+
+    def counted(key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return saved[key](*a, **kw)
+        return call
+
+    for k, (m, n) in plain.items():
+        setattr(m, n, counted(k))
+    for c in counters:
+        c.launches = 0
+    try:
+        out = run_captured(torch, lambda: serve.run_static_mode(
+            cfg, params, args))
+    finally:
+        for k, (m, n) in plain.items():
+            setattr(m, n, saved[k])
+    static_mode_lines(out, args)
+    counts = {c.__name__: c.launches for c in counters}
+    want = {"decode_attention": cfg.num_layers * args.gen,
+            "flash_attention": cfg.num_layers}
+    print(f"  launches {counts}; plain versions called {calls}", flush=True)
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert not any(calls.values()), calls
+    return counts
+
+
+def phase_static_entry(torch, serve, argv):
+    """(j+, hybrid) the static serving entry point at full width:
+    ``launch.serve.main(argv)`` (random weights from its seed) must
+    return 0 and print the reference's lines; no kernel of the eight
+    launches (Griffin's attention is torch ops)."""
+    from repro_torch.kernels import ops
+    print(f"== (j+) launch.serve {' '.join(argv)}", flush=True)
+    counters = ops.launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.monotonic()
+    out = run_captured(torch, lambda: serve.main(argv))
+    static_mode_lines(out, serve.parse_args(argv))
+    assert not any(c.launches for c in counters), \
+        {c.__name__: c.launches for c in counters}
+    print(f"  no kernel launches; entry point wall "
+          f"{time.monotonic() - t0:.1f} s (init included)", flush=True)
+
+
 def init(torch, api, cfg):
     """Random weights of ``cfg`` from seed 0 on the card, timed."""
     t0 = time.monotonic()
@@ -1572,13 +1869,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_mvm as gm
     from repro_torch.models import get_model
+    from repro_torch.models import griffin as G
+    from repro_torch.models import layers as Lyr
     from repro_torch.models import moe as MoE
     from repro_torch.models import rwkv6 as R
     from repro_torch.models import transformer as T
     from repro_torch import runtime as rt
     from repro_torch import resolve_device
     from repro_torch.kernels import ref
-    from repro_torch.launch import pack
+    from repro_torch.launch import pack, serve
     from repro_torch.planner import WeightMatrix, pack_canvas
 
     smi = subprocess.run(
@@ -1589,6 +1888,14 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} card {smi}", flush=True)
 
     t_start = t0 = time.monotonic()
+    laps = [t0]
+
+    def lap(label: str) -> None:
+        """Print the seconds since the previous lap: where the script's
+        own time goes."""
+        now = time.monotonic()
+        print(f"  [{label}: {now - laps[-1]:.1f} s]", flush=True)
+        laps.append(now)
     logs = _build.build()
     print(f"== build: {sorted(logs)} in {time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
@@ -1596,27 +1903,42 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    lap("build")
     parent = load_parent(args.parent)
     kernels = phase_kernels(torch, ops, dec, fa, parent)
+    lap("(a)")
 
     cfg = get_config("codeqwen1.5-7b")
     params = init(torch, get_model(cfg), cfg)
     trace = engine_trace(rt, cfg)
     phase_engine(torch, T, rt, cfg, params, trace, kernels)
+    lap("(b)")
     phase_breakdown(torch, T, cfg, params)
+    lap("(b')")
     phase_horizon(torch, rt, ops, cfg, params, "(b'')")
+    lap("(b'')")
     phase_static(torch, rt, cfg, params, trace,
                  attn=(dec.decode_attention, fa.flash_attention))
+    lap("(c)")
+    dense_static = phase_static_mode(
+        torch, serve, Lyr, ref, cfg, params,
+        ["--arch", cfg.name, "--full", "--mode", "static", "--batch", "8",
+         "--prompt-len", "512", "--gen", "32", "--greedy"],
+        ops.launch_counters())
+    lap("(j+, dense)")
     del params
     torch.cuda.empty_cache()
 
     resolve_device(DEV)         # full f32 matmuls in the f32 plain versions
     canvas = phase_canvas(torch, ops, ref, pack, WeightMatrix, pack_canvas,
                           get_config, parent)
+    lap("(d1)")
     phase_pack(torch, pack, canvas)
+    lap("(d2)")
     kernels += canvas
 
     grouped = phase_grouped(torch, ops, gm, parent)
+    lap("(e0)")
     cfg = get_config("deepseek-v2-lite-16b")
     api = get_model(cfg)
     torch.cuda.empty_cache()
@@ -1625,14 +1947,21 @@ def main(argv=None) -> int:
     others = (dec.paged_decode_attention, fa.flash_attention,
               *canvas_counters())
     phase_moe_engine(torch, api, rt, cfg, params, trace, grouped, others)
+    lap("(e)")
     phase_moe_breakdown(torch, MoE, cfg, params)
-    phase_horizon(torch, rt, ops, cfg, params, "(e+)")
+    lap("(e')")
+    # 8 steps: an eager deepseek step enqueues thousands of kernels, each
+    # of which torch.profiler records, so 32 steps are slow to profile
+    phase_horizon(torch, rt, ops, cfg, params, "(e+)", h=8)
+    lap("(e+)")
     phase_static(torch, rt, cfg, params, trace, "(e'')")
+    lap("(e'')")
     kernels.append(grouped)
     del params
     torch.cuda.empty_cache()
 
     dense_dec = phase_dense_decode(torch, ops, dec, parent)
+    lap("(f0)")
     counters = (dec.decode_attention, fa.flash_attention, gm.grouped_mvm,
                 dec.paged_decode_attention, *canvas_counters())
     cfg = get_config("olmoe-1b-7b")
@@ -1648,7 +1977,9 @@ def main(argv=None) -> int:
                      gm.grouped_mvm: moe_calls}, label="(f)")
     dense_dec.pop("counter")
     dense_dec["launches"] = counts["decode_attention"]
+    lap("(f)")
     phase_static_breakdown(torch, api, cfg, params)
+    lap("(f')")
     del params
     torch.cuda.empty_cache()
 
@@ -1665,6 +1996,7 @@ def main(argv=None) -> int:
         torch, rt, api, cfg, params, trace, counters,
         per_step={dec.decode_attention: 2 * L},          # self and cross
         per_prefill={fa.flash_attention: n_enc + 2 * L}, label="(g)")
+    lap("(g)")
     del params
     torch.cuda.empty_cache()
 
@@ -1673,9 +2005,12 @@ def main(argv=None) -> int:
     params = init(torch, api, cfg)
     trace = engine_trace(rt, cfg, extras_fn=rt.vlm_extras_fn(cfg))
     vlm = phase_vlm_engine(torch, rt, ops, api, cfg, params, trace)
+    lap("(h)")
     phase_breakdown(torch, T, cfg, params, "(h')", extras={
         "patch_embeds": torch.randn((1, 4, cfg.d_model), device=DEV)})
+    lap("(h')")
     phase_horizon(torch, rt, ops, cfg, params, "(h'')")
+    lap("(h'')")
     _, static_counts = phase_static(
         torch, rt, cfg, params, trace, "(h+)", n=16,
         attn=(dec.decode_attention, fa.flash_attention))
@@ -1684,6 +2019,7 @@ def main(argv=None) -> int:
           f"{vlm['flash_attention']} in (h), decode_attention "
           f"{static_counts[0]} and flash_attention {static_counts[1]} in "
           f"(h+)", flush=True)
+    lap("(h+)")
     del params
     torch.cuda.empty_cache()
 
@@ -1691,11 +2027,36 @@ def main(argv=None) -> int:
     params = init(torch, get_model(cfg), cfg)
     trace = engine_trace(rt, cfg)
     phase_ssm_engine(torch, rt, ops, R, cfg, params, trace)
+    lap("(i)")
     phase_ssm_breakdown(torch, R, cfg, params)
+    lap("(i')")
     # 8 steps: an eager rwkv6 step enqueues ~3,200 kernels, each of which
     # torch.profiler records, so a 32-step horizon is slow to profile
     phase_horizon(torch, rt, ops, cfg, params, "(i'')", h=8)
+    lap("(i'')")
     del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("recurrentgemma-9b")
+    api = get_model(cfg)
+    params = init(torch, api, cfg)
+    hyb = phase_hybrid_engine(torch, rt, ops, api, cfg, params,
+                              hybrid_trace(rt, cfg))
+    lap("(j)")
+    phase_hybrid_breakdown(torch, G, cfg, params)
+    lap("(j')")
+    # 8 steps: an eager step enqueues ~2,000 kernels, as rwkv6's (i'')
+    step = phase_horizon(torch, rt, ops, cfg, params, "(j'')", h=8)
+    print_hybrid_bound(torch, cfg, params, hyb, step["graphed"])
+    lap("(j'')")
+    del params
+    torch.cuda.empty_cache()
+    phase_static_entry(torch, serve, [
+        "--arch", "recurrentgemma-9b", "--full", "--mode", "static",
+        "--batch", "8", "--prompt-len", "512", "--gen", "32"])
+    lap("(j+, hybrid)")
+    print(f"  launches in the static mode (j+, dense): {dense_static}",
+          flush=True)
     kernels.append(dense_dec)
     print(f"all phases {time.monotonic() - t_start:.0f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"

@@ -1,13 +1,13 @@
 """Architecture registry of the port: ``get_config(arch_id)``."""
 
 from . import (codeqwen15_7b, deepseek_v2_lite_16b, olmo_1b, olmoe_1b_7b,
-               qwen2_vl_7b, rwkv6_7b, whisper_tiny)
+               qwen2_vl_7b, recurrentgemma_9b, rwkv6_7b, whisper_tiny)
 from .base import ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (codeqwen15_7b, deepseek_v2_lite_16b, olmo_1b, olmoe_1b_7b,
-              qwen2_vl_7b, rwkv6_7b, whisper_tiny)}
+              qwen2_vl_7b, recurrentgemma_9b, rwkv6_7b, whisper_tiny)}
 
 
 def get_config(arch_id: str) -> ModelConfig:

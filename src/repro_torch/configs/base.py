@@ -5,8 +5,8 @@ nothing of the JAX package, so it keeps its own. The fields, derived
 sizes and ``reduced()`` of the dense and MoE families match the reference
 exactly, so a reduced config names the same shapes in both packages,
 the encoder tower of the ``encdec`` family (whisper), the patch stub of
-the ``vlm`` family (qwen2-vl) and the recurrence of the ``ssm`` family
-(rwkv6) included.
+the ``vlm`` family (qwen2-vl), the recurrence of the ``ssm`` family
+(rwkv6) and the ``hybrid`` family (recurrentgemma) included.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "vlm", "moe", "ssm", "encdec"]
+Family = Literal["dense", "vlm", "moe", "ssm", "hybrid", "encdec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +90,9 @@ class ModelConfig:
     def reduced(self) -> ModelConfig:
         """Tiny same-family config for CPU tests: the reference's
         ``reduced()``, field for field (MoE, MLA, recurrence and encoder
-        towers cut as it cuts them)."""
+        towers cut as it cuts them). Hybrid archs keep one full (rec, rec,
+        attn) pattern period, so the windowed attention and its cache are
+        exercised: two layers would be a pure recurrence."""
         kw: dict = {}
         if self.moe:
             # the arch's own capacity_factor: drops can occur at this size
@@ -108,6 +110,7 @@ class ModelConfig:
         if self.encoder:
             kw["encoder"] = EncoderConfig(num_layers=2, seq_len=16)
         return dataclasses.replace(
-            self, name=self.name + "-smoke", num_layers=2, d_model=64,
+            self, name=self.name + "-smoke",
+            num_layers=3 if self.family == "hybrid" else 2, d_model=64,
             num_heads=4, num_kv_heads=max(1, min(self.num_kv_heads, 2)),
             head_dim=16, d_ff=128, vocab_size=256, **kw)

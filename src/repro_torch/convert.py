@@ -4,11 +4,13 @@
 or anything ``np.asarray`` reads; block params stacked on a leading
 layer axis: ``repro.models.transformer.init_params``,
 ``repro.models.moe.init_params`` with its nested ``moe`` dict, MLA or
-GQA, or ``repro.models.whisper.init_params``) and returns the same names
-as torch tensors on ``device``: norm scales (``kv_ln`` and whisper's
-layernorm biases too, ``transformer.F32_PARAMS``) in f32, every other
-leaf cast once to bf16 — the reference casts them to bf16 at each use,
-so the numbers are the same.
+GQA, ``repro.models.whisper.init_params``, or
+``repro.models.griffin.init_params`` with its ``super.{rec1,rec2,attn}``
+and ``tail`` subtrees) and returns the same names as torch tensors on
+``device``: norm scales (``kv_ln``, whisper's layernorm biases and
+griffin's RG-LRU ``lam`` too, ``transformer.F32_PARAMS``) in f32, every
+other leaf cast once to bf16 — the reference casts them to bf16 at each
+use, so the numbers are the same.
 
 ``canvas_from_jax`` takes the reference's packed canvas (``w_blocks`` in
 meta order, ``meta``, and for the dequant kernels the quantized payload

@@ -1,14 +1,15 @@
 """Models of the port: the dense decoder-only transformer (with the vlm
-backbone), the MoE decoders (MLA and GQA), RWKV-6 and the whisper
-encoder-decoder, behind ``get_model(cfg)`` (the reference's registry,
-without the training entries)."""
+backbone), the MoE decoders (MLA and GQA), RWKV-6, Griffin (the hybrid
+RG-LRU + local attention family) and the whisper encoder-decoder,
+behind ``get_model(cfg)`` (the reference's registry, without the
+training entries)."""
 
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
-from . import moe, rwkv6, transformer, whisper
+from . import griffin, moe, rwkv6, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,7 +22,7 @@ class ModelApi:
 
 
 _FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
-             "ssm": rwkv6, "encdec": whisper}
+             "ssm": rwkv6, "hybrid": griffin, "encdec": whisper}
 
 
 def get_model(cfg) -> ModelApi:
@@ -36,4 +37,5 @@ def get_model(cfg) -> ModelApi:
                                               None))
 
 
-__all__ = ["ModelApi", "get_model", "moe", "rwkv6", "transformer", "whisper"]
+__all__ = ["ModelApi", "get_model", "griffin", "moe", "rwkv6", "transformer",
+           "whisper"]

@@ -1,0 +1,525 @@
+"""RecurrentGemma / Griffin (arXiv:2402.19427), hybrid RG-LRU + local
+sliding-window attention, block pattern (rec, rec, attn), in PyTorch.
+
+Counterpart of ``repro.models.griffin`` (its serving entries; the
+training loss is not ported). Every layer is a temporal mix (the RG-LRU
+recurrent branch or windowed MQA) plus a gated MLP, both with residuals.
+Layers group into super-blocks of one pattern period (rec, rec, attn); a
+tail of rec-only layers covers num_layers % 3 (38 = 12 x 3 + 2). The
+reference's ``lax.scan`` over super-blocks is a Python loop here; the
+RG-LRU recurrence stays a loop over time, as its ``lax.scan`` is, and the
+attention is plain torch (the reference's is jnp: no Pallas site).
+
+Decode state is O(window): a conv shift register and the LRU hidden per
+rec layer, and per attn layer a ring of ``window`` KV slots (static
+path) or a page-granular window ring in a shared page pool (serving
+path). ``decode_step`` and ``paged_decode_step`` update their state's
+tensors in place (``copy_``), so a CUDA graph of the step
+(``runtime.DecodeGraph``) holds their addresses.
+
+Numerics copied from the reference: ``lam`` and the norm scales ``ln``,
+``ln_mlp`` stay f32 (the converter keeps them so; the reference passes
+them uncast), ``ln_f`` is cast to bf16 at use; the hidden ``h`` is f32
+between calls and the conv register bf16; ``length`` gates padded
+prompts (pad positions leave conv and h untouched); prefill above
+``ATTN_CHUNK_THRESHOLD`` tokens takes the chunked windowed attention; an
+inactive serving slot freezes its recurrent state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from . import layers as L
+
+LRU_C = 8.0                 # Griffin's fixed decay temperature
+# sequences longer than this take chunked attention (the reference's
+# layers.ATTN_CHUNK_THRESHOLD)
+ATTN_CHUNK_THRESHOLD = 2048
+
+
+# --- params ----------------------------------------------------------------------
+
+def _counts(cfg) -> tuple[int, int]:
+    """(num full pattern periods, num trailing rec layers)."""
+    period = len(cfg.recurrent.block_pattern)
+    return cfg.num_layers // period, cfg.num_layers % period
+
+
+def _state_counts(cfg) -> tuple[int, int]:
+    n_super, n_tail = _counts(cfg)
+    return 2 * n_super + n_tail, n_super       # (n_rec, n_attn)
+
+
+def init_params(cfg, seed: int = 0, device="cuda"):
+    """Random weights from a ``torch.Generator`` seeded with ``seed``: the
+    reference's tree (``super.{rec1,rec2,attn}`` stacked over the
+    super-blocks, ``tail`` over the trailing rec layers) and
+    distributions, drawn on ``device`` one layer at a time, stored in the
+    converter's dtypes (``lam``, ``ln``, ``ln_mlp`` and ``ln_f`` in f32,
+    every other leaf in bf16)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, Fd, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    W = cfg.recurrent.lru_width or D
+    cw = cfg.recurrent.conv_width
+    n_super, n_tail = _counts(cfg)
+    cd = L.COMPUTE_DTYPE
+
+    def normal(shape, std, dtype=cd):
+        t = torch.empty(shape, dtype=L.PARAM_DTYPE, device=dev)
+        return L.trunc_normal_(t, gen, std).to(dtype)
+
+    def matrix(d_in, d_out):
+        return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def ones(n):
+        return torch.ones((n,), dtype=L.PARAM_DTYPE, device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=cd, device=dev)
+
+    def mlp():
+        return {"ln_mlp": ones(D), "w_gate": matrix(D, Fd),
+                "w_up": matrix(D, Fd), "w_down": matrix(Fd, D)}
+
+    def rec():
+        return {"ln": ones(D), "w_branch": matrix(D, W), "w_x": matrix(D, W),
+                "conv_w": normal((cw, W), 1.0 / math.sqrt(cw)),
+                "conv_b": zeros(W), "w_i": matrix(W, W), "b_i": zeros(W),
+                "w_r": matrix(W, W), "b_r": zeros(W),
+                "lam": normal((W,), 0.5, L.PARAM_DTYPE),
+                "w_out": matrix(W, D), **mlp()}
+
+    def attn():
+        return {"ln": ones(D), "wq": matrix(D, cfg.q_dim),
+                "wk": matrix(D, cfg.kv_dim), "wv": matrix(D, cfg.kv_dim),
+                "wo": matrix(cfg.q_dim, D), **mlp()}
+
+    params = {"embed": normal((V, D), 0.02),
+              "super": L.stack_layers(lambda: {"rec1": rec(), "rec2": rec(),
+                                               "attn": attn()}, n_super, dev),
+              "ln_f": ones(D), "lm_head": matrix(D, V)}
+    if n_tail:
+        params["tail"] = L.stack_layers(rec, n_tail, dev)
+    return params
+
+
+def _layer(tree, i: int) -> dict:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _layers(cfg, params):
+    """(kind, params, rec index or attn index) of every layer in order:
+    super-block i is rec 2i, rec 2i + 1, attn i; tail layer j is rec
+    2 * n_super + j."""
+    n_super, n_tail = _counts(cfg)
+    for i in range(n_super):
+        p = _layer(params["super"], i)
+        yield "rec", p["rec1"], 2 * i
+        yield "rec", p["rec2"], 2 * i + 1
+        yield "attn", p["attn"], i
+    for j in range(n_tail):
+        yield "rec", _layer(params["tail"], j), 2 * n_super + j
+
+
+# --- RG-LRU recurrent block ----------------------------------------------------------
+
+def _causal_conv(x, w, b, conv_state, length=None):
+    """Depthwise causal conv1d. x: (B, S, W); w: (cw, W); conv_state: (B,
+    cw - 1, W) holds the trailing inputs of the previous chunk.
+    ``length`` (an int tensor) gates padded prompts: the carried state is
+    then the window ending at position length - 1, not at the padded
+    end."""
+    cw, S = w.shape[0], x.shape[1]
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + S] * w[i] for i in range(cw))
+    if cw == 1:
+        new_state = conv_state
+    elif length is None:
+        new_state = xp[:, -(cw - 1):]
+    else:           # xp index j holds x position j - (cw - 1)
+        idx = length.reshape(()).long() + torch.arange(cw - 1,
+                                                       device=x.device)
+        new_state = xp.index_select(1, idx)
+    return out + b, new_state
+
+
+def _rglru(x, r_gate, i_gate, lam, h0, length=None):
+    """RG-LRU scan in f32. x, gates: (B, S, W); lam (W,); h0: (B, W).
+    ``length`` gates padded positions to identity updates (a = 1, input
+    0), so the carried hidden is the state after exactly ``length`` live
+    tokens. Returns the hidden sequence in x's dtype and the last hidden
+    (f32)."""
+    a_log = (-LRU_C * F.softplus(lam.float())
+             * torch.sigmoid(r_gate.float()))              # (B,S,W) <= 0
+    a = torch.exp(a_log)
+    gated = torch.sigmoid(i_gate.float()) * x.float()
+    scaled = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * gated
+    S = x.shape[1]
+    if length is not None:
+        live = (torch.arange(S, device=x.device)
+                < length.reshape(()))[None, :, None]
+        a = torch.where(live, a, 1.0)
+        scaled = torch.where(live, scaled, 0.0)
+    h = h0.float()
+    hs = torch.empty_like(scaled)
+    for t in range(S):
+        h = torch.addcmul(scaled[:, t], a[:, t], h)
+        hs[:, t] = h
+    return hs.to(x.dtype), h
+
+
+def _mlp(p, x):
+    h = L.rmsnorm(x, p["ln_mlp"]).to(L.COMPUTE_DTYPE)
+    return L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _rec_block(p, x, conv, h, length=None):
+    """One recurrent layer from its state (conv (B, cw - 1, W), h (B, W)):
+    returns (y, new conv in conv's dtype, new h f32)."""
+    h_in = L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE)
+    branch = F.gelu(h_in @ p["w_branch"], approximate="tanh")
+    xr = h_in @ p["w_x"]
+    xr, conv_new = _causal_conv(xr, p["conv_w"], p["conv_b"], conv,
+                                length=length)
+    r_gate = xr @ p["w_r"] + p["b_r"]
+    i_gate = xr @ p["w_i"] + p["b_i"]
+    hseq, h_last = _rglru(xr, r_gate, i_gate, p["lam"], h, length=length)
+    y = x + ((branch * hseq) @ p["w_out"]).to(x.dtype)
+    y = y + _mlp(p, y).to(y.dtype)
+    return y, conv_new.to(conv.dtype), h_last
+
+
+# --- local attention blocks ----------------------------------------------------------
+
+def _qkv(cfg, p, x, rope):
+    """Pre-norm, projections and RoPE: (q, k, v) in (B, S, heads, dh)."""
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    h = L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE)
+    q = L.rotate((h @ p["wq"]).view(B, S, cfg.num_heads, dh), *rope)
+    k = L.rotate((h @ p["wk"]).view(B, S, cfg.num_kv_heads, dh), *rope)
+    return q, k, (h @ p["wv"]).view(B, S, cfg.num_kv_heads, dh)
+
+
+def _attn_finish(cfg, p, x, attn):
+    B, S, _ = x.shape
+    y = x + (attn.reshape(B, S, cfg.q_dim) @ p["wo"]).to(x.dtype)
+    return y + _mlp(p, y).to(y.dtype)
+
+
+def _attn_block_full(cfg, p, x, rope):
+    """Full-sequence windowed MQA (prefill): returns (y, (k, v))."""
+    S = x.shape[1]
+    win = cfg.recurrent.window
+    q, k, v = _qkv(cfg, p, x, rope)
+    if S > ATTN_CHUNK_THRESHOLD:       # long sequence: chunked windowed attn
+        attn = L.chunked_attention(q, k, v, causal=True, window=win)
+    else:
+        attn = L.gqa_attention(q, k, v, mask=L.window_mask(
+            S, S, win, device=x.device))
+    return _attn_finish(cfg, p, x, attn), (k, v)
+
+
+def _attn_block_decode(cfg, p, x, ck, cv, kpos, pos: int, rope):
+    """One-token windowed MQA against a ring-buffer cache, in place: ck,
+    cv (B, window, KV, dh) and kpos (B, window) absolute positions (-1
+    empty) of this layer; the token at ``pos`` lands in slot pos % window.
+    """
+    win = cfg.recurrent.window
+    q, k, v = _qkv(cfg, p, x, rope)
+    slot = pos % win
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    kpos[:, slot] = pos
+    valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - win)
+    attn = L.gqa_attention(q, ck.to(L.COMPUTE_DTYPE), cv.to(L.COMPUTE_DTYPE),
+                           mask=valid[:, None, None, None, :])
+    return _attn_finish(cfg, p, x, attn)
+
+
+# --- state -----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GriffinState:
+    conv: torch.Tensor      # (n_rec, B, cw-1, W)
+    h: torch.Tensor         # (n_rec, B, W) f32
+    k: torch.Tensor         # (n_attn, B, window, KV, dh)
+    v: torch.Tensor
+    kpos: torch.Tensor      # (n_attn, B, window) int32, -1 = empty
+    pos: int                # tokens consumed (lockstep over the batch)
+
+
+def _rec_state(cfg, batch_size: int, dtype, dev):
+    n_rec, _ = _state_counts(cfg)
+    W = cfg.recurrent.lru_width or cfg.d_model
+    cw = cfg.recurrent.conv_width
+    return (torch.zeros((n_rec, batch_size, cw - 1, W), dtype=dtype,
+                        device=dev),
+            torch.zeros((n_rec, batch_size, W), dtype=torch.float32,
+                        device=dev))
+
+
+def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
+                      dtype=L.COMPUTE_DTYPE, device="cuda") -> GriffinState:
+    """Zero state for ``batch_size`` sequences (``cache_len`` is unused:
+    the ring holds ``window`` slots), on the card unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    _, n_attn = _state_counts(cfg)
+    win = cfg.recurrent.window
+    conv, h = _rec_state(cfg, batch_size, dtype, dev)
+    shape = (n_attn, batch_size, win, cfg.num_kv_heads, cfg.head_dim)
+    return GriffinState(
+        conv=conv, h=h,
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
+        kpos=torch.full((n_attn, batch_size, win), -1, dtype=torch.int32,
+                        device=dev),
+        pos=0)
+
+
+# --- forward / prefill ----------------------------------------------------------------
+
+def _embed(params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def _head(params, x):
+    h = L.rmsnorm(x, params["ln_f"].to(L.COMPUTE_DTYPE))
+    return (h @ params["lm_head"]).float()
+
+
+def _rope(cfg, positions):
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _super_scan(cfg, params, x, conv, h, length=None):
+    """Every layer over the whole sequence from the recurrent state
+    (conv, h), which is advanced in place. ``length`` gates the recurrent
+    updates past the live prompt, so a bucket-padded prefill carries the
+    state at position length - 1 (pad keys/values are masked or
+    overwritten by the reader). Returns (hidden, (k, v) each (n_attn, B,
+    S, KV, dh))."""
+    B, S, _ = x.shape
+    rope = _rope(cfg, torch.arange(S, device=x.device).expand(B, S))
+    ks, vs = [], []
+    for kind, p, i in _layers(cfg, params):
+        if kind == "rec":
+            x, c, hh = _rec_block(p, x, conv[i], h[i], length=length)
+            conv[i].copy_(c)
+            h[i].copy_(hh)
+        else:
+            x, (k, v) = _attn_block_full(cfg, p, x, rope)
+            ks.append(k)
+            vs.append(v)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
+def forward(cfg, params, batch):
+    """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state."""
+    tokens = batch["tokens"]
+    conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
+    x, _ = _super_scan(cfg, params, _embed(params, tokens), conv, h)
+    return _head(params, x)
+
+
+def prefill(cfg, params, batch, cache_len: int = 0):
+    """The prompt from a zero state: the last position's logits (B, V)
+    and the state after it, the last ``window`` keys/values in their ring
+    slots (position p at slot p % window; ``cache_len`` is unused)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    win = cfg.recurrent.window
+    state = init_decode_state(cfg, B, device=tokens.device)
+    x, (k_all, v_all) = _super_scan(cfg, params, _embed(params, tokens),
+                                    state.conv, state.h)
+    n_attn = k_all.shape[0]
+    dev = tokens.device
+    if S >= win:
+        shift = S % win
+        state.k.copy_(torch.roll(k_all[:, :, -win:], shift, dims=2))
+        state.v.copy_(torch.roll(v_all[:, :, -win:], shift, dims=2))
+        kp = torch.arange(S - win, S, dtype=torch.int32, device=dev)
+        state.kpos.copy_(torch.roll(kp, shift).expand(n_attn, B, win))
+    else:
+        state.k[:, :, :S] = k_all
+        state.v[:, :, :S] = v_all
+        state.kpos[:, :, :S] = torch.arange(S, dtype=torch.int32, device=dev)
+    state.pos = S
+    return _head(params, x[:, -1:])[:, 0], state
+
+
+def decode_step(cfg, params, state: GriffinState, tokens):
+    """One token per sequence, tokens (B,): logits (B, V) and ``state``,
+    advanced in place."""
+    B = tokens.shape[0]
+    pos = state.pos
+    rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
+    x = _embed(params, tokens[:, None])
+    for kind, p, i in _layers(cfg, params):
+        if kind == "rec":
+            x, c, hh = _rec_block(p, x, state.conv[i], state.h[i])
+            state.conv[i].copy_(c)
+            state.h[i].copy_(hh)
+        else:
+            x = _attn_block_decode(cfg, p, x, state.k[i], state.v[i],
+                                   state.kpos[i], pos, rope)
+    state.pos = pos + 1
+    return _head(params, x)[:, 0], state
+
+
+# --- paged-window decode (continuous batching) ------------------------------------
+# The hybrid serving shape: the recurrent state is constant per slot (conv +
+# LRU hidden), while the window KV lives in a shared page pool addressed
+# through a page-granular ring: token t sits in page t // page, ring row
+# (t // page) % R with R = ceil(window / page) + 1, so a slot holds at most
+# R pages however long the request runs, and the engine recycles the page
+# that falls out of the window at every wrap.
+
+
+def ring_rows(window: int, page_size: int) -> int:
+    """Table rows of the page-granular window ring. R * page covers the
+    window plus one page of slack, so the page evicted on wrap is always
+    wholly out of the attention window (the in-window tail of the oldest
+    page is masked by position arithmetic, not by eviction)."""
+    return -(-window // page_size) + 1
+
+
+@dataclasses.dataclass
+class GriffinPagedState:
+    conv: torch.Tensor      # (n_rec, B, cw-1, W)
+    h: torch.Tensor         # (n_rec, B, W) f32
+    k_pages: torch.Tensor   # (n_attn, KV, P, page, dh); page 0 = trash
+    v_pages: torch.Tensor
+
+
+def init_paged_decode_state(cfg, num_slots: int, num_pages: int,
+                            page_size: int, dtype=L.COMPUTE_DTYPE,
+                            device="cuda") -> GriffinPagedState:
+    dev = resolve_device(device)
+    _, n_attn = _state_counts(cfg)
+    conv, h = _rec_state(cfg, num_slots, dtype, dev)
+    k, v = L.paged_cache_init(n_attn, num_pages, page_size,
+                              cfg.num_kv_heads, cfg.head_dim, dtype, dev)
+    return GriffinPagedState(conv=conv, h=h, k_pages=k, v_pages=v)
+
+
+def paged_prefill(cfg, params, batch, length):
+    """Forward a (bucket-padded) B = 1 prompt; return the last live
+    token's logits (1, V), the raw per-position attention KV for the page
+    scatter ((k, v) each (n_attn, 1, S, KV, dh)) and the recurrent state
+    at ``length`` (conv (n_rec, 1, cw - 1, W), h (n_rec, 1, W) f32):
+    pad tokens past the live prompt leave conv and h untouched, and their
+    KV is masked or overwritten by the paged reader."""
+    tokens = batch["tokens"]
+    conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
+    x, kv = _super_scan(cfg, params, _embed(params, tokens), conv, h,
+                        length=length)
+    idx = (length.reshape(()).long() - 1).reshape(1)
+    return _head(params, x.index_select(1, idx))[:, 0], kv, conv, h
+
+
+def write_prefill_state(cfg, state: GriffinPagedState, kv, conv, h,
+                        page_ids, slot: int) -> None:
+    """Scatter one prefilled request's window KV into its pages and its
+    recurrent state into batch slot ``slot``, in place. kv: (k, v) each
+    (n_attn, S, KV, dh) with S a page multiple; page_ids (S / page,) with
+    the entries of out-of-window and pad pages on the trash page."""
+    k, v = kv
+    state.conv[:, slot].copy_(conv[:, 0])
+    state.h[:, slot].copy_(h[:, 0])
+    L.paged_cache_write_prompt(state.k_pages, k, page_ids)
+    L.paged_cache_write_prompt(state.v_pages, v, page_ids)
+
+
+def _attn_block_paged(cfg, p, x, kp, vp, pt, pos, active, rope):
+    """One-token windowed MQA against the shared page pool, S == 1.
+
+    kp/vp: (KV, P, page, dh) pool views of this layer, appended in place;
+    pt: (B, R) ring rows of the page table; pos: (B,) absolute position
+    of the token being decoded. The absolute position of ring entry (row,
+    offset) is rebuilt from pos (the page in row r is the largest page
+    number n = r mod R with n <= pos // page), so no position array is
+    stored and the in-window mask is exact (as ``_attn_block_decode``'s).
+    """
+    B = x.shape[0]
+    win = cfg.recurrent.window
+    KV, _, page, dh = kp.shape
+    R = pt.shape[1]
+    q, k, v = _qkv(cfg, p, x, rope)
+    cp = pos // page                            # current page number
+    page_ids = torch.gather(pt, 1, (cp % R)[:, None].long())[:, 0]
+    page_ids = torch.where(active, page_ids, 0)     # inactive -> trash
+    offsets = torch.where(active, pos % page, 0)
+    L.paged_cache_append(kp, k[:, 0], page_ids, offsets)
+    L.paged_cache_append(vp, v[:, 0], page_ids, offsets)
+
+    rows = pt.long()
+    gk = kp[:, rows].permute(1, 2, 3, 0, 4).reshape(B, R * page, KV, dh)
+    gv = vp[:, rows].permute(1, 2, 3, 0, 4).reshape(B, R * page, KV, dh)
+    r_idx = torch.arange(R, dtype=torch.int32, device=x.device)
+    n = cp[:, None] - ((cp[:, None] - r_idx[None, :]) % R)      # (B, R)
+    absp = (n[:, :, None] * page + torch.arange(
+        page, dtype=torch.int32, device=x.device)).reshape(B, R * page)
+    valid = (absp >= 0) & (absp <= pos[:, None]) \
+        & (absp > pos[:, None] - win)
+    valid &= torch.repeat_interleave(pt != 0, page, dim=1)  # empty rows
+    # inactive slots attend to one (garbage, finite) entry so the softmax
+    # stays defined; the engine discards their outputs
+    first = torch.arange(R * page, device=x.device)[None, :] == 0
+    valid = torch.where(active[:, None], valid, first)
+    attn = L.gqa_attention(q, gk, gv, mask=valid[:, None, None, None, :])
+    return _attn_finish(cfg, p, x, attn)
+
+
+def paged_decode_step(cfg, params, state: GriffinPagedState, tokens,
+                      page_table, lengths, active):
+    """One token per slot: per-slot recurrent state plus paged window KV,
+    updated in place; returns logits (B, V).
+
+    tokens (B,) int; page_table (B, M) int32 whose first R columns are
+    the window ring; lengths (B,) the decoding position per slot; active
+    (B,) bool: inactive slots write to the trash page and freeze their
+    recurrent state. The caller advances lengths."""
+    page = state.k_pages.shape[3]
+    R = ring_rows(cfg.recurrent.window, page)
+    pt = page_table[:, :R]
+    active = active.to(torch.bool)
+    pos = torch.where(active, lengths.to(torch.int32), 0)
+    rope = _rope(cfg, pos[:, None])
+    keep = active[:, None]
+    x = _embed(params, tokens[:, None])
+    for kind, p, i in _layers(cfg, params):
+        if kind == "rec":
+            conv, h = state.conv[i], state.h[i]
+            x, c, hh = _rec_block(p, x, conv, h)
+            conv.copy_(torch.where(keep[:, :, None], c, conv))
+            h.copy_(torch.where(keep, hh, h))
+        else:
+            x = _attn_block_paged(cfg, p, x, state.k_pages[i],
+                                  state.v_pages[i], pt, pos, active, rope)
+    return _head(params, x)[:, 0]
+
+
+def paged_decode_multi(cfg, params, state: GriffinPagedState, pending,
+                       lengths, remaining, page_table, mask, h: int, *,
+                       hmax: int, teacher=None):
+    """Up to ``h`` fused ``paged_decode_step``s with greedy sampling on
+    the device (``layers.multi_step_decode``); the loop tensors advance in
+    place. The engine clamps ``h`` at page boundaries, which for the
+    window ring is exactly the wrap point, so the ring never recycles a
+    page mid-horizon and the table stays constant. Returns the (hmax, B)
+    tokens."""
+    def step(toks, pt, lens, act):
+        return paged_decode_step(cfg, params, state, toks, pt, lens, act)
+    return L.multi_step_decode(step, hmax, pending, lengths, remaining,
+                               page_table, mask, h, teacher)

@@ -34,11 +34,12 @@ from ..kernels import ops
 from . import layers as L
 
 # params kept in f32 (the norm scales, MLA's kv_ln, whisper's layernorm
-# scales and biases, which the reference adds in f32); every other leaf is
-# stored in bf16
+# scales and biases, which the reference adds in f32, and griffin's norm
+# scales ln / ln_mlp and RG-LRU decay lam, which the reference passes
+# uncast); every other leaf is stored in bf16
 F32_PARAMS = frozenset({"ln1", "ln2", "ln_f", "kv_ln", "ln1b", "ln2b",
                         "ln_x", "ln_xb", "enc_ln", "enc_lnb", "dec_ln",
-                        "dec_lnb"})
+                        "dec_lnb", "ln", "ln_mlp", "lam"})
 
 
 # --- params ----------------------------------------------------------------------

@@ -32,6 +32,8 @@ buffers, which is how the CPU tests hold it against
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from ..kernels import ops
@@ -74,12 +76,21 @@ class DecodeGraph:
 
     def capture(self) -> None:
         """Capture one step. Must follow one eager step at this shape (the
-        warm-up)."""
+        warm-up). Python's cyclic garbage collector is off meanwhile: a
+        dropped backend and its DecodeGraph form a cycle (through the
+        bound step function), and collecting one inside a capture resets
+        its CUDA graph, which invalidates the capture in progress."""
         counters = ops.launch_counters()
         before = [c.launches for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self.rise = [c.launches - b for c, b in zip(counters, before)]
         for c, b in zip(counters, before):
             c.launches = b              # captured, not launched

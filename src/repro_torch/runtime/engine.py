@@ -1,5 +1,5 @@
-"""Continuous-batching decode engine (port of the dense, vlm, ssm and
-MLA-MoE paths of ``repro.runtime.engine``), and the static lockstep path,
+"""Continuous-batching decode engine (port of the dense, vlm, ssm, hybrid
+and MLA-MoE paths of ``repro.runtime.engine``), and the static lockstep path,
 which also serves the families with no engine backend (GQA-MoE olmoe,
 the whisper encoder-decoder), as in the reference.
 
@@ -22,6 +22,10 @@ cache. The engine keeps every slot busy instead:
   * the recurrent backend (ssm, rwkv6) holds no pages: each slot owns a
     constant-size state, written in place at admission, so the loop runs
     without allocator, page table growth or prefill bucketing;
+  * the hybrid backend (recurrentgemma) holds a constant recurrent state
+    per slot plus its attention window's KV in a page ring: a slot maps at
+    most ``ring_rows`` pages, and each page boundary past the ring frees
+    the page that slid out of the window into the row it reuses;
   * a routed (MoE) backend records each request's expert-drop population
     at its first prefill and replays it at every re-prefill, so
     preemption never changes a request's tokens.
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from ..models import get_model
+from ..models import griffin as G
 from ..models import layers as L
 from ..models import moe as MoE
 from ..models import rwkv6 as R
@@ -234,12 +239,14 @@ def _host(t) -> np.ndarray:
 
 
 def _state_bytes(state) -> int:
-    """Bytes of a cache state's dataclass fields, as the reference counts
-    its state's leaves: every tensor (caches, whisper's encoder output),
-    and an int position as the reference's int32 scalar."""
+    """Bytes of a cache state's dataclass fields (or of a tuple of
+    tensors), as the reference counts its state's leaves: every tensor
+    (caches, whisper's encoder output), and an int position as the
+    reference's int32 scalar."""
+    leaves = state if isinstance(state, tuple) else [
+        getattr(state, f.name) for f in dataclasses.fields(state)]
     total = 0
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
+    for v in leaves:
         if isinstance(v, torch.Tensor):
             total += v.numel() * v.element_size()
         elif isinstance(v, int):
@@ -270,6 +277,10 @@ def encdec_extras_fn(cfg):
 # --- backends ------------------------------------------------------------------
 # The engine drives a backend through the reference's protocol:
 #   paged             -- does the backend allocate KV pages at all
+#   ring_rows         -- None for linear page-table growth (the cache grows
+#                        with the context), or R for a page-granular window
+#                        ring (a slot holds at most R pages; on a wrap the
+#                        engine frees the page that slid out of the window)
 #   page_bytes        -- bytes one page holds across layers (0 if unpaged)
 #   slot_state_bytes  -- bytes of the non-paged per-slot state
 #   routed            -- records/replays MoE drop masks across preemption
@@ -279,16 +290,17 @@ def encdec_extras_fn(cfg):
 #   release_slot(slot)
 
 
-def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int]
-                   ) -> tuple[np.ndarray, np.ndarray]:
+def _bucket_prompt(ctx: np.ndarray, ecfg: EngineConfig, pages: list[int],
+                   first_page: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Pad a prompt to its prefill bucket and build the page-scatter ids:
-    prompt page i maps to ``pages[i]``, every pad page to the trash page."""
+    prompt page ``first_page + i`` maps to ``pages[i]``, every other
+    bucket page (before the window, pad) to the trash page."""
     plen = len(ctx)
     bucket = -(-plen // ecfg.prefill_bucket) * ecfg.prefill_bucket
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :plen] = ctx
     pids = np.full((bucket // ecfg.page_size,), TRASH_PAGE, np.int32)
-    pids[:len(pages)] = pages
+    pids[first_page:first_page + len(pages)] = pages
     return toks, pids
 
 
@@ -315,6 +327,7 @@ class _Backend:
 
     page_bytes = 0
     slot_state_bytes = 0               # no per-slot non-paged state
+    ring_rows = None                   # linear table growth (or no pages)
     routed = False                     # records/replays MoE drop masks
     prefix_sharing = False             # maps shared prompt pages
 
@@ -368,10 +381,10 @@ class _Backend:
 
 
 class _PagedBackend(_Backend):
-    """What the linear-table paged backends share: the page geometry and
-    the decode dispatch into ``self.model`` (a module with
-    ``paged_decode_step`` and ``paged_decode_multi``). Every call updates
-    the pool in place (the reference donates it)."""
+    """What the paged backends share: the linear page geometry (the
+    hybrid ring overrides it) and the decode dispatch into ``self.model``
+    (a module with ``paged_decode_step`` and ``paged_decode_multi``).
+    Every call updates the pool in place (the reference donates it)."""
 
     paged = True
     model = None
@@ -580,9 +593,88 @@ class RecurrentBackend(_Backend):
                               hmax=self.ecfg.horizon, teacher=teacher)
 
 
+class HybridBackend(_PagedBackend):
+    """hybrid family (recurrentgemma, griffin): a constant-size recurrent
+    state per slot plus a bounded sliding-window KV cache paged as a ring.
+
+    The window ring holds ``ring_rows = ceil(window / page) + 1`` pages a
+    slot; at every page boundary the engine frees the page that slid out
+    of the attention window and maps a fresh one into the same table row
+    (``_growth_row``), so cache bytes stay O(window) a slot however long
+    the request runs, and a prompt of any length admits with the same
+    bounded page count (only its last window of KV is paged). Inactive
+    slots freeze their recurrent state; the fused horizon clamps at page
+    boundaries, which are the ring's wrap points, so the table is constant
+    inside a graph replay."""
+
+    model = G
+
+    @classmethod
+    def supports(cls, cfg) -> bool:
+        return cfg.recurrent is not None
+
+    def __init__(self, cfg, params, ecfg: EngineConfig):
+        super().__init__(cfg, params, ecfg)
+        self.window = cfg.recurrent.window
+        self.ring_rows = G.ring_rows(self.window, ecfg.page_size)
+        if (self.ring_rows > ecfg.max_pages_per_seq
+                or self.ring_rows > ecfg.num_pages - 1):
+            # statically infeasible geometry: raise here rather than
+            # fail-fast every request as truncated at admission
+            raise ValueError(
+                f"{cfg.name}: window {self.window} needs a ring of "
+                f"{self.ring_rows} pages (page_size {ecfg.page_size}), "
+                f"but max_pages_per_seq={ecfg.max_pages_per_seq} and "
+                f"the pool holds {ecfg.num_pages - 1} usable pages")
+        _, n_attn = G._state_counts(cfg)
+        self.page_bytes = (2 * n_attn * ecfg.page_size * cfg.num_kv_heads
+                           * cfg.head_dim * 2)
+        self.state = G.init_paged_decode_state(
+            cfg, ecfg.num_slots, ecfg.num_pages, ecfg.page_size,
+            device=self.device)
+        # constant per-slot recurrence bytes, reported beside the paged
+        # window, as the static path's state holds the same conv/h arrays
+        self.slot_state_bytes = _state_bytes((self.state.conv, self.state.h))
+
+    # -- geometry: the window ring
+    def can_ever_fit(self, pgr, prompt_len: int, max_new_tokens: int,
+                     ctx_len: int) -> bool:
+        """Window-bounded: the ring fitting the table row and the pool;
+        prompt or generation length never disqualifies."""
+        return (self.ring_rows <= pgr.max_pages_per_seq
+                and self.ring_rows <= pgr.num_pages - 1)
+
+    def admission_rows(self, pgr, ctx_len: int) -> list[int]:
+        """Ring rows of the pages covering the live window: page n lands
+        in row n % R; pages before the window are never allocated."""
+        p, R = pgr.page_size, self.ring_rows
+        n_lo = max(0, ctx_len - self.window) // p
+        n_hi = (ctx_len - 1) // p
+        return [n % R for n in range(n_lo, n_hi + 1)]
+
+    # -- prefill
+    def prefill(self, ctx: np.ndarray, extras, slot: int,
+                page_ids: list[int]) -> np.ndarray:
+        """Prefill one request (padded to its bucket, the recurrence gated
+        at its length), scatter its in-window KV into ``page_ids`` (prompt
+        pages from the window's first, ``n_lo``, on; the pages before it
+        and the pad go to the trash page) and its recurrent state into slot
+        ``slot``; return the last live token's logits (V,)."""
+        n_lo = max(0, len(ctx) - self.window) // self.ecfg.page_size
+        toks, pids = _bucket_prompt(ctx, self.ecfg, page_ids,
+                                    first_page=n_lo)
+        last, (k, v), conv, h = G.paged_prefill(
+            self.cfg, self.params, {"tokens": self._tensor(toks)},
+            self._tensor([len(ctx)]))
+        G.write_prefill_state(self.cfg, self.state, (k[:, 0], v[:, 0]),
+                              conv, h, self._tensor(pids), slot)
+        return _host(last[0])
+
+
 ENGINE_FAMILIES = {"dense": PagedTransformerBackend,
                    "vlm": PagedTransformerBackend,
                    "ssm": RecurrentBackend,
+                   "hybrid": HybridBackend,
                    "moe": LatentBackend}
 
 
@@ -825,6 +917,8 @@ class Engine:
 
             # -- page growth / CoW / preemption --------------------------
             if paged and active:
+                R = self.backend.ring_rows
+
                 def claim_one(s: int) -> bool:
                     """Free one page for slot ``s``: index cache first,
                     then victim preemption. False if ``s`` itself was
@@ -868,15 +962,17 @@ class Engine:
                         rep.cow_copies += 1
                         continue
                     pi = lengths[s] // page
-                    if pi >= M:                 # table row full: stop
+                    if R is None and pi >= M:   # table row full: stop
                         slots[s].truncated = True
                         finish(s)
                         active.remove(s)
                         continue
+                    row = _growth_row(self.backend, alloc, page_table, s,
+                                      pi, slots[s].rid)
                     if not claim_one(s):
                         continue
                     new = alloc.alloc(slots[s].rid, 1)
-                    page_table[s, pi] = new[0]
+                    page_table[s, row] = new[0]
                     ds.touch(s)
 
             # -- decode: one fused horizon, or one per-step dispatch -----
@@ -969,6 +1065,24 @@ class Engine:
         rep.page_table_upload_bytes = ds.page_table_upload_bytes
         rep.wall_s = time.monotonic() - t_run
         return rep
+
+
+def _growth_row(backend, alloc, page_table, s: int, pi: int, rid: int
+                ) -> int:
+    """Table row for a slot's next page. Linear backends grow into row
+    ``pi``; ring backends wrap into ``pi % ring_rows``, and the page
+    already in that row is freed first, which is safe exactly because the
+    ring holds ceil(window / page) + 1 rows: the wrapped-out page's
+    positions are all <= pos - window, outside the attention window."""
+    R = backend.ring_rows
+    if R is None:
+        return pi
+    row = pi % R
+    old = int(page_table[s, row])
+    if old != TRASH_PAGE:
+        alloc.free_page(rid, old)
+        page_table[s, row] = TRASH_PAGE
+    return row
 
 
 # --- static lockstep baseline --------------------------------------------------

@@ -705,3 +705,53 @@ def test_graphed_recurrent_engine_matches_eager_engine(dev):
         solo, _ = run(True, [Request(rid=r.rid, prompt=r.prompt.copy(),
                                      max_new_tokens=r.max_new_tokens)])
         assert solo.completed[0].generated == r.generated, r.rid
+
+
+def test_graphed_hybrid_engine_wraps_its_ring_as_eager(dev):
+    """Reduced recurrentgemma through the hybrid backend (window 8, page
+    4: a ring of 3 rows), generations far past the window so every slot's
+    ring wraps, every fused horizon replayed from the one-step CUDA graph
+    over the ring table, against the same engine on the eager loop: the
+    same tokens and ledger, at most 3 pages a slot, no kernel of the
+    eight launched; each request equals its solo run."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Request
+    cfg = get_config("recurrentgemma-9b").reduced()
+    params = get_model(cfg).init_params(cfg, seed=0, device=dev)
+    ecfg = EngineConfig(num_slots=4, page_size=4, num_pages=13,
+                        max_pages_per_seq=3, prefill_bucket=8, horizon=8)
+    trace = poisson_trace(8, mean_interarrival=0.5, prompt_lens=(6, 20),
+                          gen_lens=(20, 36), vocab_size=cfg.vocab_size,
+                          seed=1)
+    counters = ops.launch_counters()
+
+    def run(graphed, reqs):
+        engine = Engine(cfg, params, ecfg)
+        be = engine.backend
+        if not graphed:
+            def eager(p, l, r, pt, mask, h, teacher=None):
+                return be.decode_eager(p, l, r, pt,
+                                       torch.as_tensor(mask, device=dev), h,
+                                       teacher)
+            be.decode_fused = eager
+        before = [c.launches for c in counters]
+        rep = engine.run([copy.deepcopy(r) for r in reqs])
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == before
+        return rep, be
+
+    grep, gbe = run(True, trace)
+    erep, ebe = run(False, trace)
+    assert ebe.graph is None and gbe.graph.graphed
+    assert gbe.ring_rows == 3 and grep.peak_live_pages <= 4 * 3
+    assert {r.rid: r.generated for r in grep.completed} == \
+        {r.rid: r.generated for r in erep.completed}
+    for f in LEDGER + ("slot_state_bytes", "kv_bytes_peak", "page_bytes"):
+        assert getattr(grep, f) == getattr(erep, f), f
+    assert all(not r.truncated and len(r.generated) == r.max_new_tokens
+               for r in grep.completed)
+    assert gbe.graph.horizons == grep.host_syncs and gbe.graph.replays > 0
+    for r in grep.completed[:3]:
+        solo, _ = run(True, [Request(rid=r.rid, prompt=r.prompt.copy(),
+                                     max_new_tokens=r.max_new_tokens)])
+        assert solo.completed[0].generated == r.generated, r.rid

@@ -185,3 +185,40 @@ def test_engine_on_the_cpu_decodes_eagerly(model):
                           gen_lens=(6,), vocab_size=cfg.vocab_size, seed=0)
     rep = engine.run(trace)
     assert len(rep.completed) == 3 and engine.backend.graph is None
+
+
+def test_capture_keeps_the_garbage_collector_out(monkeypatch):
+    """A dropped backend and its DecodeGraph form a reference cycle, and
+    collecting one inside another graph's capture resets its CUDA graph,
+    which invalidates that capture on the card: ``capture`` turns the
+    cyclic collector off for the capture and back on after it, also when
+    the capture raises. (The capture itself is stubbed: no card here.)"""
+    import gc
+
+    seen = []
+
+    class Capture:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            seen.append(gc.isenabled())
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    runs = []
+    dg = DecodeGraph(lambda *a: runs.append(1), 2, 3, 4, "cpu")
+    monkeypatch.setattr(dg, "body", lambda: runs.append(1))
+    assert gc.isenabled()
+    dg.capture()
+    assert seen == [False] and gc.isenabled() and runs == [1]
+
+    def fail():
+        raise RuntimeError("capture failed")
+    monkeypatch.setattr(dg, "body", fail)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        dg.capture()
+    assert seen == [False, False] and gc.isenabled()

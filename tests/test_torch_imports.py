@@ -116,6 +116,8 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         rwkv6.init_params(get_config("rwkv6-7b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "recurrentgemma-9b", "--mode", "static"])
+    with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):
         pack.main([])
@@ -129,10 +131,11 @@ def test_state_constructors_default_to_the_card(monkeypatch):
     building a CPU cache."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
-    from repro_torch.models import moe, rwkv6, whisper
+    from repro_torch.models import griffin, moe, rwkv6, whisper
     from repro_torch.models import transformer as T
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hybrid = get_config("recurrentgemma-9b").reduced()
     dense = get_config("olmo-1b").reduced()
     mla = get_config("deepseek-v2-lite-16b").reduced()
     gqa = get_config("olmoe-1b-7b").reduced()
@@ -144,7 +147,10 @@ def test_state_constructors_default_to_the_card(monkeypatch):
                  lambda: whisper.init_decode_state(
                      get_config("whisper-tiny").reduced(), 2, 8),
                  lambda: rwkv6.init_decode_state(
-                     get_config("rwkv6-7b").reduced(), 2)):
+                     get_config("rwkv6-7b").reduced(), 2),
+                 lambda: griffin.init_decode_state(hybrid, 2),
+                 lambda: griffin.init_paged_decode_state(hybrid, 2, 4, 8),
+                 lambda: griffin.init_params(hybrid)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     st = moe.init_decode_state(gqa, 2, 8, device="cpu")

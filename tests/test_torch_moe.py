@@ -461,9 +461,9 @@ def test_paged_decode_multi_matches_reference(models):
 
 def test_registry_and_the_gqa_branch():
     """get_model serves dense, moe (the MLA branch and olmoe's GQA-MoE
-    branch), encdec (whisper) and ssm (rwkv6); an unported family (the
-    reference's hybrid) raises clearly."""
-    from repro_torch.models import rwkv6, whisper
+    branch), encdec (whisper), ssm (rwkv6) and hybrid (recurrentgemma); a
+    family neither package has raises clearly."""
+    from repro_torch.models import griffin, rwkv6, whisper
     assert get_model(get_config(ARCH)).init_params is M.init_params
     olmoe = get_config("olmoe-1b-7b").reduced()
     assert get_model(olmoe).decode_step is M.decode_step
@@ -471,6 +471,8 @@ def test_registry_and_the_gqa_branch():
     assert set(p["blocks"]) == {"ln1", "ln2", "wq", "wk", "wv", "wo", "moe"}
     assert get_model(get_config("whisper-tiny")).prefill is whisper.prefill
     assert get_model(get_config("rwkv6-7b")).prefill is rwkv6.prefill
-    hybrid = dataclasses.replace(get_config("rwkv6-7b"), family="hybrid")
+    assert get_model(get_config("recurrentgemma-9b")).prefill \
+        is griffin.prefill
+    unknown = dataclasses.replace(get_config("rwkv6-7b"), family="retnet")
     with pytest.raises(ValueError, match="no model in the port"):
-        get_model(hybrid)
+        get_model(unknown)

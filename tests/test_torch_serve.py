@@ -1,0 +1,157 @@
+"""``repro_torch.launch.serve --mode static`` against the reference's
+lockstep static mode (``repro.launch.serve.run_static``), for every
+family both packages serve, reduced, on the CPU.
+
+The two draw their prompts (and whisper's frames, qwen2-vl's patches)
+and their temperature samples from different generators (a
+``torch.Generator`` against ``jax.random``), so they are held on
+structure, not on tokens: the same printed lines (the header, the
+prefill/decode timing line, up to two ``seqN`` rows of ``--gen`` tokens
+in the vocabulary, ``ok``), ``--gen`` decode steps, and the state's
+leaf shapes at the same ``--cache-len``. The reference's ``main`` builds
+a host mesh and shards the params first; on this JAX its sharded
+embedding gather raises, as ``tests/test_launch.py``'s host-mesh case
+does, so the reference side runs its ``run_static`` on unsharded params.
+"""
+
+import argparse
+import dataclasses
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import REGISTRY as JREGISTRY  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.launch.steps import make_prefill_step  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
+from repro_torch.configs import REGISTRY, get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+
+SERVED = sorted(a for a in REGISTRY if a in JREGISTRY)
+BATCH, PROMPT, GEN, CACHE = 3, 7, 4, 16
+HEADER = re.compile(r"arch=(\S+) mode=static batch=(\d+) prompt=(\d+) "
+                    r"gen=(\d+)$")
+TIMING = re.compile(r"prefill: \d+\.\d ms   decode: \d+\.\d ms/token$")
+ROW = re.compile(r"  seq(\d): \[([\d, ]*)\]$")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Tiny CPU ops: one intra-op thread avoids pool contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _parse(out: str, vocab: int) -> tuple[str, list[list[int]]]:
+    """The printed lines of one static run: (header, seq rows); asserts
+    the timing line and the closing ``ok``."""
+    lines = out.rstrip().splitlines()
+    head = [i for i, ln in enumerate(lines) if HEADER.match(ln)]
+    assert len(head) == 1, out
+    lines = lines[head[0]:]
+    assert TIMING.match(lines[1]), lines[1]
+    rows = []
+    for i, ln in enumerate(lines[2:-1]):
+        m = ROW.match(ln)
+        assert m and int(m.group(1)) == i, ln
+        rows.append([int(t) for t in m.group(2).split(",")])
+    assert lines[-1] == "ok"
+    for row in rows:
+        assert all(0 <= t < vocab for t in row), row
+    return lines[0], rows
+
+
+def _shapes(state) -> dict:
+    """Leaf shapes of a state dataclass by field (an int position as the
+    reference's int32 scalar)."""
+    return {f.name: tuple(np.shape(getattr(state, f.name)))
+            for f in dataclasses.fields(state)}
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_static_mode_matches_the_reference_on_structure(arch, capsys,
+                                                        monkeypatch):
+    cfg, jcfg = get_config(arch).reduced(), jget(arch).reduced()
+    steps = []
+    api = get_model(cfg)
+
+    def counting_decode(*a, **kw):
+        steps.append(1)
+        return api.decode_step(*a, **kw)
+
+    monkeypatch.setattr(serve, "get_model", lambda c: dataclasses.replace(
+        get_model(c), decode_step=counting_decode))
+    assert serve.main(["--arch", arch, "--mode", "static", "--device", "cpu",
+                       "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                       "--gen", str(GEN), "--cache-len", str(CACHE)]) == 0
+    mine = _parse(capsys.readouterr().out, cfg.vocab_size)
+    assert len(steps) == GEN
+
+    jp = jget_model(jcfg).init_params(jcfg, jax.random.PRNGKey(0))
+    args = argparse.Namespace(seed=0, cache_len=CACHE, batch=BATCH,
+                              prompt_len=PROMPT, gen=GEN, temperature=0.8)
+    assert jserve.run_static(jcfg, jp, args) == 0
+    ref = _parse(capsys.readouterr().out, jcfg.vocab_size)
+    assert mine[0] == ref[0] == (f"arch={cfg.name} mode=static batch={BATCH}"
+                                 f" prompt={PROMPT} gen={GEN}")
+    assert [len(r) for r in mine[1]] == [len(r) for r in ref[1]] == \
+        [GEN] * min(BATCH, 2)
+
+
+@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("cache_len", [0, 24])
+def test_static_state_shapes_equal_the_reference(arch, cache_len):
+    """The state the static mode decodes from, at ``--cache-len`` (0: the
+    default, prompt + gen), has the reference's leaf shapes."""
+    cfg, jcfg = get_config(arch).reduced(), jget(arch).reduced()
+    n = cache_len or PROMPT + GEN
+    batch = {"tokens": np.zeros((BATCH, PROMPT), np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = np.zeros((BATCH, cfg.encoder.seq_len, cfg.d_model),
+                                   np.float32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = np.zeros((BATCH, 4, cfg.d_model), np.float32)
+    params = get_model(cfg).init_params(cfg, seed=0, device="cpu")
+    _, state = get_model(cfg).prefill(
+        cfg, params, {k: torch.as_tensor(v) for k, v in batch.items()}, n)
+    jp = jax.eval_shape(lambda: jget_model(jcfg).init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    _, jstate = jax.eval_shape(make_prefill_step(jcfg, n), jp,
+                               {k: jnp.asarray(v) for k, v in batch.items()})
+    assert _shapes(state) == _shapes(jstate)
+
+
+def test_static_mode_draws_from_the_seed(capsys):
+    """One ``torch.Generator`` seeded with ``--seed`` draws the prompts and
+    the samples: the same seed prints the same rows, another seed other
+    rows; ``--greedy`` takes the argmax."""
+    argv = ["--arch", "recurrentgemma-9b", "--mode", "static", "--device",
+            "cpu", "--batch", "2", "--prompt-len", "9", "--gen", "5"]
+    rows = []
+    for extra in ([], [], ["--seed", "3"], ["--greedy"]):
+        assert serve.main(argv + extra) == 0
+        rows.append(_parse(capsys.readouterr().out, 256)[1])
+    assert rows[0] == rows[1]
+    assert rows[2] != rows[0]
+    cfg = get_config("recurrentgemma-9b").reduced()
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen,
+                         dtype=torch.int32)
+    logits, state = api.prefill(cfg, params, {"tokens": toks}, 14)
+    want = []
+    for _ in range(5):
+        tok = logits.argmax(-1).to(torch.int32)
+        want.append(tok)
+        logits, state = api.decode_step(cfg, params, state, tok)
+    assert rows[3] == torch.stack(want, 1).tolist()
