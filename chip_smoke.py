@@ -132,7 +132,37 @@ into build/repro_torch/), then:
       the graphed step's device time beside its bound;
   (j+) runs the entry point ``launch.serve --arch recurrentgemma-9b
       --full --mode static --batch 8 --prompt-len 512 --gen 32`` (the
-      reference's lockstep static mode; codeqwen1.5-7b's run is in (c)).
+      reference's lockstep static mode; codeqwen1.5-7b's run is in (c));
+  (k) serves a model zoo from one card through ``PooledEngine``, every
+      earlier phase's params, graphs and pools freed first:
+      codeqwen1.5-7b (share 2), deepseek-v2-lite-16b and rwkv6-7b at full
+      width and depth (61.85 GB of bf16 weights; paged, latent-page and
+      recurrent backends, each tenant's horizons replayed from its own
+      CUDA graphs), the reference's auto budget and the H100 reload clock,
+      on a seeded 24-request trace by share (prompts 128-512, generations
+      32-128), (b)'s engine settings: reload-aware and round-robin at
+      model granularity, then reload-aware with layer streaming through
+      the device DMA channel (pinned host memory to the card on a stream
+      of its own) with every kernel counter zeroed just before and read
+      just after, per tenant (one paged launch a codeqwen layer a decode
+      step, one flash launch a codeqwen layer a prefill, 81 grouped
+      launches a deepseek decode step and prefill, none for rwkv6, no
+      plain version called), and its eager twin (same tokens, ledger and
+      launches). Asserts bench_serve's pool claims (reload-aware ahead of
+      round-robin on tokens/step with fewer reload bytes, layer streaming
+      with fewer stall steps, the same token count), measured DMA stalls
+      within the modeled ones, and three codeqwen requests as greedy
+      choices of the full forward; prints the pinned host-to-device rate
+      beside the clock's constant and the peak card memory;
+  (k') two replicated pools on (k)'s params (the weights held once) on a
+      seeded 24-request diurnal trace, queues capped at 8: demand
+      placement at one copy a model against mirror (ahead on tokens/step
+      with fewer reload bytes), the chaos run ``kill@10:r1,dma@2:r0x4/100``
+      at two copies (no request lost, a failover and re-admissions, p99
+      queue age within 10x the clean run's), every request the same
+      token count and each differing stream greedy-consistent; then the
+      entry points ``launch.serve.run_pool`` and ``run_fleet`` on the same
+      params.
 
 The script prints the seconds of each phase as it ends, and its total.
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
@@ -151,6 +181,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -1838,6 +1869,496 @@ def phase_static_entry(torch, serve, argv):
           f"{time.monotonic() - t0:.1f} s (init included)", flush=True)
 
 
+# --- the multi-tenant pool and the fleet (codeqwen, deepseek, rwkv6) -------------
+
+POOL_ZOO = "codeqwen1.5-7b:2,deepseek-v2-lite-16b:1,rwkv6-7b:1"
+# the fleet's chaos: r0's reload link at a quarter for 100 ticks, r1 killed
+FLEET_CHAOS = "kill@10:r1,dma@2:r0x4/100"
+
+
+def pool_engine_config(rt, **kw):
+    """(k)/(k')'s engine settings: (b)'s (8 slots, page 16, 40-page rows,
+    prefill bucket 128, greedy, horizons of 32) over the pool; ``kw``
+    sets the policy and stream."""
+    return rt.PoolEngineConfig(**{**dict(
+        num_slots=8, page_size=16, num_pages=1 + 8 * 40,
+        max_pages_per_seq=40, prefill_bucket=128, greedy=True, horizon=32),
+        **kw})
+
+
+def pool_trace(rt, tenants, kind, mean_interarrival):
+    """A seeded zoo trace (``kind``: multi_tenant_trace or diurnal_trace) of
+    24 requests by share, prompts 128-512, generations 32-128."""
+    return getattr(rt, kind)(tenants, 24,
+                             mean_interarrival=mean_interarrival,
+                             prompt_lens=(128, 256, 384, 512),
+                             gen_lens=(32, 64, 96, 128), seed=0)
+
+
+class TenantLaunches:
+    """Each tenant's kernel launches in a pooled run: every backend's
+    ``prefill`` and ``decode_fused`` are wrapped to charge the rise of
+    each launch counter to the tenant, and to count its decode steps (the
+    horizons' h) and prefills."""
+
+    def __init__(self, backends: dict, counters):
+        self.counters = counters
+        self.counts = {m: dict.fromkeys((c.__name__ for c in counters), 0)
+                       for m in backends}
+        self.steps = dict.fromkeys(backends, 0)
+        self.prefills = dict.fromkeys(backends, 0)
+        for m, be in backends.items():
+            be.prefill = self._wrap(m, be.prefill, "prefill")
+            be.decode_fused = self._wrap(m, be.decode_fused, "decode")
+
+    def _wrap(self, m, fn, kind):
+        def call(*a, **kw):
+            before = [c.launches for c in self.counters]
+            out = fn(*a, **kw)
+            for c, b in zip(self.counters, before):
+                self.counts[m][c.__name__] += c.launches - b
+            if kind == "prefill":
+                self.prefills[m] += 1
+            else:
+                self.steps[m] += a[5]
+            return out
+        return call
+
+
+def graph_replays(graph) -> int:
+    """A tenant's decode graph (each tenant captures its own): the card
+    decodes graphed. Returns its replays."""
+    assert graph is not None and graph.graphed, "the card decodes graphed"
+    return graph.replays
+
+
+def eager_fused(torch, be):
+    """``be``'s fused horizon on the eager loop (every kernel enqueued from
+    the host) in place of its graph replays."""
+    def run(pending, lengths, remaining, table, mask, h, teacher=None):
+        return be.decode_eager(pending, lengths, remaining, table,
+                               torch.as_tensor(mask, device=DEV), h, teacher)
+    return run
+
+
+def plain_calls(ref, L):
+    """Wrap every plain version of a kernel of the eight (and the plain
+    GQA attention) to count its calls; returns (calls, restore)."""
+    plain = {"ref.mha_attention": (ref, "mha_attention"),
+             "ref.decode_attention": (ref, "decode_attention"),
+             "ref.paged_decode_attention": (ref, "paged_decode_attention"),
+             "ref.grouped_mvm": (ref, "grouped_mvm"),
+             "layers.gqa_attention": (L, "gqa_attention")}
+    calls = dict.fromkeys(plain, 0)
+    saved = {k: getattr(m, n) for k, (m, n) in plain.items()}
+
+    def counted(key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return saved[key](*a, **kw)
+        return call
+
+    for k, (m, n) in plain.items():
+        setattr(m, n, counted(k))
+
+    def restore():
+        for k, (m, n) in plain.items():
+            setattr(m, n, saved[k])
+    return calls, restore
+
+
+def pool_run(torch, rt, ops, pcfg, zoo, cfgs, params, trace, eager=False,
+             **ekw):
+    """One PooledEngine run of ``trace`` on a fresh pool: (report, pool,
+    engine, tenant launches, host seconds). Every request completes at
+    its budget with tokens in its tenant's vocabulary."""
+    pool = rt.ModelPool(pcfg)
+    for arch, share in zoo:
+        pool.register(arch, cfgs[arch], demand=share)
+    pool.pack()
+    eng = rt.PooledEngine(pool, params, pool_engine_config(rt, **ekw))
+    if eager:
+        for be in eng.backends.values():
+            be.decode_fused = eager_fused(torch, be)
+    tl = TenantLaunches(eng.backends, ops.launch_counters())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rep = eng.run(copy.deepcopy(trace))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert len(rep.completed) == len(trace)
+    for r in rep.completed:
+        assert not r.truncated and len(r.generated) == r.max_new_tokens
+        assert all(0 <= t < cfgs[r.model_id].vocab_size
+                   for t in r.generated)
+    return rep, pool, eng, tl, wall
+
+
+def pool_line(label, rep, wall) -> None:
+    s = rep.summary()
+    print(f"  {label}: tokens/step {s['tokens_per_step']}  stall steps "
+          f"{s['stall_steps']} {s['stall_steps_by_model']}  reload "
+          f"{rep.reload_bytes / 1e9:.2f} GB ({s['reload_events']} events)  "
+          f"evictions {s['evictions']}  deferred "
+          f"{s['deferred_activations']}  preemptions {s['preemptions']}  "
+          f"decode steps {s['decode_steps']}  dispatches "
+          f"{s['device_dispatches']}  host syncs {s['host_syncs']}  decode "
+          f"wall {rep.decode_wall_s:.3f} s  tokens/s {s['tokens_per_s']}  "
+          f"run {wall:.1f} s", flush=True)
+
+
+POOL_LEDGER = ("decode_steps", "slot_steps", "useful_slot_steps",
+               "prefill_calls", "prefill_tokens", "preemptions",
+               "peak_live_pages", "peak_live_page_bytes", "device_dispatches",
+               "host_syncs", "page_table_upload_bytes", "new_tokens",
+               "stall_steps", "stall_steps_by_model", "reload_bytes",
+               "restream_bytes", "reload_events", "evictions",
+               "deferred_activations", "model_tokens")
+
+
+def tokens(rep) -> dict:
+    return {r.rid: r.generated for r in rep.completed}
+
+
+def same_requests(a, b) -> int:
+    """Requests whose token streams are identical in two runs."""
+    tb = tokens(b)
+    return sum(t == tb[rid] for rid, t in tokens(a).items())
+
+
+def free_card(torch) -> None:
+    """Drop what the last runs left (graphs and pools form cycles)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def host_link_rate(torch, nbytes: int) -> float:
+    """The pinned host-to-device copy rate alone: ``nbytes`` from pinned
+    memory into the card, 5 copies timed with CUDA events, bytes/s."""
+    src = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty((nbytes,), dtype=torch.uint8, device=DEV)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    rate = 5 * nbytes / (start.elapsed_time(end) / 1e3)
+    del src, dst
+    return rate
+
+
+def phase_pool(torch, rt, ops, ref, L, T, serve, kernels):
+    """(k) the multi-tenant pool at full width and depth: codeqwen1.5-7b
+    (share 2), deepseek-v2-lite-16b and rwkv6-7b (61.85 GB of bf16
+    weights across the paged, latent-page and recurrent backends) under
+    the reference's auto budget and the H100 reload clock. Four runs of
+    one seeded 24-request trace: reload-aware and round-robin at model
+    granularity, reload-aware with layer streaming through the device DMA
+    channel (the main path: every launch counter zeroed just before and
+    read just after, per tenant), and that run's eager twin. Asserts the
+    pool's claims (the same tokens; reload-aware ahead on tokens/step
+    with fewer reload bytes; layer streaming with fewer stall steps),
+    measured DMA stalls within the modeled ones, the launches each tenant
+    owes, no plain version called, and the first three codeqwen requests
+    as greedy choices of the full forward. Returns (params, cfgs, zoo,
+    pcfg) for (k')."""
+    print("== (k) pool, codeqwen1.5-7b:2 + deepseek-v2-lite-16b + rwkv6-7b "
+          "full width and depth", flush=True)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  card memory allocated before the pool: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    args = serve.parse_args(["--mode", "pool", "--full", "--zoo", POOL_ZOO,
+                             "--device", "cuda"])
+    zoo, cfgs, tenants = serve.zoo_configs(args)
+    from repro_torch.models import get_model
+    params = {arch: init(torch, get_model(cfg), cfg)
+              for arch, cfg in cfgs.items()}
+    need = sum(rt.model_weight_bytes(c) for c in cfgs.values())
+    print(f"  zoo weights (model_weight_bytes) {need / 1e9:.2f} GB; params "
+          f"on the card {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    pcfg = serve.pool_config(cfgs, args)
+    trace = pool_trace(rt, tenants, "multi_tenant_trace", 4.0)
+    counters = ops.launch_counters()
+    names = [c.__name__ for c in counters]
+
+    reps = {}
+    for label, ekw in (("reload_aware/model", dict(stream="model")),
+                       ("round_robin/model", dict(policy="round_robin",
+                                                  stream="model"))):
+        rep, _, _, _, wall = pool_run(torch, rt, ops, pcfg, zoo, cfgs,
+                                      params, trace, **ekw)
+        reps[label] = rep
+        pool_line(label, rep, wall)
+        free_card(torch)
+
+    # the main path: every counter zeroed just before, read just after
+    dpcfg = dataclasses.replace(pcfg, device_dma=True, dma_device=DEV)
+    calls, restore = plain_calls(ref, L)
+    for c in counters:
+        c.launches = 0
+    try:
+        rep, pool, eng, tl, wall = pool_run(torch, rt, ops, dpcfg, zoo, cfgs,
+                                            params, trace, stream="layer")
+    finally:
+        restore()
+    launches = {n: c.launches for n, c in zip(names, counters)}
+    reps["reload_aware/layer"] = rep
+    pool_line("reload_aware/layer (device DMA)", rep, wall)
+    print(f"  plan: {json.dumps(pool.plan.summary()['models'])}",
+          flush=True)
+    for m in eng.backends:
+        print(f"  {m}: decode steps {tl.steps[m]}, prefills "
+              f"{tl.prefills[m]}, launches "
+              f"{ {k: v for k, v in tl.counts[m].items() if v} }, "
+              f"{graph_replays(eng.backends[m].graph)} graph replays",
+              flush=True)
+    print(f"  launches on the pool path {launches}; plain versions called "
+          f"{calls}", flush=True)
+    assert not any(calls.values()), calls
+    cq, ds, rw = "codeqwen1.5-7b", "deepseek-v2-lite-16b", "rwkv6-7b"
+    Lq, Ld = cfgs[cq].num_layers, 3 * cfgs[ds].num_layers
+    assert tl.counts[cq]["paged_decode_attention"] == Lq * tl.steps[cq]
+    assert tl.counts[cq]["flash_attention"] == Lq * tl.prefills[cq]
+    assert tl.counts[ds]["grouped_mvm"] == Ld * (tl.steps[ds]
+                                                 + tl.prefills[ds])
+    assert not any(tl.counts[rw].values()), tl.counts[rw]
+    assert all(tl.counts[cq][n] == 0 for n in names
+               if n not in ("paged_decode_attention", "flash_attention"))
+    for k in kernels:
+        if k["name"] in ("paged_decode_attention", "flash_attention",
+                         "grouped_mvm"):
+            k["launches_pool"] = launches[k["name"]]
+            assert k["launches_pool"] > 0, k["name"]
+    assert sum(launches.values()) == sum(sum(v.values())
+                                         for v in tl.counts.values())
+
+    dma = pool.dma
+    dma.check()
+    print(f"  device DMA: {dma.copies_issued} copies, "
+          f"{dma.copied_bytes / 1e9:.2f} GB host to card on its own stream "
+          f"beside the decode; measured stalls {dma.measured_stall_steps} "
+          f"({dma.measured_wait_s:.4f} s) against {rep.stall_steps} "
+          f"modeled", flush=True)
+    assert dma.copies_issued > 0
+    assert dma.measured_stall_steps <= rep.stall_steps, \
+        (dma.measured_stall_steps, rep.stall_steps)
+    alone = host_link_rate(torch, pcfg.reload_bytes_per_step)
+    print(f"  pinned host-to-device rate alone: {alone / 1e9:.2f} GB/s "
+          f"({pcfg.reload_bytes_per_step / 1e6:.1f} MB copies); the "
+          f"clock's constant HOST_LINK_BYTES_PER_S "
+          f"{rt.HOST_LINK_BYTES_PER_S / 1e9:.2f} GB/s", flush=True)
+    done = sorted((r for r in rep.completed if r.model_id == cq),
+                  key=lambda r: r.rid)[:3]
+    worst = max(greedy_gap(torch, T, cfgs[cq], params[cq], r) for r in done)
+    lg = T.forward(cfgs[cq], params[cq], {"tokens": torch.tensor(
+        [list(done[0].prompt)], device=DEV)})
+    assert torch.isfinite(lg).all()
+    scale = lg.abs().max().item()
+    print(f"  teacher-forced greedy gap (full forward, codeqwen requests "
+          f"{[r.rid for r in done]}) {worst:.4e} (logit scale "
+          f"{scale:.3e})", flush=True)
+    assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
+    del pool, eng
+    free_card(torch)
+
+    erep, _, eeng, etl, ewall = pool_run(torch, rt, ops, dpcfg, zoo, cfgs,
+                                         params, trace, eager=True,
+                                         stream="layer")
+    assert all(b.graph is None for b in eeng.backends.values())
+    assert tokens(erep) == tokens(rep), "eager twin: tokens differ"
+    for f in POOL_LEDGER:
+        assert getattr(erep, f) == getattr(rep, f), f
+    assert etl.counts == tl.counts, (etl.counts, tl.counts)
+    print(f"  eager twin: same tokens, ledger and launches; decode wall "
+          f"{erep.decode_wall_s:.3f} s against {rep.decode_wall_s:.3f} s "
+          f"graphed, tokens/s {erep.summary()['tokens_per_s']} against "
+          f"{rep.summary()['tokens_per_s']} (run {ewall:.1f} s)",
+          flush=True)
+    del eeng
+    free_card(torch)
+
+    ra, rr = reps["reload_aware/model"], reps["round_robin/model"]
+    lay = reps["reload_aware/layer"]
+    # bench_serve's check(): the policies generate the same tokens (its
+    # count; preemption and re-prefill may move a bf16 near-tie)
+    assert ra.new_tokens == rr.new_tokens == lay.new_tokens
+    ratio = ra.tokens_per_step / rr.tokens_per_step
+    print(f"  claims: reload-aware / round-robin tokens/step {ratio:.3f}, "
+          f"reload bytes {ra.reload_bytes / 1e9:.2f} against "
+          f"{rr.reload_bytes / 1e9:.2f} GB; stall steps layer "
+          f"{lay.stall_steps} against model {ra.stall_steps}; requests "
+          f"with identical tokens: round-robin {same_requests(ra, rr)}, "
+          f"layer {same_requests(ra, lay)} of {len(trace)}", flush=True)
+    assert ratio > 1.0, ratio
+    assert ra.reload_bytes < rr.reload_bytes
+    assert lay.stall_steps < ra.stall_steps
+    print(f"  peak card memory in (k): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return params, cfgs, zoo, tenants, pcfg
+
+
+def split_logits(torch, api, cfg, params, req, j: int):
+    """The clean logits (V,) before ``req``'s generated token ``j``, fed
+    the prompt and ``req.generated[:j]``: the full forward for the dense
+    family, else the static path at B = 1 (prefill, then one decode step
+    a token), which routes (deepseek) and recurs (rwkv6) as the engine
+    does."""
+    prompt = torch.tensor([list(req.prompt)], device=DEV)
+    if cfg.family == "dense":
+        seq = torch.tensor([list(req.prompt) + list(req.generated[:j])],
+                           device=DEV)
+        return api.forward(cfg, params, {"tokens": seq})[0, -1]
+    logits, state = api.prefill(cfg, params, {"tokens": prompt},
+                                len(req.prompt) + j + 1)
+    for t in req.generated[:j]:
+        logits, state = api.decode_step(cfg, params, state,
+                                        torch.tensor([t], device=DEV))
+    return logits[0]
+
+
+def consistent_tokens(torch, cfgs, params, reps) -> None:
+    """The same tokens per request across ``reps``: the same count, and
+    where a request's streams differ (a preemption's re-prefill, or
+    another GEMM routine for another batch or replica, can move a bf16
+    near-tie) they split at a near-tie: at the first position where they
+    differ, every stream's token is within (b)'s bound of the clean
+    logits' maximum there (``split_logits``). Past the split each
+    stream continues its own context."""
+    from repro_torch.models import get_model
+    base = {r.rid: r for r in reps[0].completed}
+    split = {}
+    for rep in reps[1:]:
+        for r in rep.completed:
+            b = base[r.rid].generated
+            assert len(r.generated) == len(b), r.rid
+            if r.generated != b:
+                j = next(i for i, (x, y) in enumerate(zip(r.generated, b))
+                         if x != y)
+                split[r.rid] = min(j, split.get(r.rid, j))
+    worst, where = 0.0, []
+    for rid, j in sorted(split.items()):
+        m = base[rid].model_id
+        cfg, api = cfgs[m], get_model(cfgs[m])
+        row = split_logits(torch, api, cfg, params[m], base[rid], j)
+        bound = 16 * 2.0 ** -8 * max(row.abs().max().item(), 1.0)
+        for rep in reps:
+            t = next(r for r in rep.completed if r.rid == rid).generated[j]
+            gap = (row.max() - row[t]).item()
+            assert gap <= bound, (rid, m, j, t, gap, bound)
+            worst = max(worst, gap / bound)
+        where.append(f"{rid} ({m.split('-')[0]}) at {j}")
+    print(f"  tokens: every request the same count in {len(reps)} runs; "
+          f"{len(base) - len(split)} of {len(base)} identical, the other "
+          f"{len(split)} split at a near-tie ({', '.join(where) or '-'}; "
+          f"worst gap {worst:.3f} of its bound)", flush=True)
+
+
+def fleet_run(torch, rt, zoo, cfgs, params, pcfg, trace, fcfg, spec=""):
+    fleet = rt.FleetEngine([(a, cfgs[a], s) for a, s in zoo], pcfg,
+                           pool_engine_config(rt, stream="layer"), params,
+                           fcfg, faults=rt.FaultSchedule.parse(spec)
+                           if spec else None)
+    for r in fleet.replicas:
+        for m in r.models:      # the replicas share one params dict
+            assert r.engine.backends[m].params is params[m]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rep = fleet.run(copy.deepcopy(trace))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert rep.requests_lost == 0
+    print(f"  {fcfg.placement} (min copies {fcfg.min_copies}) "
+          f"{spec or 'clean'}: placement {rep.placement}; tokens/step "
+          f"{rep.tokens_per_step:.3f}  reload {rep.reload_bytes / 1e9:.2f} "
+          f"GB  ticks {rep.ticks}  failovers {rep.failovers}  "
+          f"re-admissions {rep.re_admissions}  shed {rep.requests_shed}  "
+          f"queue age p50/p99 {rep.queue_age_percentile(50):.1f}/"
+          f"{rep.queue_age_percentile(99):.1f}  run {wall:.1f} s; replicas "
+          + "; ".join(f"{x['replica']} {x['models']} decode "
+                      f"{x['decode_steps']} stall {x['stall_steps']} "
+                      f"done {x['completed']}" for x in rep.per_replica),
+          flush=True)
+    print(f"  card memory allocated {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    del fleet
+    free_card(torch)
+    return rep
+
+
+def phase_fleet(torch, rt, serve, params, cfgs, zoo, tenants, pcfg):
+    """(k') two replicated pools on one card over (k)'s params (held once:
+    only the KV pools and graphs multiply), on a seeded 24-request
+    diurnal trace, routers capping a replica's queue at 8 (its slots):
+    demand placement at one copy a model against mirror (the same tokens
+    per request, ahead on tokens/step with fewer reload bytes), then the
+    chaos run ``FLEET_CHAOS`` at the reference's two copies a model (on
+    this zoo every model on both replicas, as mirror): no request lost, a
+    failover and re-admissions, p99 queue age within 10x the clean run's.
+    Then the entry points ``serve.run_pool`` and ``serve.run_fleet`` on
+    the same params."""
+    print("== (k') fleet of 2 replicas on (k)'s params", flush=True)
+    trace = pool_trace(rt, tenants, "diurnal_trace", 0.5)
+    demand = fleet_run(torch, rt, zoo, cfgs, params, pcfg, trace,
+                       rt.FleetConfig(n_replicas=2, placement="demand",
+                                      min_copies=1,
+                                      max_queue_per_replica=8))
+    mirror = fleet_run(torch, rt, zoo, cfgs, params, pcfg, trace,
+                       rt.FleetConfig(n_replicas=2, placement="mirror",
+                                      max_queue_per_replica=8))
+    chaos = fleet_run(torch, rt, zoo, cfgs, params, pcfg, trace,
+                      rt.FleetConfig(n_replicas=2, placement="demand",
+                                     max_queue_per_replica=8), FLEET_CHAOS)
+    assert demand.placement != mirror.placement
+    assert chaos.placement == mirror.placement
+    consistent_tokens(torch, cfgs, params, [demand, mirror, chaos])
+    ratio = demand.tokens_per_step / mirror.tokens_per_step
+    factor = chaos.queue_age_percentile(99) / max(
+        mirror.queue_age_percentile(99), 1.0)
+    print(f"  claims: demand / mirror tokens/step {ratio:.3f}, reload "
+          f"{demand.reload_bytes / 1e9:.2f} against "
+          f"{mirror.reload_bytes / 1e9:.2f} GB; chaos lost "
+          f"{chaos.requests_lost}, shed {chaos.requests_shed}, failovers "
+          f"{chaos.failovers}, re-admissions {chaos.re_admissions} (latency "
+          f"max {max(chaos.re_admission_latency, default=0)} ticks), p99 "
+          f"queue age factor {factor:.3f}", flush=True)
+    assert ratio > 1.0, ratio
+    assert demand.reload_bytes < mirror.reload_bytes
+    assert chaos.requests_lost == 0 and chaos.failovers >= 1
+    assert chaos.re_admissions >= 1 and factor <= 10.0
+    pool_entry_points(torch, serve, params)
+    print(f"  peak card memory in (k) and (k'): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def pool_entry_points(torch, serve, params) -> None:
+    """``launch.serve``'s pool and fleet modes (``run_pool``,
+    ``run_fleet``) at full width on ``params``: 8 slots, 12 requests of
+    prompts 128-256 and generations 16-64, greedy; each must print its
+    header and ``ok``."""
+    for mode, extra in (("pool", []), ("fleet", ["--chaos", FLEET_CHAOS])):
+        argv = ["--mode", mode, "--full", "--zoo", POOL_ZOO, "--batch", "8",
+                "--prompt-len", "256", "--gen", "64", "--requests", "12",
+                "--mean-interarrival", "2", "--greedy", *extra]
+        args = serve.parse_args(argv)
+        fn = serve.run_pool if mode == "pool" else serve.run_fleet
+        t0 = time.monotonic()
+        out = run_captured(torch, lambda: fn(args, params))
+        assert out[-1] == "ok", out[-1]
+        head = [ln for ln in out if ln.startswith(f"zoo={POOL_ZOO} mode=")]
+        assert len(head) == 1, out[:3]
+        print(f"  serve {' '.join(argv)}: {out[0]}; {head[0]}; ok "
+              f"({time.monotonic() - t0:.1f} s)", flush=True)
+        free_card(torch)
+
+
 def init(torch, api, cfg):
     """Random weights of ``cfg`` from seed 0 on the card, timed."""
     t0 = time.monotonic()
@@ -2058,6 +2579,13 @@ def main(argv=None) -> int:
     print(f"  launches in the static mode (j+, dense): {dense_static}",
           flush=True)
     kernels.append(dense_dec)
+
+    pooled = phase_pool(torch, rt, ops, ref, Lyr, T, serve, kernels)
+    lap("(k)")
+    phase_fleet(torch, rt, serve, *pooled)
+    lap("(k')")
+    del pooled
+    free_card(torch)
     print(f"all phases {time.monotonic() - t_start:.0f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")

@@ -1,4 +1,5 @@
-"""Serving entry point of the port: continuous-batching engine or static batch.
+"""Serving entry point of the port: continuous-batching engine, static
+batch, model pool or fleet.
 
 ``--mode engine`` runs the Engine (admission queue, per-slot request
 state, paged KV cache, slot recycling) against a mixed-length Poisson
@@ -29,6 +30,27 @@ raises in both packages whenever prompt + gen is shorter than the
 2,048-token window (too few rows for the window's ring). The run
 is on the card unless ``--device cpu`` is given.
 
+``--mode pool`` serves a whole model zoo (``--zoo arch[:share],..``) from
+one modeled HBM budget, as the reference's pool mode does: the
+``ModelPool`` bin-packs each model's weights as resident / streamed /
+evicted and the ``PooledEngine`` charges weight reloads when cold models
+activate (``--policy reload_aware`` or the naive ``round_robin`` swap
+baseline; ``--stream layer`` streams a cold model's per-layer schedule
+behind other tenants' decode, ``--stream model`` charges the whole
+reload up front). The reload clock defaults to one H100's: a step is a
+full-size decode step's bound at the HBM rate, reloads cross the host
+link (``--reload-kib-per-step 0``). ``--repartition epoch`` moves free KV
+pages between tenants every ``--epoch-steps``; ``--slab-mode bounded``
+serves slab-overflow models from a 2-slice double buffer; ``--max-bypass``
+caps how long a page-starved head can be bypassed; ``--shifting-mix``
+reverses the zoo's traffic shares mid-trace. ``--mode fleet`` replicates
+the pool ``--replicas`` times behind the demand-placement router, on one
+card in one process (the replicas share the weights), with ``--chaos``
+injecting replica kills, degraded DMA clocks and stragglers from a
+deterministic ``FaultSchedule``. With ``--full`` the zoo's weights must
+fit the card's free memory; the default five-family zoo needs 96.2 GB of
+bf16 weights and does not fit one H100, so name a smaller ``--zoo``.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -44,6 +66,13 @@ is on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-9b --full --mode static --batch 8 \\
       --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pool \\
+      --device cpu --batch 6 --requests 18 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode fleet \\
+      --device cpu --chaos "kill@5:r0,dma@2:r1x4/20"
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pool --full \\
+      --zoo codeqwen1.5-7b:2,deepseek-v2-lite-16b:1,rwkv6-7b:1 --greedy \\
+      --batch 8 --prompt-len 512 --gen 128
 """
 
 from __future__ import annotations
@@ -56,8 +85,13 @@ import torch
 
 from ..configs import get_config
 from ..models import get_model
-from ..runtime import (Engine, EngineConfig, encdec_extras_fn, engine_backend,
-                       poisson_trace, vlm_extras_fn)
+from ..runtime import (Engine, EngineConfig, FaultSchedule, FleetConfig,
+                       FleetEngine, ModelPool, PoolConfig, PoolEngineConfig,
+                       PooledEngine, calibrated_reload_bytes_per_step,
+                       diurnal_trace, encdec_extras_fn, engine_backend,
+                       model_weight_bytes, multi_tenant_trace, poisson_trace,
+                       shifting_mix_trace, vlm_extras_fn)
+from .cli import add_streaming_args
 
 EXTRAS = {"encdec": encdec_extras_fn, "vlm": vlm_extras_fn}
 
@@ -153,6 +187,153 @@ def run_static_mode(cfg, params, args):
     return 0
 
 
+def parse_zoo(spec: str) -> list[tuple[str, float]]:
+    """``arch[:share],arch[:share],..`` -> [(arch_id, traffic share)]."""
+    out = []
+    for item in spec.split(","):
+        arch, _, share = item.strip().partition(":")
+        out.append((arch, float(share) if share else 1.0))
+    return out
+
+
+def _pool_engine_config(args) -> PoolEngineConfig:
+    """The reference's pool/fleet engine settings for the flags."""
+    page = max(8, args.prompt_len // 4)
+    max_len = args.prompt_len + args.gen
+    pages_per_seq = -(-max_len // page) + 1
+    return PoolEngineConfig(
+        num_slots=args.batch, page_size=page,
+        num_pages=1 + pages_per_seq * args.batch * 2,
+        max_pages_per_seq=pages_per_seq, prefill_bucket=page,
+        greedy=args.greedy, temperature=args.temperature, seed=args.seed,
+        policy=args.policy, rr_quantum=args.rr_quantum,
+        stream=args.stream, repartition=args.repartition,
+        epoch_steps=args.epoch_steps,
+        max_bypass_steps=args.max_bypass)
+
+
+def _zoo_trace(trace_fn, tenants, args):
+    return trace_fn(
+        tenants, args.requests, mean_interarrival=args.mean_interarrival,
+        prompt_lens=(max(args.prompt_len // 2, 1), args.prompt_len),
+        gen_lens=(max(args.gen // 4, 1), max(args.gen // 2, 1), args.gen),
+        seed=args.seed)
+
+
+def zoo_configs(args):
+    """The zoo of ``--zoo``: [(arch, share)], configs (``--full``: the
+    published widths, else reduced) and the trace's tenant specs."""
+    zoo = parse_zoo(args.zoo)
+    cfgs, tenants = {}, []
+    for arch, share in zoo:
+        cfg = get_config(arch) if args.full else get_config(arch).reduced()
+        cfgs[arch] = cfg
+        tenants.append(dict(
+            model_id=arch, vocab_size=cfg.vocab_size, share=share,
+            extras_fn=vlm_extras_fn(cfg) if cfg.family == "vlm" else None))
+    return zoo, cfgs, tenants
+
+
+def zoo_params(cfgs: dict, args) -> dict:
+    """Random weights for every zoo model from ``--seed`` on ``--device``.
+    On the card the zoo's weight bytes are checked against the free
+    device memory first: a zoo that cannot fit raises before anything is
+    allocated."""
+    need = sum(model_weight_bytes(c) for c in cfgs.values())
+    if args.device == "cuda" and torch.cuda.is_available():
+        free, total = torch.cuda.mem_get_info()
+        if need > free:
+            raise RuntimeError(
+                f"zoo {args.zoo!r} needs {need / 1e9:.2f} GB of bf16 "
+                f"weights, but the card has {free / 1e9:.2f} GB free (of "
+                f"{total / 1e9:.2f} GB); serve a smaller --zoo")
+    return {arch: get_model(cfg).init_params(cfg, args.seed,
+                                              device=args.device)
+            for arch, cfg in cfgs.items()}
+
+
+def pool_config(cfgs: dict, args) -> PoolConfig:
+    """The reference's auto-sized PoolConfig for the zoo: the budget pins
+    ~62% of the zoo with a slab big enough for the largest working set
+    (``--hbm-budget-kib`` 0), and the H100-calibrated reload clock
+    (``--reload-kib-per-step`` 0), printed."""
+    weights = {a: model_weight_bytes(c) for a, c in cfgs.items()}
+    s = args.slab_frac
+    if not 0.0 < s < 1.0:
+        raise SystemExit("--slab-frac must be in (0, 1)")
+    budget = args.hbm_budget_kib * 1024 or 1024 + int(max(
+        0.62 * sum(weights.values()) / (1.0 - s),
+        max(weights.values()) / s))
+    reload_bps, label = args.reload_kib_per_step * 1024, ""
+    if not reload_bps:
+        reload_bps = calibrated_reload_bytes_per_step(cfgs.items())
+        label = " (H100-calibrated: decode-step bound at the HBM rate, " \
+            "reloads over the host link)"
+    print(f"reload clock: {reload_bps} B/step{label}")
+    return PoolConfig(hbm_budget_bytes=budget, slab_frac=s,
+                      reload_bytes_per_step=reload_bps,
+                      hysteresis_steps=args.hysteresis,
+                      slab_mode=args.slab_mode, quant=args.quant)
+
+
+def zoo_setup(args, params: dict | None = None):
+    """Shared pool/fleet construction: the zoo, its configs, params (the
+    caller's ``params`` where given, else random from ``--seed``), the
+    trace's tenants and the auto-sized PoolConfig."""
+    zoo, cfgs, tenants = zoo_configs(args)
+    if params is None:
+        params = zoo_params(cfgs, args)
+    return zoo, cfgs, params, tenants, pool_config(cfgs, args)
+
+
+def run_pool(args, params: dict | None = None):
+    """Multi-tenant serving: a model zoo bin-packed into one HBM pool."""
+    zoo, cfgs, params, tenants, pcfg = zoo_setup(args, params)
+    pool = ModelPool(pcfg)
+    for arch, share in zoo:
+        pool.register(arch, cfgs[arch], demand=share)
+    plan = pool.pack()
+    print(json.dumps(plan.summary(), indent=1))
+    trace = _zoo_trace(shifting_mix_trace if args.shifting_mix
+                       else multi_tenant_trace, tenants, args)
+    eng = PooledEngine(pool, params, _pool_engine_config(args))
+    rep = eng.run(trace)
+    print(f"zoo={args.zoo} mode=pool policy={args.policy} "
+          f"stream={args.stream} slab_mode={args.slab_mode} "
+          f"repartition={args.repartition} slots={args.batch} "
+          f"requests={args.requests}")
+    print(json.dumps(rep.summary(), indent=1))
+    print(json.dumps({"arena": eng.arena.summary()}, indent=1))
+    done = [r for r in rep.completed if not r.truncated]
+    for r in done[:3]:
+        print(f"  req{r.rid} [{r.model_id}]: {r.generated}")
+    assert done, "no requests completed"
+    print("ok")
+    return 0
+
+
+def run_fleet(args, params: dict | None = None):
+    """Replicated pools behind the demand-placement router, with
+    optional chaos injection (``--chaos "kill@120:r1,dma@200:r0x4/100"``);
+    the replicas share ``params``."""
+    zoo, cfgs, params, tenants, pcfg = zoo_setup(args, params)
+    fcfg = FleetConfig(n_replicas=args.replicas, placement=args.placement)
+    faults = FaultSchedule.parse(args.chaos) if args.chaos else None
+    trace = _zoo_trace(diurnal_trace, tenants, args)
+    fleet = FleetEngine([(a, cfgs[a], share) for a, share in zoo],
+                        pcfg, _pool_engine_config(args), params, fcfg,
+                        faults=faults)
+    rep = fleet.run(trace)
+    print(f"zoo={args.zoo} mode=fleet replicas={args.replicas} "
+          f"placement={args.placement} chaos={args.chaos or 'none'} "
+          f"requests={args.requests}")
+    print(json.dumps(rep.summary(), indent=1))
+    assert rep.requests_lost == 0
+    assert rep.completed, "no requests completed"
+    print("ok")
+    return 0
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The entry point's flags (``--requests`` 0 becomes 3 x ``--batch``)."""
     ap = argparse.ArgumentParser()
@@ -160,9 +341,47 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--full", action="store_true",
                     help="published width (default: the reduced config)")
     ap.add_argument("--mode", default="auto",
-                    choices=("auto", "engine", "static"),
+                    choices=("auto", "engine", "static", "pool", "fleet"),
                     help="auto: the engine where the config has a backend, "
-                         "else static")
+                         "else static; pool / fleet serve --zoo")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="fleet mode: number of replicated pools")
+    ap.add_argument("--placement", default="demand",
+                    choices=("demand", "mirror"),
+                    help="fleet model placement: 'demand' packs copies "
+                         "by reuse-per-byte, 'mirror' puts every model "
+                         "on every replica that fits (static baseline)")
+    ap.add_argument("--chaos", default="",
+                    help="fleet fault schedule, e.g. "
+                         "'kill@120:r1,dma@200:r0x4/100,straggle@300:r2x3/50'")
+    ap.add_argument("--zoo",
+                    default="codeqwen1.5-7b:2,qwen2-vl-7b:1,rwkv6-7b:1,"
+                            "recurrentgemma-9b:1,deepseek-v2-lite-16b:1",
+                    help="pool mode model-zoo spec: arch[:share],..")
+    ap.add_argument("--policy", default="reload_aware",
+                    choices=("reload_aware", "round_robin"))
+    add_streaming_args(ap)          # --stream/--slab-mode/--reload-kib/--quant
+    ap.add_argument("--repartition", default="off",
+                    choices=("off", "epoch"),
+                    help="KV page leases: 'off' freezes the init-time "
+                         "partition, 'epoch' follows per-tenant "
+                         "live-page watermarks every --epoch-steps")
+    ap.add_argument("--epoch-steps", type=int, default=64,
+                    help="steps between arena repartition epochs")
+    ap.add_argument("--max-bypass", type=int, default=64,
+                    help="admission aging bound: max steps a page-"
+                         "starved head can be bypassed (0 = unbounded)")
+    ap.add_argument("--shifting-mix", action="store_true",
+                    help="reverse the zoo's traffic shares mid-trace "
+                         "(the repartition stress shape)")
+    ap.add_argument("--hbm-budget-kib", type=int, default=0,
+                    help="pool HBM budget (0 -> auto-size from the zoo)")
+    ap.add_argument("--slab-frac", type=float, default=0.5,
+                    help="pool budget fraction reserved for weight swaps")
+    ap.add_argument("--hysteresis", type=int, default=32,
+                    help="min steps a model stays hot before eviction")
+    ap.add_argument("--rr-quantum", type=int, default=16,
+                    help="round_robin steps per tenant turn")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--batch", type=int, default=4,
                     help="static batch size / engine slot count")
@@ -188,6 +407,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.mode == "pool":
+        return run_pool(args)
+    if args.mode == "fleet":
+        return run_fleet(args)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()

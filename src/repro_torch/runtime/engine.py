@@ -36,6 +36,11 @@ syncs once per horizon. On the card a horizon is h replays of a CUDA
 graph of the decode step (decode_graph.py); on the CPU the eager loop.
 The schedule, and so every count the report keeps, is the reference's
 step for step.
+
+``PooledEngine`` (a port of the reference's) serves a model zoo from one
+card: one backend a tenant (its own KV pool and decode graph), the
+tenants' pages leased from one ``DeviceArena``, their slots in one
+``DeviceLoopState``, weight reloads charged by the ``ModelPool``.
 """
 
 from __future__ import annotations
@@ -52,11 +57,13 @@ from ..models import layers as L
 from ..models import moe as MoE
 from ..models import rwkv6 as R
 from ..models import transformer as T
+from .arena import ArenaConfig, DeviceArena
 from .decode_graph import DecodeGraph
 from .device_state import DeviceLoopState
 from .kv_pager import TRASH_PAGE, PageAllocator, PagerConfig
+from .model_pool import ModelPool
 from .prefix_index import PrefixIndex
-from .scheduler import Request, Scheduler
+from .scheduler import MultiQueueScheduler, Request, Scheduler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1083,6 +1090,857 @@ def _growth_row(backend, alloc, page_table, s: int, pi: int, rid: int
         alloc.free_page(rid, old)
         page_table[s, row] = TRASH_PAGE
     return row
+
+
+# --- multi-tenant pooled engine ------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolEngineConfig(EngineConfig):
+    """EngineConfig plus the multi-tenant activation policy.
+
+    ``reload_aware`` (the paper-derived control loop): all hot models
+    share the slot batch, cold models activate only when the slab has
+    room or a hysteresis-expired idle victim exists, eviction is least
+    value-per-byte first. ``round_robin`` is the naive baseline: one
+    swappable model hot at a time, served in fixed cyclic quanta, with
+    every switch evicting the previous occupant (and preempting its
+    in-flight slots) regardless of reload cost.
+
+    ``stream`` picks the reload granularity for reload_aware activations:
+    ``model`` charges the whole reload as serial stall steps up front
+    (the first design); ``layer`` streams the per-layer schedule behind
+    compute (ModelPool.begin_stream — the paper's folded-tile pipelining
+    at serving scale), charging a stall step only when the engine has no
+    decode work to hide the DMA behind. round_robin is model-granular by
+    definition (every switch drops the previous occupant whole).
+
+    ``repartition`` controls the device-memory arena's KV page leases:
+    ``off`` freezes the init-time demand-proportional partition (the static
+    split); ``epoch`` samples per-tenant live-page watermarks every
+    step and, every ``epoch_steps``, shrinks under-watermark tenants and
+    grows page-starved ones (free pages only — see runtime.arena).
+
+    ``max_bypass_steps`` is the global aging bound on the admission scan:
+    a page-starved tenant's head request may be bypassed by neighbouring
+    tenants' later arrivals for at most this many steps, after which the
+    scan BLOCKS for it (no later-arrival admissions) until its pages free
+    up. 0 disables the bound (unbounded bypass).
+    """
+    policy: str = "reload_aware"       # | "round_robin"
+    rr_quantum: int = 16               # steps per round-robin turn
+    stream: str = "model"              # | "layer"
+    repartition: str = "off"           # | "epoch"
+    epoch_steps: int = 64
+    max_bypass_steps: int = 64         # 0 -> unbounded bypass
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.policy in ("reload_aware", "round_robin")
+        assert self.rr_quantum >= 1
+        assert self.stream in ("model", "layer")
+        assert self.repartition in ("off", "epoch")
+        assert self.epoch_steps >= 1
+        assert self.max_bypass_steps >= 0
+
+
+@dataclasses.dataclass
+class PooledReport(EngineReport):
+    """EngineReport plus weight-reload accounting. Reload stalls are
+    serial with compute (§2.2), so they join the throughput denominator
+    alongside prefill-equivalent steps: tokens/step counts stalled steps
+    as steps that produced nothing."""
+    policy: str = ""
+    stream: str = ""
+    stall_steps: int = 0
+    reload_bytes: int = 0
+    restream_bytes: int = 0            # bounded-slab re-fetch share
+    reload_events: int = 0
+    evictions: int = 0
+    deferred_activations: int = 0
+    repartitions: int = 0              # arena epochs executed
+    pages_moved: int = 0               # leases moved between tenants
+    aging_blocks: int = 0              # admission scans blocked by aging
+    peak_live_page_bytes: int = 0      # tenants' page sizes differ
+    peak_demand_page_bytes: int = 0    # live minus index-only, in bytes
+    model_tokens: dict = dataclasses.field(default_factory=dict)
+    stall_steps_by_model: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def kv_bytes_peak(self) -> int:
+        """Peak live cache bytes summed per tenant at its OWN page size
+        (an MLA latent page is far smaller than a dense KV page, so
+        pages * max(page_bytes) would materially overstate the peak)."""
+        if self.page_bytes:
+            return self.peak_live_page_bytes + self.slot_state_bytes
+        return self.cache_bytes_alloc
+
+    @property
+    def kv_demand_bytes_peak(self) -> int:
+        """Peak referenced-by-some-request cache bytes per tenant page
+        size (shared pages once, index-only cache excluded)."""
+        if self.page_bytes:
+            return self.peak_demand_page_bytes + self.slot_state_bytes
+        return self.cache_bytes_alloc
+
+    @property
+    def decode_tokens_per_step(self) -> float:
+        return self.new_tokens / max(self.decode_steps + self.stall_steps, 1)
+
+    @property
+    def tokens_per_step(self) -> float:
+        return self.new_tokens / max(
+            self.decode_steps + self.stall_steps + self.prefill_equiv_steps,
+            1.0)
+
+    def summary(self) -> dict:
+        s = super().summary()
+        s.update({
+            "policy": self.policy,
+            "stream": self.stream,
+            "stall_steps": self.stall_steps,
+            "stall_steps_by_model": dict(
+                sorted(self.stall_steps_by_model.items())),
+            "reload_bytes": self.reload_bytes,
+            "restream_bytes": self.restream_bytes,
+            "reload_events": self.reload_events,
+            "evictions": self.evictions,
+            "deferred_activations": self.deferred_activations,
+            "repartitions": self.repartitions,
+            "pages_moved": self.pages_moved,
+            "aging_blocks": self.aging_blocks,
+            "model_tokens": dict(sorted(self.model_tokens.items())),
+        })
+        return s
+
+
+class PooledEngine:
+    """Continuous batching for a model zoo sharing one accelerator pool.
+
+    Per-model backends (each with its own KV pool and, on the card, its
+    own CUDA graph of the decode step) split one modeled page budget: the page-id space is PARTITIONED into per-tenant
+    proportional sub-ranges (partition_pages), each backed by its own
+    device pool and host-side PageAllocator, so the physical backing
+    matches the modeled shared budget instead of every tenant allocating
+    the full pool. Page pressure is tenant-local (a burst on one tenant
+    preempts its own requests, not its neighbours'), while one slot array
+    spans all tenants, so batch width stays a shared resource.
+
+    One engine step advances EVERY hot tenant's slots (stationary
+    weights of all hot models sit in HBM at once — the packed-canvas
+    premise at pool scale — so their decodes share the step the way
+    packed layers share the fabric); the step still spans at most
+    ``num_slots`` tokens, so tokens/step is bounded by the slot width
+    for every policy. Weight reloads are serial with compute, charged
+    as stall steps that produce nothing. The naive round-robin baseline
+    keeps a single swappable tenant hot at a time, so it cannot use the
+    shared step — that utilization gap, plus its per-switch reloads, is
+    exactly what the reload-aware policy is measured against.
+    """
+
+    def __init__(self, pool: ModelPool, params: dict,
+                 ecfg: PoolEngineConfig | None = None):
+        if pool.plan is None:
+            pool.pack()
+        self.pool = pool
+        self.ecfg = ecfg or PoolEngineConfig()
+        assert pool.pcfg.slab_mode != "bounded" \
+            or self.ecfg.stream == "layer", \
+            "bounded slab mode re-streams through the layer-granular " \
+            "DMA FIFO; run it with stream='layer'"
+        paged_shares = {
+            e.model_id: e.demand for e in pool.plan.entries
+            if getattr(engine_backend(e.cfg), "paged", False)}
+        # the arena owns the whole modeled budget: the KV page region
+        # (per-tenant leases over one shared page budget) plus the weight
+        # region (pin + slab) whose occupancy the pool reports back
+        self.arena = DeviceArena(
+            ArenaConfig(kv_pages=self.ecfg.num_pages,
+                        pin_bytes=pool.pcfg.pin_budget_bytes,
+                        slab_bytes=pool.pcfg.slab_bytes,
+                        repartition=self.ecfg.repartition,
+                        epoch_steps=self.ecfg.epoch_steps),
+            paged_shares)
+        self.page_split = self.arena.page_split
+        self.backends = {}
+        self._pgr = {}                 # per-tenant pager geometry
+        for e in pool.plan.entries:
+            backend_cls = resolve_backend(e.cfg)
+            ecfg_t = self.ecfg
+            if e.model_id in self.page_split:
+                # tenant's device pool backs its provisioned rows (+ its
+                # own trash page): with repartition off that is exactly
+                # its lease, so physical bytes track the partition; in
+                # epoch mode rows are provisioned up to the grow cap
+                # while the MODELED leases stay conserved by the arena.
+                # Admission FEASIBILITY however is judged against the
+                # guaranteed INITIAL lease, not the cap — a grown lease
+                # is opportunistic and can shrink back, so a request
+                # must be completable under the static share alone.
+                ecfg_t = dataclasses.replace(
+                    self.ecfg,
+                    num_pages=self.arena.cap(e.model_id) + 1)
+                self._pgr[e.model_id] = dataclasses.replace(
+                    self.ecfg,
+                    num_pages=self.page_split[e.model_id] + 1).pager
+            else:
+                self._pgr[e.model_id] = ecfg_t.pager
+            self.backends[e.model_id] = backend_cls(
+                e.cfg, params[e.model_id], ecfg_t)
+            if e.model_id in self.page_split:
+                self.arena.register_page_bytes(
+                    e.model_id, self.backends[e.model_id].page_bytes)
+        if self.ecfg.repartition == "off":
+            assert sum(n + 1 for n in self.page_split.values()) \
+                <= self.ecfg.num_pages, \
+                "physical pages exceed the pool budget"
+        self.rng = np.random.default_rng(self.ecfg.seed)
+        self._sample_batch = make_batch_sampler(
+            self.rng, self.ecfg.greedy, self.ecfg.temperature)
+        self._fused = self.ecfg.greedy and self.ecfg.horizon > 1
+        self._dispatched: set = set()  # dispatch kinds already warmed up
+        self.device = next(iter(self.backends.values())).device
+
+    # -- main loop ---------------------------------------------------------
+    # The loop is split into start / step_once / finish_run so a caller
+    # can interleave OTHER work between engine steps: the fleet tier
+    # drives N replicas in lockstep ticks, injecting requests and faults
+    # mid-run. ``run`` composes the three for the single-pool case.
+
+    def start(self, requests: list[Request]) -> "PooledEngine":
+        e, pool = self.ecfg, self.pool
+        self._sched = MultiQueueScheduler(requests)
+        # the arena hands each paged tenant its leased allocator (a fresh
+        # run starts from the initial demand-proportional partition)
+        self.arena.reset_runtime()
+        self._allocs = {m: self.arena.allocator(m) for m in self.page_split}
+        # one prefix index per eligible tenant: page ids are tenant-local
+        # and token-id equality only implies KV equality within a model
+        self._sharers = {
+            m: _PrefixSharing(self._pgr[m]) for m in self.page_split
+            if e.prefix_sharing
+            and getattr(self.backends[m], "prefix_sharing", False)}
+        pool.reset_runtime()
+
+        B = e.num_slots
+        self._order = list(pool.model_ids)
+        self._slots: list[Request | None] = [None] * B
+        self._page_table = np.zeros((B, e.pager.max_pages_per_seq),
+                                    np.int32)
+        self._lengths = np.zeros((B,), np.int32)
+        self._pending = np.zeros((B,), np.int32)
+        self._remaining = np.zeros((B,), np.int32)
+        # one device twin spans every tenant: the fused dispatches chain
+        # through it (each tenant's horizon advances only its own slots'
+        # rows in place, so model B's call reads what model A left)
+        self._ds = DeviceLoopState(B, e.pager.max_pages_per_seq,
+                                   self.device)
+        self._rep = PooledReport(
+            name=f"pool/{e.policy}", num_slots=B, policy=e.policy,
+            stream=e.stream,
+            page_bytes=max(
+                (self.backends[m].page_bytes for m in self.page_split),
+                default=0),
+            slot_state_bytes=sum(b.slot_state_bytes
+                                 for b in self.backends.values()),
+            cache_bytes_alloc=sum(_state_bytes(b.state)
+                                  for b in self.backends.values()),
+            model_tokens={m: 0 for m in self._order},
+            stall_steps_by_model={m: 0 for m in self._order})
+        self._t_run = time.monotonic()
+        self.step = 0
+        self._rr_current: str | None = None
+        self._rr_left = 0
+        self._blocked_since: dict[int, int] = {}  # rid -> first blocked step
+        return self
+
+    # -- steppable-loop accessors (the fleet router reads these) -----------
+
+    @property
+    def report(self) -> PooledReport:
+        return self._rep
+
+    def inject(self, requests: list[Request]) -> None:
+        """Hand this replica more requests mid-run (fleet dispatch)."""
+        self._sched.inject(requests)
+
+    def occupied_slots(self) -> int:
+        return sum(1 for r in self._slots if r is not None)
+
+    def backlog(self) -> int:
+        """Requests queued but not in a slot (ready + future arrivals)."""
+        sch = self._sched
+        return (sum(sch.ready_count(m) for m in sch.ready_models())
+                + len(sch._pending))
+
+    def load(self) -> int:
+        """Routing load signal: occupied slots + queued requests."""
+        return self.occupied_slots() + self.backlog()
+
+    def oldest_queued_age(self) -> int:
+        """Steps the longest-waiting READY request has been queued.
+        Load alone hides a stuck head (two replicas at equal load, one
+        with a request aging behind a page-starved tenant), so the
+        fleet router folds this in as a tiebreak."""
+        arr = self._sched.oldest_ready_arrival()
+        return max(0, self.step - arr) if arr is not None else 0
+
+    def drain(self) -> list[Request]:
+        """Failover: preempt every in-flight request and pull the whole
+        queue out, returning ALL unfinished requests for re-admission on
+        another replica (their generated tokens and MoE route traces ride
+        along, so nothing restarts from scratch beyond the re-prefill)."""
+        for s in range(len(self._slots)):
+            if self._slots[s] is not None:
+                self._preempt(s)
+        return self._sched.drain()
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def _clear_slot(self, s: int) -> None:
+        req = self._slots[s]
+        sharer = self._sharers.get(req.model_id)
+        if sharer is not None:
+            # index the completed pages before the refs drop: the
+            # neutral refs keep the prefix warm for later prompts
+            sharer.record(self._allocs[req.model_id], req.context_tokens,
+                          self._lengths[s], self._page_table[s])
+        self._slots[s] = None
+        self._page_table[s, :] = TRASH_PAGE
+        self._lengths[s] = 0
+        self._pending[s] = 0
+        self._remaining[s] = 0
+        self._ds.touch(s)
+        if req.model_id in self._allocs:
+            self._allocs[req.model_id].free_owner(req.rid)
+        self.backends[req.model_id].release_slot(s)
+
+    def _finish(self, s: int) -> None:
+        self._slots[s].done_step = self.step
+        self._rep.completed.append(self._slots[s])
+        self._clear_slot(s)
+
+    def _preempt(self, s: int) -> None:
+        req = self._slots[s]
+        self._clear_slot(s)
+        self._sched.requeue(req)
+
+    def _reject(self, req: Request) -> None:
+        req.truncated = True
+        req.done_step = self.step
+        self._rep.completed.append(req)
+
+    def _active_models(self) -> list[str]:
+        got = {r.model_id for r in self._slots if r is not None}
+        return [m for m in self._order if m in got]
+
+    def _pick_admissible(self, serve: list[str]) -> Request | None:
+        """Earliest ready head whose tenant can admit now. Page
+        pressure is tenant-local (partitioned sub-ranges), so a
+        page-starved tenant waits without blocking its neighbours —
+        but only up to the aging bound: once a blocked head has been
+        bypassed for ``max_bypass_steps``, the scan BLOCKS for it
+        instead of admitting later arrivals past it. Heads that can
+        never fit are failed fast along the way."""
+        e, sched, step = self.ecfg, self._sched, self.step
+        while True:
+            for req in sched.ready_heads(serve):
+                backend = self.backends[req.model_id]
+                if not backend.paged:
+                    return req
+                pgr_t = self._pgr[req.model_id]
+                ctx_len = len(req.context_tokens)
+                if not backend.can_ever_fit(pgr_t, len(req.prompt),
+                                            req.max_new_tokens,
+                                            ctx_len):
+                    self._blocked_since.pop(req.rid, None)
+                    self._reject(sched.pop_ready(req))
+                    break           # queues changed: rescan heads
+                rows = backend.admission_rows(pgr_t, ctx_len)
+                a = self._allocs[req.model_id]
+                need = len(rows)
+                sharer = self._sharers.get(req.model_id)
+                if sharer is not None:
+                    sh_pages, _ = sharer.plan(req, req.context_tokens)
+                    need -= len(sh_pages)
+                    if not a.can_alloc(need):
+                        # reclaim index-only cache pages, protecting the
+                        # ones the plan is about to map by reference
+                        sharer.index.evict_lru(a, need - a.free_count,
+                                               protect=set(sh_pages))
+                if a.can_alloc(need):
+                    self._blocked_since.pop(req.rid, None)
+                    return req
+                # page-blocked head: feed the arena's load signal and
+                # age it — an over-aged head stops the scan so later
+                # arrivals cannot bypass it indefinitely
+                first = self._blocked_since.setdefault(req.rid, step)
+                self.arena.note_starved(req.model_id, step, want=need)
+                if e.max_bypass_steps \
+                        and step - first >= e.max_bypass_steps:
+                    self._rep.aging_blocks += 1
+                    return None
+            else:
+                return None
+
+    def step_once(self) -> bool:
+        """Advance the pool one engine step. Returns False when nothing
+        can progress — every queue is empty and no slot is occupied (the
+        single-pool ``run`` stops there; the fleet keeps an idle replica
+        alive because the router may inject work or faults later) — and
+        True otherwise, including idle fast-forwards to a future
+        arrival."""
+        e, pool = self.ecfg, self.pool
+        B, page = e.num_slots, e.pager.page_size
+        M = e.pager.max_pages_per_seq
+        sched, rep, allocs = self._sched, self._rep, self._allocs
+        slots, page_table = self._slots, self._page_table
+        lengths, pending = self._lengths, self._pending
+
+        sched.release_arrivals(self.step)
+
+        # -- drain queues no backend can ever serve ------------------
+        for m in sched.ready_models():
+            if m not in self.backends or not pool.servable(m):
+                while (req := sched.peek_ready([m])) is not None:
+                    self._reject(sched.pop_ready(req))
+
+        # -- activation policy ---------------------------------------
+        if e.policy == "round_robin":
+            ready = sched.ready_models()
+            rr = self._rr_current
+            switch = (rr is None or self._rr_left <= 0
+                      or (rr not in self._active_models()
+                          and sched.ready_count(rr) == 0))
+            if switch and ready:
+                order = self._order
+                start = ((order.index(rr) + 1) % len(order)
+                         if rr is not None else 0)
+                nxt = next((order[(start + i) % len(order)]
+                            for i in range(len(order))
+                            if order[(start + i) % len(order)] in ready),
+                           None)
+                if nxt is not None and nxt != rr:
+                    # naive swap: drop everything, load the next model
+                    for s in range(B):
+                        if slots[s] is not None:
+                            self._preempt(s)
+                    for m in list(pool.hot_models()):
+                        pool.evict(m)
+                    stall, _ = pool.try_activate(nxt, self.step)
+                    rep.stall_steps += stall
+                    rep.stall_steps_by_model[nxt] += stall
+                    self.step += stall
+                    self._rr_current, self._rr_left = nxt, e.rr_quantum
+                elif nxt is not None:
+                    self._rr_left = e.rr_quantum
+            serve = [self._rr_current] if self._rr_current is not None \
+                else []
+        else:
+            cold = [m for m in sched.ready_models()
+                    if not pool.is_hot(m)]
+            if cold:
+                # highest queued-demand per reload byte activates
+                # first; if it must wait (hysteresis), a smaller cold
+                # tenant that fits the free slab may still go
+                cold.sort(key=lambda m: (
+                    -sched.pending_demand(m)
+                    / max(pool.plan.entry(m).reload_bytes, 1), m))
+                protected = frozenset(
+                    m for m in pool.hot_models()
+                    if m in self._active_models()
+                    or sched.ready_count(m) > 0)
+                for m in cold:
+                    if e.stream == "layer":
+                        # layer-granular: reserve the slab, then let
+                        # the per-layer schedule stream behind compute
+                        # (stalls only surface as prefetch misses,
+                        # charged after the decode section)
+                        if pool.begin_stream(m, self.step, protected) \
+                                is not None:
+                            break   # the DMA issues one stream at once
+                    else:
+                        res = pool.try_activate(m, self.step, protected)
+                        if res is not None:
+                            stall, _ = res
+                            rep.stall_steps += stall
+                            rep.stall_steps_by_model[m] += stall
+                            self.step += stall
+                            break   # one reload/step: stalls serialize
+            if e.stream == "layer":
+                # a mid-stream model joins once it heads the serial
+                # DMA queue and the un-streamed tail fits inside its
+                # first decode step's own layer walk
+                serve = [m for m in pool.hot_models()
+                         if pool.decode_ready(m)]
+            else:
+                serve = pool.hot_models()
+
+        # -- admission into free slots -------------------------------
+        admitting = True
+        for s in range(B):
+            while admitting and slots[s] is None:
+                req = self._pick_admissible(serve)
+                if req is None:
+                    admitting = False
+                    break
+                backend = self.backends[req.model_id]
+                ctx = req.context_tokens
+                assert len(ctx) >= 1, "empty prompts are not admissible"
+                if backend.paged:
+                    sched.pop_ready(req)
+                    a = allocs[req.model_id]
+                    rows = backend.admission_rows(
+                        self._pgr[req.model_id], len(ctx))
+                    sharer = self._sharers.get(req.model_id)
+                    sh_pages, sh_tokens = (
+                        sharer.plan(req, ctx) if sharer is not None
+                        else ([], 0))
+                    if sh_pages:
+                        a.share(req.rid, sh_pages)
+                        req.shared_pages += len(sh_pages)
+                        rep.shared_page_hits += len(sh_pages)
+                    pages = a.alloc(req.rid, len(rows) - len(sh_pages))
+                    page_table[s, :] = TRASH_PAGE
+                    page_table[s, rows] = sh_pages + pages
+                    if sh_tokens >= len(ctx):
+                        logits = None   # fully cached re-admission
+                    elif sh_tokens:
+                        logits = backend.prefill_shared(
+                            ctx, req.extras, s, pages, sh_pages,
+                            sh_tokens)
+                    else:
+                        logits = _routed_prefill(backend, req, ctx, s,
+                                                 pages)
+                    full = (-(-len(ctx) // e.prefill_bucket)
+                            * e.prefill_bucket)
+                    computed = 0 if sh_tokens >= len(ctx) else (
+                        -(-(len(ctx) - sh_tokens) // e.prefill_bucket)
+                        * e.prefill_bucket)
+                    rep.prefill_tokens += computed
+                    rep.prefill_tokens_saved += full - computed
+                    if computed:
+                        rep.prefill_calls += 1
+                        req.prefills += 1
+                    if sharer is not None:
+                        sharer.record(a, ctx, len(ctx), page_table[s])
+                else:
+                    sched.pop_ready(req)
+                    logits = _routed_prefill(backend, req, ctx, s,
+                                             None)
+                    rep.prefill_calls += 1
+                    rep.prefill_tokens += len(ctx)
+                    req.prefills += 1
+                req.admitted_step = self.step
+                slots[s] = req
+                lengths[s] = len(ctx)
+                if req.generated:   # re-admission after preemption
+                    pending[s] = req.generated[-1]
+                    self._remaining[s] = (req.max_new_tokens
+                                          - len(req.generated))
+                    self._ds.touch(s)
+                else:
+                    assert logits is not None
+                    tok = int(self._sample_batch(logits[None])[0])
+                    req.generated.append(tok)
+                    pending[s] = tok
+                    self._remaining[s] = req.max_new_tokens - 1
+                    self._ds.touch(s)
+                    rep.model_tokens[req.model_id] += 1
+                    if req.done:
+                        self._finish(s)
+
+        # -- one fused decode step over every hot tenant's slots -----
+        # Weights of all hot tenants sit in HBM simultaneously (the
+        # packed-canvas premise at pool scale), so their slots advance
+        # in the same engine step; the naive round-robin baseline only
+        # ever holds one swappable tenant hot, so it cannot use this
+        # concurrency — that utilization gap is the point.
+        did_compute = False
+        if self._active_models():
+            # page growth / preemption for every paged tenant's slot
+            for s in range(B):
+                if slots[s] is None:
+                    continue
+                mid = slots[s].model_id
+                if not self.backends[mid].paged:
+                    continue
+                if e.stream == "layer" and not pool.decode_ready(mid):
+                    # no decode this step (mid-re-stream / queued
+                    # behind the DMA): growing now would re-fire on
+                    # every blocked step and orphan the previous
+                    # page into the same table row
+                    continue
+                a = allocs[mid]
+                sharer = self._sharers.get(mid)
+
+                def claim_one(s: int, mid: str = mid, a=a,
+                              sharer=sharer) -> bool:
+                    """Free one page for slot ``s``: index cache first,
+                    then same-tenant victim preemption (a victim's
+                    pages may land in the index — evictable next
+                    iteration, so the loop still strictly shrinks live
+                    state). False if ``s`` itself was preempted."""
+                    if not a.can_alloc(1):
+                        # growth pressure is the other load signal the
+                        # arena repartitions on (preempt == starvation)
+                        self.arena.note_starved(mid, self.step)
+                    while not a.can_alloc(1):
+                        if sharer is not None \
+                                and sharer.index.evict_lru(a, 1):
+                            continue
+                        # only same-tenant slots are useful victims —
+                        # the page-id space is partitioned, so a
+                        # neighbour's pages can never back this growth
+                        tenant_active = [
+                            (v, slots[v]) for v in range(B)
+                            if slots[v] is not None
+                            and slots[v].model_id == mid]
+                        victim = Scheduler.pick_victim(tenant_active,
+                                                       exclude=s)
+                        if victim is None or victim[0] == s:
+                            self._preempt(s)
+                            return False
+                        self._preempt(victim[0])
+                    return True
+
+                if lengths[s] % page != 0:
+                    # mid-page: the next decode appends into the tail
+                    # page — if it is still shared (re-admission mapped
+                    # a cached tail), copy-on-write exactly that page
+                    if sharer is None:
+                        continue
+                    row_i = lengths[s] // page
+                    old = int(page_table[s, row_i])
+                    if a.refcount(old) < 2:
+                        continue
+                    if not claim_one(s):
+                        continue
+                    new = a.alloc(slots[s].rid, 1)
+                    self.backends[mid].copy_page(old, new[0])
+                    a.free_page(slots[s].rid, old)
+                    page_table[s, row_i] = new[0]
+                    self._ds.touch(s)
+                    slots[s].cow_copies += 1
+                    rep.cow_copies += 1
+                    continue
+                pi = lengths[s] // page
+                R = self.backends[mid].ring_rows
+                if R is None and pi >= M:
+                    slots[s].truncated = True
+                    self._finish(s)
+                    continue
+                row = _growth_row(self.backends[mid], a, page_table,
+                                  s, pi, slots[s].rid)
+                if not claim_one(s):
+                    continue
+                new = a.alloc(slots[s].rid, 1)
+                page_table[s, row] = new[0]
+                self._ds.touch(s)
+
+            # safe horizon: h > 1 only when no schedulable event —
+            # arrival, admission retry, cold activation, rr switch,
+            # stream/burst accounting, epoch boundary, page boundary,
+            # slot finish — can land mid-horizon, so h fused steps are
+            # step-for-step identical to h per-step iterations
+            h = 1
+            if self._fused:
+                h = e.horizon
+                if e.policy == "round_robin":
+                    h = min(h, max(1, self._rr_left))
+                if pool.pcfg.slab_mode == "bounded" or (
+                        e.stream == "layer" and pool.streaming):
+                    h = 1   # DMA ticks / decode bursts settle per step
+                ready = sched.ready_models()
+                if any(m not in serve for m in ready):
+                    h = 1   # cold tenant retries activation every step
+                if ready and any(r is None for r in slots):
+                    h = 1   # free slot retries admission every step
+                nxt = sched.next_arrival()
+                if nxt is not None:
+                    h = min(h, nxt - self.step)
+                ne = self.arena.next_epoch_step()
+                if ne is not None:      # boundary must land on a step
+                    h = min(h, ne - self.step + 1)
+                for s in range(B):
+                    if slots[s] is None:
+                        continue
+                    h = min(h, int(self._remaining[s]))
+                    if self.backends[slots[s].model_id].paged:
+                        h = min(h, self._pgr[slots[s].model_id]
+                                .steps_to_boundary(int(lengths[s])))
+                h = max(1, h)
+                self._ds.sync(page_table, lengths, pending,
+                              self._remaining)
+            # bookkeeping below (finish steps, arena epoch) sees the
+            # horizon's last step, exactly as the per-step loop would
+            self.step += h - 1
+            self._rr_left -= h - 1
+
+            served = 0
+            for m in self._active_models():
+                backend = self.backends[m]
+                m_slots = [s for s in range(B)
+                           if slots[s] is not None
+                           and slots[s].model_id == m]
+                if not m_slots:
+                    continue
+                if e.stream == "layer" and not pool.decode_ready(m):
+                    # a bounded-slab tenant mid-re-stream (or a tenant
+                    # queued behind the serial DMA) skips this step;
+                    # its slots wait while the FIFO drains
+                    continue
+                act = np.zeros((B,), bool)
+                act[m_slots] = True
+                if self._fused:
+                    # tenants chain through the shared device tensors:
+                    # each fused call masks to its own slots (and blanks
+                    # other tenants' table rows on device) and advances
+                    # only its own slots' rows in place
+                    ds = self._ds
+                    t0 = time.monotonic()
+                    out = backend.decode_fused(
+                        ds.pending, ds.lengths, ds.remaining, ds.table,
+                        act, h)
+                    toks_h = _host(out)    # one host sync/tenant
+                    _charge_wall(rep, self._dispatched, ("fused", m),
+                                 time.monotonic() - t0)
+                    ds.count(dispatches=1, syncs=1)
+                    lengths[m_slots] += h
+                    self._remaining[m_slots] -= h
+                    served += len(m_slots)
+                    for s in m_slots:
+                        req = slots[s]
+                        req.generated.extend(
+                            int(t) for t in toks_h[:h, s])
+                        pending[s] = int(toks_h[h - 1, s])
+                        rep.model_tokens[m] += h
+                        if req.done:
+                            self._finish(s)
+                else:
+                    toks = np.where(act, pending, 0).astype(np.int32)
+                    # page ids are tenant-local: blank out other
+                    # tenants' rows so this backend never gathers past
+                    # its pool
+                    pt_m = np.where(act[:, None], page_table, TRASH_PAGE)
+                    len_m = np.where(act, lengths, 0).astype(np.int32)
+                    t0 = time.monotonic()
+                    logits = backend.decode(toks, pt_m, len_m, act)
+                    _charge_wall(rep, self._dispatched, ("decode", m),
+                                 time.monotonic() - t0)
+                    self._ds.count(dispatches=1, syncs=1,
+                                   upload_bytes=page_table.nbytes)
+                    lengths[m_slots] += 1
+                    self._remaining[m_slots] -= 1
+                    served += len(m_slots)
+                    stoks = self._sample_batch(logits[m_slots])
+                    for i, s in enumerate(m_slots):
+                        req = slots[s]
+                        tok = int(stoks[i])
+                        req.generated.append(tok)
+                        pending[s] = tok
+                        rep.model_tokens[m] += 1
+                        if req.done:
+                            self._finish(s)
+                # bounded slab: queue this burst's re-stream bytes
+                pool.note_decode_burst(m)
+            if served:
+                did_compute = True
+                rep.decode_steps += h
+                rep.slot_steps += B * h
+                rep.useful_slot_steps += served * h
+            rep.peak_live_pages = max(
+                rep.peak_live_pages,
+                sum(a.live_count for a in allocs.values()))
+            rep.peak_live_page_bytes = max(
+                rep.peak_live_page_bytes,
+                sum(a.live_count * self.backends[m].page_bytes
+                    for m, a in allocs.items()))
+            rep.peak_demand_pages = max(
+                rep.peak_demand_pages,
+                sum(a.demand_count for a in allocs.values()))
+            rep.peak_demand_page_bytes = max(
+                rep.peak_demand_page_bytes,
+                sum(a.demand_count * self.backends[m].page_bytes
+                    for m, a in allocs.items()))
+        elif not sched.exhausted:
+            nxt = sched.next_arrival()
+            if nxt is not None and nxt > self.step \
+                    and not sched.ready_models():
+                self.step = nxt     # idle: fast-forward to next arrival
+                return True
+            # ready work exists but is blocked (deferred activation /
+            # page wait / an in-flight layer stream): let time pass
+        else:
+            return False            # drained: idle until more is injected
+
+        # -- layer-stream progress: one step of DMA bandwidth --------
+        if e.stream == "layer" and pool.streaming:
+            if not did_compute:
+                # prefetch miss: no decode work hides the DMA, so the
+                # engine idles a step waiting on the stream head
+                head = pool.stream_head
+                rep.stall_steps += 1
+                rep.stall_steps_by_model[head] += 1
+            pool.stream_tick()      # one step of the DMA channel's clock
+
+        # -- arena bookkeeping: watermarks + epoch repartition -------
+        # Shrink floor: an ADMITTED request was judged feasible against
+        # its tenant's lease at admission; repartitioning must never cut
+        # the lease below what the largest in-flight request still needs
+        # to finish, or admission feasibility silently stops implying
+        # completability (lease churn strands requests in preempt loops)
+        for m in self.page_split:
+            floor = 0
+            for s in range(B):
+                r = slots[s]
+                if r is None or r.model_id != m:
+                    continue
+                R = self.backends[m].ring_rows
+                demand = self._pgr[m].pages_for(
+                    len(r.prompt) + r.max_new_tokens - 1)
+                floor = max(floor, min(demand, R) if R else demand)
+            self.arena.set_demand_floor(m, floor)
+        self.arena.sample()
+        if self.arena.maybe_repartition(self.step) is not None:
+            # epoch boundary: weight-region occupancy joins the KV
+            # invariants maybe_repartition already asserted
+            self.arena.check(slab_used=pool.slab_used,
+                             pinned_bytes=pool.plan.pinned_bytes)
+
+        self.step += 1
+        self._rr_left -= 1
+        if self.step > e.max_steps:
+            raise RuntimeError("pooled engine exceeded max_steps")
+        return True
+
+    def finish_run(self) -> PooledReport:
+        pool, rep = self.pool, self._rep
+        for m, sharer in self._sharers.items():
+            sharer.index.release_all(self._allocs[m])
+        self.arena.check(slab_used=pool.slab_used,
+                         pinned_bytes=pool.plan.pinned_bytes)
+        for a in self._allocs.values():
+            assert a.live_count == 0, "pages leaked past completion"
+        rep.preemptions = self._sched.preemptions
+        rep.reload_bytes = pool.reload_bytes_total
+        rep.restream_bytes = pool.restream_bytes_total
+        rep.reload_events = pool.reload_events
+        rep.evictions = pool.evictions
+        rep.deferred_activations = pool.deferred_activations
+        rep.repartitions = self.arena.repartitions
+        rep.pages_moved = self.arena.pages_moved
+        rep.device_dispatches = self._ds.device_dispatches
+        rep.host_syncs = self._ds.host_syncs
+        rep.page_table_upload_bytes = self._ds.page_table_upload_bytes
+        rep.wall_s = time.monotonic() - self._t_run
+        return rep
+
+    def run(self, requests: list[Request]) -> PooledReport:
+        self.start(requests)
+        while self.step_once():
+            pass
+        return self.finish_run()
 
 
 # --- static lockstep baseline --------------------------------------------------

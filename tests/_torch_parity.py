@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import copy
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -204,3 +206,95 @@ def close_to_reference(got, compiled, eager):
                    axis=tuple(range(1, got.ndim)))
     np.testing.assert_allclose(got[agree], compiled[agree], **TOL_BF16)
     assert agree.any()
+
+
+# --- a pooled engine's schedule without weights ------------------------------------
+
+
+class LedgerBackend:
+    """An engine backend that holds no weights and no cache: each tenant's
+    geometry (paged or not, page bytes, per-slot state bytes, routing)
+    is its real backend's, prefill returns flat logits and a fused
+    horizon advances the loop tensors as ``decode_loop_step`` does, every
+    sampled token 1. A pooled engine's schedule, and so every count of
+    its ledger, does not depend on token values: patched in for
+    ``engine.resolve_backend``, it gives a full-width run's ledger on the
+    CPU in seconds."""
+
+    ring_rows = None
+    prefix_sharing = False
+
+    def __init__(self, cfg, params, ecfg):
+        from repro_torch.models import moe
+
+        self.cfg, self.ecfg = cfg, ecfg
+        self.device = torch.device("cpu")
+        self.paged = cfg.family != "ssm"
+        self.routed = cfg.family == "moe"
+        self.last_route_trace = None
+        self.page_bytes = 0
+        if cfg.family == "dense":
+            self.page_bytes = ecfg.pager.page_bytes(cfg)
+        elif cfg.family == "moe":
+            self.page_bytes = (cfg.num_layers * ecfg.page_size
+                               * moe.latent_width(cfg) * 2)
+        B, L = ecfg.num_slots, cfg.num_layers
+        self.slot_state_bytes = 0 if self.paged else 2 * (
+            2 * L * B * cfg.d_model
+            + L * B * cfg.num_heads * cfg.head_dim ** 2) + 4
+        self.state = ()
+        self.graph = None
+
+    def can_ever_fit(self, pgr, prompt_len, max_new_tokens, ctx_len):
+        return pgr.can_ever_fit(prompt_len, max_new_tokens, ctx_len,
+                                pgr.num_pages)
+
+    def admission_rows(self, pgr, ctx_len):
+        return list(range(pgr.pages_for(ctx_len)))
+
+    def prefill(self, ctx, extras, slot, pages, replay=None):
+        return np.zeros((2,), np.float32)
+
+    def release_slot(self, slot):
+        pass
+
+    def decode(self, tokens, page_table, lengths, active):
+        return np.zeros((len(tokens), 2), np.float32)
+
+    def decode_fused(self, pending, lengths, remaining, table, mask, h,
+                     teacher=None):
+        mask = torch.as_tensor(mask)
+        out = torch.zeros((self.ecfg.horizon, len(pending)),
+                          dtype=torch.int32)
+        for i in range(h):
+            live = (mask & (remaining > 0)).to(torch.int32)
+            out[i] = live
+            pending.copy_(torch.where(live.bool(), 1, pending))
+            lengths.add_(live)
+            remaining.sub_(live)
+        return out
+
+
+def chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library only): its (k)/(k') settings."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chip_pool_setup(monkeypatch):
+    """(k)'s zoo at full width with ``LedgerBackend`` tenants: the
+    settings module, configs, tenants, the entry point's auto-sized
+    PoolConfig and (weightless) params."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import engine
+    cs = chip_smoke()
+    monkeypatch.setattr(engine, "resolve_backend", lambda cfg: LedgerBackend)
+    args = serve.parse_args(["--mode", "pool", "--full", "--zoo",
+                             cs.POOL_ZOO, "--device", "cpu"])
+    zoo, cfgs, tenants = serve.zoo_configs(args)
+    pcfg = serve.pool_config(cfgs, args)
+    return cs, zoo, cfgs, tenants, pcfg, {a: {} for a in cfgs}

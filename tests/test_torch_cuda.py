@@ -755,3 +755,121 @@ def test_graphed_hybrid_engine_wraps_its_ring_as_eager(dev):
         solo, _ = run(True, [Request(rid=r.rid, prompt=r.prompt.copy(),
                                      max_new_tokens=r.max_new_tokens)])
         assert solo.completed[0].generated == r.generated, r.rid
+
+
+# --- the multi-tenant pool ------------------------------------------------------
+
+
+def test_device_dma_channel_overlaps_a_decode_on_its_stream(dev):
+    """The device channel copies each ticked byte from pinned host memory
+    on its own stream: a copy issued before a long decode-sized burst of
+    compute on the default stream is done when the compute is (no
+    measured stall at the next tick), while a tick right behind a large
+    copy waits for it (one measured stall); the modeled ledger is the
+    plain channel's throughout."""
+    from repro_torch.runtime import DeviceDmaChannel, DmaChannel
+    n = 256 << 20
+    ch, plain = DeviceDmaChannel(n, device=dev), DmaChannel(n)
+    for c in (ch, plain):
+        c.enqueue("a", 5 * n)
+    x = torch.randn((4096, 4096), device=dev, dtype=torch.bfloat16)
+    assert ch.tick() == plain.tick() == n
+    for _ in range(200):            # tens of ms of compute on the default
+        x = torch.tanh(x @ x)       # stream while the copy runs
+    torch.cuda.current_stream().synchronize()
+    assert ch.tick() == plain.tick() == n
+    assert ch.measured_stall_steps == 0
+    assert ch.tick() == plain.tick() == n   # back to back: it waits
+    assert ch.measured_stall_steps == 1 and ch.measured_wait_s > 0
+    ch.check()
+    assert ch.copies_issued == 3 and ch.copied_bytes == 3 * n
+    assert ch.queue == plain.queue and ch.remaining("a") == 2 * n
+    assert bool((ch._slabs[1][:1024] == 1).all())
+    ch.reset()
+    ch.check()
+
+
+def _tiny_pool_zoo(dev):
+    """A small dense config (dh 64, a kernel instance) and reduced rwkv6
+    and deepseek, with random weights on the card."""
+    from repro_torch.configs import get_config
+    cfgs = {"dense": ModelConfig(
+        name="tiny", family="dense", num_layers=2, d_model=256, num_heads=4,
+        num_kv_heads=2, d_ff=512, vocab_size=256, head_dim=64, qkv_bias=True,
+        rope_theta=1e6)}
+    for arch in ("rwkv6-7b", "deepseek-v2-lite-16b"):
+        cfgs[arch] = get_config(arch).reduced()
+    params = {m: get_model(c).init_params(c, seed=0, device=dev)
+              for m, c in cfgs.items()}
+    return cfgs, params
+
+
+def test_graphed_pool_matches_eager_pool_and_measures_its_dma(dev):
+    """Three tenants through one PooledEngine, layer streaming through the
+    device DMA channel: every tenant's fused horizons replayed from its
+    own CUDA graph against the same pool on the eager loop; the same
+    tokens, ledger and launch counts, an engine step with two tenants'
+    horizons, and measured DMA stalls within the modeled ones."""
+    from repro_torch.runtime import (DeviceDmaChannel, ModelPool, PoolConfig,
+                                     PoolEngineConfig, PooledEngine,
+                                     multi_tenant_trace)
+    cfgs, params = _tiny_pool_zoo(dev)
+    tenants = [dict(model_id=m, vocab_size=256, share=2.0 if m == "dense"
+                    else 1.0) for m in cfgs]
+    trace = multi_tenant_trace(tenants, 16, mean_interarrival=0.4,
+                               prompt_lens=(8, 16), gen_lens=(6, 12, 24),
+                               seed=3)
+    counters = ops.launch_counters()
+    KiB = 1 << 10
+
+    def run(graphed):
+        # every tenant streamed, 33 modeled stall steps, and engine
+        # steps that run two tenants' fused horizons
+        pool = ModelPool(PoolConfig(hbm_budget_bytes=3500 * KiB,
+                                    slab_frac=0.55,
+                                    reload_bytes_per_step=32 * KiB,
+                                    hysteresis_steps=8, device_dma=True,
+                                    dma_device="cuda"))
+        for m, t in zip(cfgs, tenants):
+            pool.register(m, cfgs[m], demand=t["share"])
+        eng = PooledEngine(pool, params, PoolEngineConfig(
+            num_slots=4, page_size=8, num_pages=49, max_pages_per_seq=8,
+            prefill_bucket=8, horizon=8, stream="layer"))
+        steps = []
+        for m, be in eng.backends.items():
+            fused = be.decode_fused if graphed else (
+                lambda p, l, r, pt, mask, h, teacher=None, be=be:
+                be.decode_eager(p, l, r, pt,
+                                torch.as_tensor(mask, device=dev), h,
+                                teacher))
+
+            def call(*a, fused=fused, m=m):
+                steps.append((eng.step, m, a[5]))
+                return fused(*a)
+            be.decode_fused = call
+        before = [c.launches for c in counters]
+        rep = eng.run([copy.deepcopy(r) for r in trace])
+        torch.cuda.synchronize()
+        return rep, eng, pool, steps, \
+            [c.launches - b for c, b in zip(counters, before)]
+
+    grep, geng, gpool, gsteps, glaunch = run(True)
+    erep, _, _, esteps, elaunch = run(False)
+    assert {r.rid: r.generated for r in grep.completed} == \
+        {r.rid: r.generated for r in erep.completed}
+    for f in LEDGER + ("stall_steps", "reload_bytes", "evictions",
+                       "model_tokens"):
+        assert getattr(grep, f) == getattr(erep, f), f
+    assert gsteps == esteps and glaunch == elaunch and max(glaunch) > 0
+    assert not any(r.truncated for r in grep.completed)
+    assert all(n > 0 for n in grep.model_tokens.values())
+    assert grep.stall_steps > 0
+    at = [s for s, _, _ in gsteps]
+    assert any(at.count(s) >= 2 for s in set(at))
+    assert all(b.graph is not None and b.graph.graphed
+               for b in geng.backends.values())
+    assert sum(b.graph.replays for b in geng.backends.values()) > 0
+    dma = gpool.dma
+    assert isinstance(dma, DeviceDmaChannel) and dma.copies_issued > 0
+    dma.check()
+    assert dma.measured_stall_steps <= grep.stall_steps

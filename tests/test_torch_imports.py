@@ -64,6 +64,34 @@ pack.check([pack.lm_packing(), pack.canvas_case(
     pack.grouped_case("cpu"),
     pack.end_to_end("lora_int4", pack.lora_adapter_mats(), 4, "cpu", seed=0,
                     precision="int4", bias=True, activation="gelu")])
+from repro_torch.launch import cli  # noqa: F401
+from repro_torch.planner import residency  # noqa: F401
+from repro_torch.runtime import (FaultSchedule, FleetConfig, FleetEngine,
+                                 ModelPool, PoolConfig, PoolEngineConfig,
+                                 PooledEngine, arena, dma, fault_tolerance,
+                                 fleet, model_pool, multi_tenant_trace)
+zoo = [(a, get_config(a).reduced(), s) for a, s in
+       (("olmo-1b", 2.0), ("rwkv6-7b", 1.0))]
+params = {a: get_model(c).init_params(c, seed=0, device="cpu")
+          for a, c, _ in zoo}
+tenants = [dict(model_id=a, vocab_size=c.vocab_size, share=s)
+           for a, c, s in zoo]
+pcfg = PoolConfig(hbm_budget_bytes=700 << 10, reload_bytes_per_step=32 << 10,
+                  device_dma=True, dma_device="cpu")
+pecfg = PoolEngineConfig(num_slots=2, page_size=8, num_pages=17,
+                         max_pages_per_seq=8, prefill_bucket=8,
+                         stream="layer")
+pool = ModelPool(pcfg)
+for a, c, s in zoo:
+    pool.register(a, c, demand=s)
+trace = multi_tenant_trace(tenants, 4, mean_interarrival=0.5,
+                           prompt_lens=(6, 10), gen_lens=(3, 5), seed=0)
+assert len(PooledEngine(pool, params, pecfg).run(trace).completed) == 4
+trace = multi_tenant_trace(tenants, 4, mean_interarrival=0.5,
+                           prompt_lens=(6, 10), gen_lens=(3, 5), seed=0)
+rep = FleetEngine(zoo, pcfg, pecfg, params, FleetConfig(n_replicas=2),
+                  faults=FaultSchedule.parse("kill@2:r0")).run(trace)
+assert rep.requests_lost == 0 and len(rep.completed) == 4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -117,6 +145,14 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         rwkv6.init_params(get_config("rwkv6-7b").reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "recurrentgemma-9b", "--mode", "static"])
+    for mode in ("pool", "fleet"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--mode", mode])
+    from repro_torch.runtime import DeviceDmaChannel, ModelPool, PoolConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceDmaChannel(1024)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelPool(PoolConfig(hbm_budget_bytes=1 << 20, device_dma=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,6 +1,9 @@
 """``repro_torch.launch.serve --mode static`` against the reference's
 lockstep static mode (``repro.launch.serve.run_static``), for every
-family both packages serve, reduced, on the CPU.
+family both packages serve, reduced, on the CPU; and ``--mode pool`` and
+``--mode fleet`` against the reference's ``run_pool`` / ``run_fleet`` on
+the same flags (their own random weights: the ledgers do not depend on
+the tokens, which are sampled).
 
 The two draw their prompts (and whisper's frames, qwen2-vl's patches)
 and their temperature samples from different generators (a
@@ -16,6 +19,7 @@ does, so the reference side runs its ``run_static`` on unsharded params.
 
 import argparse
 import dataclasses
+import json
 import re
 
 import jax
@@ -155,3 +159,111 @@ def test_static_mode_draws_from_the_seed(capsys):
         want.append(tok)
         logits, state = api.decode_step(cfg, params, state, tok)
     assert rows[3] == torch.stack(want, 1).tolist()
+
+
+# --- serve --mode pool | fleet ----------------------------------------------------
+
+POOL_ARGV = ["--device", "cpu", "--batch", "6", "--requests", "18",
+             "--prompt-len", "16", "--gen", "8", "--reload-kib-per-step",
+             "32"]
+FLEET_ARGV = ["--device", "cpu", "--zoo", "codeqwen1.5-7b:2,rwkv6-7b:1",
+              "--requests", "12", "--reload-kib-per-step", "32", "--chaos",
+              "kill@5:r0,dma@2:r1x4/20"]
+WALL = ("wall_s", "decode_wall_s", "compile_wall_s", "prefill_wall_s",
+        "tokens_per_s")
+REQ = re.compile(r"  req(\d+) \[(\S+)\]: \[([\d, ]*)\]$")
+
+
+def _blocks(out: str) -> tuple[list[str], list[dict]]:
+    """A pool/fleet run's printed lines: its one-line rows and its JSON
+    objects (each printed with indent=1), in order."""
+    lines, objs, buf = [], [], None
+    for ln in out.rstrip().splitlines():
+        if buf is not None:
+            buf.append(ln)
+            if ln == "}":
+                objs.append(json.loads("\n".join(buf)))
+                buf = None
+        elif ln == "{":
+            buf = [ln]
+        else:
+            lines.append(ln)
+    assert buf is None, out
+    return lines, objs
+
+
+def _no_wall(d: dict) -> dict:
+    return {k: v for k, v in d.items() if k not in WALL}
+
+
+def test_pool_mode_matches_the_reference(capsys):
+    """``serve --mode pool`` (the default five-family zoo, reduced) prints
+    the reference's lines: the clock, the residency plan, the header, the
+    report and the arena, up to three request rows, ``ok``; the plan,
+    report (wall clocks aside) and arena are equal, the request rows name
+    the same requests and tenants with as many tokens."""
+    assert serve.main(["--mode", "pool", *POOL_ARGV]) == 0
+    mine = _blocks(capsys.readouterr().out)
+    assert jserve.run_pool(serve.parse_args(["--mode", "pool",
+                                             *POOL_ARGV])) == 0
+    ref = _blocks(capsys.readouterr().out)
+    (clock, head, *rows, ok), (plan, rep, arena) = mine
+    (jclock, jhead, *jrows, jok), (jplan, jrep, jarena) = ref
+    assert clock == jclock == "reload clock: 32768 B/step"
+    assert head == jhead and ok == jok == "ok"
+    assert head.startswith("zoo=codeqwen1.5-7b:2,qwen2-vl-7b:1,") and \
+        " mode=pool policy=reload_aware stream=layer " in head
+    assert plan == jplan and arena == jarena
+    assert _no_wall(rep) == _no_wall(jrep)
+    assert len(rows) == len(jrows) == 3
+    for a, b in zip(rows, jrows):
+        ma, mb = REQ.match(a), REQ.match(b)
+        assert ma and mb and ma.group(1, 2) == mb.group(1, 2)
+        assert len(ma.group(3).split(",")) == len(mb.group(3).split(","))
+    assert rep["model_tokens"]["deepseek-v2-lite-16b"] > 0
+
+
+def test_fleet_mode_matches_the_reference(capsys):
+    """``serve --mode fleet`` under chaos prints the reference's lines and
+    an equal fleet report: placement, failover and re-admissions, queue
+    ages and every replica's row, no request lost."""
+    assert serve.main(["--mode", "fleet", *FLEET_ARGV]) == 0
+    mine = _blocks(capsys.readouterr().out)
+    assert jserve.run_fleet(serve.parse_args(["--mode", "fleet",
+                                              *FLEET_ARGV])) == 0
+    ref = _blocks(capsys.readouterr().out)
+    assert mine == ref
+    (clock, head, ok), (rep,) = mine
+    assert head == ("zoo=codeqwen1.5-7b:2,rwkv6-7b:1 mode=fleet replicas=2 "
+                    "placement=demand chaos=kill@5:r0,dma@2:r1x4/20 "
+                    "requests=12")
+    assert rep["lost"] == 0 and rep["failovers"] == 1
+    assert rep["re_admissions"] >= 1
+
+
+def test_pool_modes_parse_the_reference_defaults():
+    args = serve.parse_args(["--mode", "pool"])
+    assert (args.zoo, args.policy, args.stream, args.slab_mode, args.quant,
+            args.repartition, args.epoch_steps, args.max_bypass,
+            args.slab_frac, args.hysteresis, args.rr_quantum,
+            args.replicas, args.placement, args.chaos,
+            args.reload_kib_per_step, args.hbm_budget_kib) == (
+        "codeqwen1.5-7b:2,qwen2-vl-7b:1,rwkv6-7b:1,recurrentgemma-9b:1,"
+        "deepseek-v2-lite-16b:1", "reload_aware", "layer", "full", "off",
+        "off", 64, 64, 0.5, 32, 16, 2, "demand", "", 0, 0)
+    assert serve.parse_zoo("a:2,b") == jserve.parse_zoo("a:2,b") == \
+        [("a", 2.0), ("b", 1.0)]
+    assert args.requests == 12 and args.device == "cuda"
+
+
+def test_full_zoo_that_cannot_fit_the_card_raises_first(monkeypatch):
+    """At ``--full`` the zoo's weight bytes are held against the card's
+    free memory before anything is allocated: the default five-family
+    zoo (96.2 GB of bf16 weights) cannot fit one H100."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (79 * 10 ** 9, 85 * 10 ** 9))
+    with pytest.raises(RuntimeError, match=r"96\.23 GB .* 79\.00 GB free"):
+        serve.main(["--mode", "pool", "--full"])
+    with pytest.raises(RuntimeError, match="GB free"):
+        serve.main(["--mode", "fleet", "--full"])
