@@ -162,9 +162,31 @@ into build/repro_torch/), then:
       queue age within 10x the clean run's), every request the same
       token count and each differing stream greedy-consistent; then the
       entry points ``launch.serve.run_pool`` and ``run_fleet`` on the same
-      params.
+      params;
+  (l0) holds the flash backward (the row-dot pre-pass, the dK/dV kernel
+      and the dQ kernel) against its plain versions on the card, each
+      launch on the same inputs and the whole against autograd through
+      ``ref.mha_attention`` in f32, and the forward's log-sum-exp output,
+      at olmo-1b's training shape (B 8, H = KV 16, S = T 512, dh 128,
+      causal), qwen2-vl-7b's G 7 (H 28, KV 4) and whisper-tiny's cross
+      attention (H 6, S 448 against T 1,500, dh 64, not causal); times
+      each launch and the whole beside its bound, the plain versions and
+      the SDPA backward (its forward and backward less its forward);
+  (l) trains olmo-1b at full width and depth (1.18 B parameters, f32
+      masters and AdamW state, remat) through the entry point
+      ``repro_torch.launch.train.main`` for 20 steps of B 8 x 512 tokens
+      with a checkpoint at step 12: the loss must fall and every step's
+      gradient norm be finite; every kernel counter zeroed just before and
+      read just after (32 flash forward launches a step, the recomputed
+      blocks' included, 16 of each backward launch, nothing else), no
+      plain attention called; ``main`` again resumes from step 12 and its
+      step 13 loss equals the first run's bit for bit; then one step's
+      breakdown (host enqueue against device busy, ms/step, tokens/s,
+      model FLOPs over 989 TFLOP/s, peak memory).
 
 The script prints the seconds of each phase as it ends, and its total.
+The checkpoints of (l) go to a temporary directory under build/ beside
+the script and are removed.
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
 attention kernels, packed canvas and grouped GEMM are built into
 DIR/build and timed in the same call beside this tree's, at (a)'s,
@@ -185,6 +207,7 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -235,6 +258,24 @@ def compare(torch, got, want, what: str, tol=None) -> float:
     torch.testing.assert_close(got.float(), want.float(), **(tol or TOL),
                                msg=lambda m: f"{what}: {m}")
     return err
+
+
+# a gradient's relative Frobenius error, ||got - want|| / ||want||: beside
+# TOL, which is about the size of a typical dK or dV value at whisper's
+# 448 x 1,500 cross attention, so that a gradient a few percent off fails
+GRAD_REL = 1e-2
+
+
+def compare_grad(torch, got, want, what: str) -> tuple[float, float]:
+    """``compare`` within TOL, and the relative Frobenius error within
+    GRAD_REL; returns (max abs error, relative error)."""
+    err = compare(torch, got, want, what)
+    g, w = got.float(), want.float()
+    rel = (torch.linalg.vector_norm(g - w)
+           / torch.linalg.vector_norm(w)).item()
+    assert rel <= GRAD_REL, \
+        f"{what}: relative Frobenius error {rel:.3e} > {GRAD_REL}"
+    return err, rel
 
 
 def decode_case(torch, B, KV, G, lengths, page=16, dh=128, seed=0, T=2048):
@@ -1792,16 +1833,16 @@ def static_mode_lines(out: list[str], args) -> None:
         assert len(row.split(",")) == args.gen, row
 
 
-def run_captured(torch, fn) -> list[str]:
+def run_captured(torch, fn, rc_want: int = 0) -> list[str]:
     """``fn()`` with its standard output captured: its lines (it must
-    return 0)."""
+    return ``rc_want``)."""
     import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = fn()
     torch.cuda.synchronize()
-    assert rc == 0, rc
+    assert rc == rc_want, rc
     return buf.getvalue().rstrip().splitlines()
 
 
@@ -1942,13 +1983,17 @@ def eager_fused(torch, be):
 
 
 def plain_calls(ref, L):
-    """Wrap every plain version of a kernel of the eight (and the plain
-    GQA attention) to count its calls; returns (calls, restore)."""
+    """Wrap every plain version of a kernel of the eight, of the flash
+    backward (and the plain GQA attention) to count its calls; returns
+    (calls, restore)."""
     plain = {"ref.mha_attention": (ref, "mha_attention"),
              "ref.decode_attention": (ref, "decode_attention"),
              "ref.paged_decode_attention": (ref, "paged_decode_attention"),
              "ref.grouped_mvm": (ref, "grouped_mvm"),
-             "layers.gqa_attention": (L, "gqa_attention")}
+             "layers.gqa_attention": (L, "gqa_attention"),
+             **{f"ref.{n}": (ref, n) for n in (
+                 "flash_attention_bwd", "flash_bwd_rowdot", "flash_bwd_dkdv",
+                 "flash_bwd_dq")}}
     calls = dict.fromkeys(plain, 0)
     saved = {k: getattr(m, n) for k, (m, n) in plain.items()}
 
@@ -2359,6 +2404,367 @@ def pool_entry_points(torch, serve, params) -> None:
         free_card(torch)
 
 
+# --- training: the flash backward and launch.train ---------------------------------
+
+# (label, B, H, KV, S, T, dh, causal) of the flash backward; the first is
+# olmo-1b's training step (l) (the main row)
+FLASH_BWD_SHAPES = (
+    ("bwd olmo-1b B=8 S=T=512 H=KV=16", 8, 16, 16, 512, 512, 128, True),
+    ("bwd qwen2-vl-7b G=7 H=28 KV=4 S=T=512", 8, 28, 4, 512, 512, 128,
+     True),
+    ("bwd whisper-tiny cross attention B=8 S=448 T=1500 H=KV=6 dh=64", 8, 6,
+     6, 448, 1500, 64, False),
+)
+
+
+def phase_flash_bwd(torch, fa, ref):
+    """(l0) the flash backward against its plain versions at the training
+    paths' shapes: the kernel forward's log-sum-exp against
+    ``ref.attention_lse``, each of the three launches (row-dot, dK/dV,
+    dQ) against its plain version on the same inputs, and the whole
+    backward against autograd through ``ref.mha_attention`` in f32 from
+    the same bf16 inputs and a fixed upstream dO; each gradient within TOL
+    element by element and within GRAD_REL as a whole. Times each launch
+    and the whole beside its bound (five products; bf16 tensors read or
+    written once), the plain versions, and the SDPA backward on the same
+    inputs (SDPA's forward and backward, less its forward). Returns the
+    three kernels' records (launches filled in by (l)); the dK/dV record
+    also carries the whole backward's time, bound and plain time and the
+    SDPA backward's at the first shape."""
+    import torch.nn.functional as F
+
+    print("== (l0) flash backward vs plain versions", flush=True)
+    rows, errs = {}, dict.fromkeys(("rowdot", "dkdv", "dq"), 0.0)
+    rels = dict.fromkeys(("dkdv", "dq"), 0.0)
+    for name, B, H, KV, S, T, dh, causal in FLASH_BWD_SHAPES:
+        (q, k, v), fwd_flops, _ = flash_case(torch, B, H, KV, S, T, 0, dh,
+                                             causal)
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        do = torch.randn(q.shape, generator=gen, device=DEV
+                         ).to(torch.bfloat16)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        with torch.no_grad():
+            out, lse = fa.flash_attention(qt, kt, vt, return_lse=True,
+                                          causal=causal)
+        compare(torch, lse, ref.attention_lse(q, k, causal=causal),
+                f"{name} lse", dict(rtol=1e-5, atol=1e-4))
+        ot = out.transpose(1, 2)
+        delta = fa.flash_bwd_rowdot(out, dot)
+        dk, dv = fa.flash_bwd_dkdv(qt, kt, vt, dot, lse, delta,
+                                   causal=causal)
+        dq = fa.flash_bwd_dq(qt, kt, vt, dot, lse, delta, causal=causal)
+        errs["rowdot"] = max(errs["rowdot"], compare(
+            torch, delta, ref.flash_bwd_rowdot(ot, do), f"{name} rowdot",
+            dict(rtol=1e-4, atol=1e-3)))
+        wk, wv = ref.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal)
+        wq = ref.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+        launch = {what: compare_grad(torch, got.transpose(1, 2), want,
+                                     f"{name} {what}")
+                  for what, got, want in (("dq", dq, wq), ("dk", dk, wk),
+                                          ("dv", dv, wv))}
+        for kname, whats in (("dkdv", ("dk", "dv")), ("dq", ("dq",))):
+            for what in whats:
+                errs[kname] = max(errs[kname], launch[what][0])
+                rels[kname] = max(rels[kname], launch[what][1])
+        del wq, wk, wv
+
+        def plain_bwd():
+            ts = [t.float().requires_grad_() for t in (q, k, v)]
+            ref.mha_attention(*ts, causal=causal).backward(do.float())
+            return [t.grad for t in ts]
+        whole = {what: compare_grad(torch, got.transpose(1, 2), want,
+                                    f"{name} {what} (whole backward)")
+                 for got, want, what in zip((dq, dk, dv), plain_bwd(),
+                                            ("dq", "dk", "dv"))}
+        # times: each launch, the whole backward, the plain versions
+        t = {"rowdot": cuda_ms(torch, lambda: fa.flash_bwd_rowdot(out, dot),
+                               iters=50, hide_host=True),
+             "dkdv": cuda_ms(torch, lambda: fa.flash_bwd_dkdv(
+                 qt, kt, vt, dot, lse, delta, causal=causal), iters=20,
+                 hide_host=True),
+             "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq(
+                 qt, kt, vt, dot, lse, delta, causal=causal), iters=20,
+                 hide_host=True)}
+        whole_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
+            qt, kt, vt, out, dot, lse, causal=causal), iters=20,
+            hide_host=True)
+        plain = {"rowdot": cuda_ms(torch, lambda: ref.flash_bwd_rowdot(
+                     ot, do), iters=5),
+                 "dkdv": cuda_ms(torch, lambda: ref.flash_bwd_dkdv(
+                     q, k, v, do, lse, delta, causal=causal), iters=3,
+                     warmup=1),
+                 "dq": cuda_ms(torch, lambda: ref.flash_bwd_dq(
+                     q, k, v, do, lse, delta, causal=causal), iters=3,
+                     warmup=1)}
+        plain_whole = cuda_ms(torch, plain_bwd, iters=3, warmup=1)
+        # the library: SDPA forward + backward, less its forward
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=H != KV)
+        sdpa_fwd = cuda_ms(torch, sdpa, iters=20, hide_host=True)
+        sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qs, ks, vs), dot), iters=20, hide_host=True)
+        sdpa_bwd = sdpa_both - sdpa_fwd
+        del qs, ks, vs
+        # bounds: fwd_flops counts 2 products over the visible pairs; bf16
+        # tensors read or written once each, lse and D in f32
+        n_q, n_k, n_s = q.numel(), k.numel(), B * H * S
+        flops = {"rowdot": 2 * n_q, "dkdv": 4 * fwd_flops // 2,
+                 "dq": 3 * fwd_flops // 2}
+        nbytes = {"rowdot": 2 * 2 * n_q + 4 * n_s,
+                  "dkdv": 2 * (2 * n_q + 4 * n_k) + 8 * n_s,
+                  "dq": 2 * (3 * n_q + 2 * n_k) + 8 * n_s}
+        bounds = {kname: bound(flops[kname], nbytes[kname])
+                  for kname in flops}
+        b_whole = bound(5 * fwd_flops // 2,
+                        2 * (4 * n_q + 4 * n_k) + 4 * n_s)
+        print(f"  {name}: relative Frobenius error (limit {GRAD_REL}) "
+              f"per launch " + ", ".join(
+                  f"{w} {launch[w][1]:.3e}" for w in launch) + "; whole " +
+              ", ".join(f"{w} {whole[w][1]:.3e}" for w in whole) +
+              f"; max_abs_err whole "
+              f"{max(e for e, _ in whole.values()):.3e}; backward "
+              f"{whole_ms:.4f} ms (bound {b_whole[0]:.4f} ms, "
+              f"{b_whole[1]}; plain {plain_whole:.4f} ms; sdpa backward "
+              f"{sdpa_bwd:.4f} ms = {sdpa_both:.4f} forward + backward - "
+              f"{sdpa_fwd:.4f} forward)\n    " + "  ".join(
+                  f"{kname} {t[kname]:.4f} ms (bound {bounds[kname][0]:.4f}"
+                  f" {bounds[kname][1]}, plain {plain[kname]:.4f})"
+                  for kname in t), flush=True)
+        if not rows:
+            # no library call computes one launch's function; the whole
+            # backward and SDPA's backward ride on the dK/dV row
+            rows = {kname: dict(ms=t[kname], plain_ms=plain[kname],
+                                bound_ms=bounds[kname][0],
+                                bound_by=bounds[kname][1], library_ms=None)
+                    for kname in t}
+            rows["dkdv"].update(whole_ms=whole_ms,
+                                whole_bound_ms=b_whole[0],
+                                whole_plain_ms=plain_whole,
+                                library_whole_ms=sdpa_bwd)
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+    free_card(torch)
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    out = [dict(name=f"flash_bwd_{kname}", route="cuda", source=src,
+                replaces="src/repro/kernels/flash_attention.py:103",
+                counter=getattr(fa, f"flash_bwd_{kname}"),
+                max_abs_err=errs[kname], **rows[kname])
+           for kname in ("rowdot", "dkdv", "dq")]
+    for k in out[1:]:
+        k["max_rel_err"] = rels[k["name"].removeprefix("flash_bwd_")]
+    return out
+
+
+# olmo-1b at full width and depth, B 8 x 512 tokens; the checkpoint of
+# step 12 is the one the resume starts from
+TRAIN_STEPS, TRAIN_CKPT = 20, 12
+TRAIN_ARGV = ["--arch", "olmo-1b", "--full", "--seq-len", "512", "--batch",
+              "8", "--ckpt-every", str(TRAIN_CKPT), "--log-every", "1"]
+
+
+def recording_build(build, record):
+    """``build`` (``train.build``) whose step function appends each
+    step's (loss, pre-clip gradient norm) to ``record`` at full
+    precision."""
+    def wrapped(*a, **kw):
+        cfg, params, opt, stream, step = build(*a, **kw)
+
+        def step_fn(p, o, batch):
+            p, o, m = step(p, o, batch)
+            record.append((float(m["loss"]), float(m["grad_norm"])))
+            return p, o, m
+        return cfg, params, opt, stream, step_fn
+    return wrapped
+
+
+def optimizer_sample(leaves, state) -> list:
+    """Host copies of a (params, AdamW state) tree's step count and of the
+    first and last non-empty leaves of its m and v."""
+    _, opt = state
+    out = [opt.step.clone()]
+    for tree in (opt.m, opt.v):
+        full = [t for t in leaves(tree) if t.numel()]
+        out += [full[0].detach().cpu().clone(),
+                full[-1].detach().cpu().clone()]
+    return out
+
+
+def timed_checkpoints(ckpt, leaves):
+    """Wrap ``CheckpointManager.save`` / ``restore`` to time each call
+    and to keep ``optimizer_sample`` of the tree each one saved or
+    returned (taken at the call: the train step updates in place);
+    returns (times {"save": [...], "restore": [...]}, samples of the same
+    keys, undo)."""
+    cls = ckpt.CheckpointManager
+    saved = {"save": cls.save, "restore": cls.restore}
+    times = {"save": [], "restore": []}
+    samples = {"save": [], "restore": []}
+
+    def timed(name):
+        def call(self, *a, **kw):
+            t0 = time.monotonic()
+            out = saved[name](self, *a, **kw)
+            times[name].append(time.monotonic() - t0)
+            samples[name].append(optimizer_sample(
+                leaves, a[1] if name == "save" else out[0]))
+            return out
+        return call
+    for name in saved:
+        setattr(cls, name, timed(name))
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+    return times, samples, undo
+
+
+def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
+    """(l) ``repro_torch.launch.train.main`` on the card: olmo-1b at full
+    width and depth (1.18 B parameters, f32 masters and AdamW state,
+    remat), 20 steps of B 8 x 512 tokens, a checkpoint at step 12 in a
+    temporary directory under build/. Every kernel counter is zeroed just
+    before and read just after: 32 flash forward launches a step (16, and
+    16 again in the recomputed blocks), 16 of each backward launch,
+    nothing else, and no plain attention called. The loss must fall and
+    every step's gradient norm be finite (so no gradient holds a NaN or
+    an Inf). Then ``main`` again in the same directory for one step: it
+    resumes from step 12, step 13's loss equals the first run's bit
+    for bit (the kernels have no atomics; its gradient norm is printed
+    beside the first run's), and the
+    restored AdamW step count and a sample of its m and v equal what was
+    saved, bit for bit. Then one step's breakdown on
+    a fresh ``build``: host enqueue against device busy, ms/step,
+    tokens/s, model FLOPs over 989 TFLOP/s, peak memory. The flash
+    forward's row of the kernels line gains ``launches_train``, the
+    backward's rows their launches here."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import leaves
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=ROOT / "build")
+    argv = [*TRAIN_ARGV, "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckdir,
+            "--device", DEV]
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch) if args.full else \
+        get_config(args.arch).reduced()
+    print(f"== (l) launch.train {' '.join(argv)}", flush=True)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    first, again = [], []
+    times, samples, undo_times = timed_checkpoints(ckpt, leaves)
+    counters = ops.launch_counters()
+    build = train.build
+    try:
+        train.build = recording_build(build, first)
+        for c in counters:
+            c.launches = 0
+        calls, restore = plain_calls(ref, L)
+        t0 = time.monotonic()
+        try:
+            out = run_captured(torch, lambda: train.main(argv))
+        finally:
+            restore()
+        wall = time.monotonic() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        free_card(torch)
+        train.build = recording_build(build, again)
+        # one step: its last loss is its first, so main returns 1
+        resumed = run_captured(torch, lambda: train.main(
+            [*TRAIN_ARGV, "--steps", "1", "--ckpt-dir", ckdir, "--device",
+             DEV]), rc_want=1)
+    finally:
+        train.build = build
+        undo_times()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for line in out:
+        print(f"  {line}")
+    for line in resumed:
+        print(f"  (resumed) {line}")
+    steps, layers = args.steps, cfg.num_layers
+    want = {"flash_attention": 2 * layers * steps,
+            **{f"flash_bwd_{n}": layers * steps
+               for n in ("rowdot", "dkdv", "dq")}}
+    print(f"  launches {counts}; plain versions called {calls}; entry "
+          f"point wall {wall:.1f} s (init included); checkpoint save "
+          f"{sum(times['save']):.1f} s, restore "
+          f"{sum(times['restore']):.1f} s; peak memory {peak:.1f} GiB",
+          flush=True)
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert not any(calls.values()), calls
+    assert out[-1].startswith(f"done: {steps} steps, 0 retries"), out[-1]
+    assert len(first) == steps and len(again) == 1, (first, again)
+    assert first[-1][0] < first[0][0], first
+    assert all(math.isfinite(g) for _, g in first + again), first + again
+    assert resumed[0] == f"resumed from step {TRAIN_CKPT}", resumed
+    assert len(times["save"]) == 1 and len(times["restore"]) == 1, times
+    print(f"  loss {first[0][0]:.4f} -> {first[-1][0]:.4f}; step "
+          f"{TRAIN_CKPT + 1}: {first[TRAIN_CKPT][0]!r} uninterrupted, "
+          f"{again[0][0]!r} resumed", flush=True)
+    print(f"  step {TRAIN_CKPT + 1}'s gradient norm: "
+          f"{first[TRAIN_CKPT][1]!r} uninterrupted, {again[0][1]!r} resumed",
+          flush=True)
+    assert again[0][0] == first[TRAIN_CKPT][0], (again, first[TRAIN_CKPT])
+    (kept,), (back,) = samples["save"], samples["restore"]
+    print(f"  AdamW state restored at step {int(back[0])}: m and v leaves "
+          f"{[tuple(t.shape) for t in back[1:]]} equal to the saved "
+          f"bit for bit: {all(torch.equal(a, b) for a, b in zip(kept, back))}",
+          flush=True)
+    assert int(kept[0]) == int(back[0]) == TRAIN_CKPT, (kept[0], back[0])
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(kept, back)), "AdamW state not restored"
+    for k in bwd_kernels:
+        del k["counter"]
+        k["launches"] = counts[k["name"]]
+        assert k["launches"] > 0, f"{k['name']} never ran on the main path"
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["launches_train"] = counts["flash_attention"]
+
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _, params, opt, stream, step = train.build(
+        args.arch, reduced=not args.full, seq_len=args.seq_len,
+        batch=args.batch,
+        lr=args.lr, steps=args.steps, microbatches=1, device=DEV)
+    batch = stream.batch(0)
+    state = [params, opt]
+
+    def one():
+        state[0], state[1], m = step(state[0], state[1], batch)
+        return m
+    one()
+    torch.cuda.synchronize()
+    # the wall before the profiler runs: steps after it ran slower
+    t0 = time.monotonic()
+    for _ in range(3):
+        m = one()
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / 3 * 1e3
+    busy = breakdown(torch, f"train step {cfg.name} B={args.batch} "
+                     f"S={args.seq_len}", one, steps=3)
+    # model FLOPs: 6 a parameter a token (the tied head counted once,
+    # attention's own products not counted)
+    tokens = args.batch * args.seq_len
+    n_params = sum(t.numel() for t in leaves(state[0]))
+    flops = 6.0 * n_params * tokens
+    print(f"  train step {ms:.1f} ms ({busy:.1f} ms device busy), "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"{tokens / ms * 1e3:.0f} tokens/s, model FLOPs {flops:.3e} a "
+          f"step = {flops / (ms / 1e3) / PEAK_BF16_FLOPS:.3f} of 989 "
+          f"TFLOP/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; loss "
+          f"{float(m['loss']):.4f}", flush=True)
+    del state, params, opt, batch, m
+    free_card(torch)
+
+
 def init(torch, api, cfg):
     """Random weights of ``cfg`` from seed 0 on the card, timed."""
     t0 = time.monotonic()
@@ -2398,7 +2804,8 @@ def main(argv=None) -> int:
     from repro_torch import runtime as rt
     from repro_torch import resolve_device
     from repro_torch.kernels import ref
-    from repro_torch.launch import pack, serve
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import pack, serve, train
     from repro_torch.planner import WeightMatrix, pack_canvas
 
     smi = subprocess.run(
@@ -2586,6 +2993,12 @@ def main(argv=None) -> int:
     lap("(k')")
     del pooled
     free_card(torch)
+
+    bwd = phase_flash_bwd(torch, fa, ref)
+    lap("(l0)")
+    phase_train(torch, train, ckpt, ops, ref, Lyr, kernels, bwd)
+    lap("(l)")
+    kernels += bwd
     print(f"all phases {time.monotonic() - t_start:.0f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")

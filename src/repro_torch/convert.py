@@ -10,7 +10,13 @@ and ``tail`` subtrees) and returns the same names as torch tensors on
 ``device``: norm scales (``kv_ln``, whisper's layernorm biases and
 griffin's RG-LRU ``lam`` too, ``transformer.F32_PARAMS``) in f32, every
 other leaf cast once to bf16 — the reference casts them to bf16 at each
-use, so the numbers are the same.
+use, so the numbers are the same. That is right for serving; training
+keeps the reference's f32 params (``master=True``: every leaf f32) and
+casts them at the top of each step with ``compute_view``, so gradients
+land in the f32 leaves while the forward sees the serving dtypes.
+``opt_state_from_jax`` takes the reference's ``OptState`` (step, m, v)
+the same way, and ``tree_to_numpy`` / ``opt_state_to_numpy`` give the
+port's training state back as numpy for the reference.
 
 ``canvas_from_jax`` takes the reference's packed canvas (``w_blocks`` in
 meta order, ``meta``, and for the dequant kernels the quantized payload
@@ -25,9 +31,17 @@ import torch
 from . import resolve_device
 from .models.layers import COMPUTE_DTYPE, PARAM_DTYPE
 from .models.transformer import F32_PARAMS
+from .optim import OptState
 
 
-def params_from_jax(np_params, device="cuda"):
+def _dtype(name: str):
+    """The serving dtype of a leaf: f32 for ``F32_PARAMS``, else bf16."""
+    return PARAM_DTYPE if name in F32_PARAMS else COMPUTE_DTYPE
+
+
+def params_from_jax(np_params, device="cuda", master: bool = False):
+    """The reference's param tree as the port's tensors on ``device``, in
+    the serving dtypes, or every leaf in f32 with ``master``."""
     dev = resolve_device(device)
 
     def conv(tree):
@@ -37,11 +51,53 @@ def params_from_jax(np_params, device="cuda"):
                 out[name] = conv(leaf)
                 continue
             t = torch.tensor(np.asarray(leaf, np.float32), device=dev)
-            out[name] = t.to(PARAM_DTYPE if name in F32_PARAMS
-                             else COMPUTE_DTYPE)
+            out[name] = t if master else t.to(_dtype(name))
         return out
 
     return conv(np_params)
+
+
+def master_params(params):
+    """f32 master copies of a param tree in the serving dtypes (what
+    every model's ``init_params`` keeps): every floating leaf widened,
+    exactly."""
+    return {k: master_params(v) if isinstance(v, dict)
+            else v.to(PARAM_DTYPE) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
+def compute_view(params):
+    """The forward's view of f32 master params: ``F32_PARAMS`` leaves as
+    they are, every other floating leaf cast to bf16 — the serving
+    dtypes, so the forward is the serving code. The casts are
+    differentiable: gradients of the view land in the master leaves."""
+    return {k: compute_view(v) if isinstance(v, dict)
+            else v.to(_dtype(k)) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
+def opt_state_from_jax(opt, device="cuda") -> OptState:
+    """The reference's ``OptState`` (a scalar step, f32 moment trees; any
+    leaves ``np.asarray`` reads) as the port's: the step a 0-d int32 host
+    tensor, m and v f32 trees on ``device``."""
+    return OptState(step=torch.tensor(int(np.asarray(opt.step)),
+                                      dtype=torch.int32),
+                    m=params_from_jax(opt.m, device, master=True),
+                    v=params_from_jax(opt.v, device, master=True))
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as numpy f32 arrays of the same names (f32
+    leaves bit for bit, bf16 ones widened exactly)."""
+    return {k: tree_to_numpy(v) if isinstance(v, dict)
+            else v.detach().float().cpu().numpy() for k, v in tree.items()}
+
+
+def opt_state_to_numpy(opt: OptState):
+    """(step as np.int32, m, v as numpy trees): the fields of the
+    reference's ``OptState``."""
+    return (np.int32(int(opt.step)), tree_to_numpy(opt.m),
+            tree_to_numpy(opt.v))
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -94,6 +94,18 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a kernel that
+    has no backward: its output is written by the kernel and has no
+    graph, so the gradient would be dropped without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but this kernel has no "
+            f"backward; call it under torch.no_grad(), or on CPU tensors "
+            f"for the differentiable plain version")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err:

@@ -69,6 +69,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     combine kernel merges them, within the same call. bf16 in and out,
     f32 softmax.
     """
+    _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     B, KV, G, dh = q.shape
     _, P, page, _ = k_pages.shape
     M = page_table.shape[1]
@@ -146,6 +147,7 @@ def decode_attention(q, k, v, lengths, *, scale=None, splits=None):
     holds the partials and a combine kernel merges them, within the
     same call. bf16 in and out, f32 softmax.
     """
+    _build.refuse_grad("decode_attention", q, k, v)
     B, KV, G, dh = q.shape
     T = k.shape[2]
     for name, t, dt in (("q", q, torch.bfloat16),

@@ -55,6 +55,7 @@ def grouped_mvm(x, w, rows=None):
     f32). Any E <= 65535 and any C. rows[e] is clamped to [0, C] on the
     card.
     """
+    _build.refuse_grad("grouped_mvm", x, w)
     if x.dtype not in DTYPES or w.dtype != x.dtype:
         raise ValueError(f"grouped_mvm: x and w must share float32 or "
                          f"bfloat16, got {x.dtype} and {w.dtype}")

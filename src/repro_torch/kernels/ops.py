@@ -1,7 +1,10 @@
 """The port's kernel ops, dispatched on the tensors' device.
 
 A CUDA tensor launches the Hopper kernel (or the kernel wrapper raises);
-a CPU tensor takes the plain PyTorch version in ``ref``. ``impl="ref"``
+a CPU tensor takes the plain PyTorch version in ``ref``. Under autograd
+the plain versions differentiate as any torch code and flash attention
+through its backward kernels; every other kernel raises when an input
+requires grad (it has no backward yet). ``impl="ref"``
 asks for the plain version on any device — the tests and
 ``chip_smoke.py``'s kernel-vs-plain comparisons use it.
 """
@@ -24,13 +27,47 @@ def _plain(impl: str, x) -> bool:
     return impl == "ref" or x.device.type == "cpu"
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward kernel (which also writes each row's log-sum-exp)
+    and its hand-written backward: the row-dot pre-pass, the dK/dV kernel
+    and the dQ kernel. Model layouts (B, S, heads, dh) outside, strided
+    (B, head, position, dh) views inside."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _fa.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, scale=scale)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), out,
+            _fa.as_rows(dout).transpose(1, 2), lse, **ctx.kw)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     impl: str = "kernel"):
     """GQA attention: q (B, S, H, dh), k/v (B, T, KV, dh) -> (B, S, H, dh).
-    Query row i sits at key position i + T - S."""
+    Query row i sits at key position i + T - S. Differentiable on either
+    path: the plain version through autograd, the kernel through its
+    backward kernels (``_FlashAttention``) when grad mode is on and an
+    input requires grad; the backward kernels take no window."""
     if _plain(impl, q):
         return ref.mha_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if window:
+            raise ValueError(f"flash_attention: the backward kernels take "
+                             f"no window (window={window}); call it under "
+                             f"torch.no_grad()")
+        return _FlashAttention.apply(q, k, v, causal, scale)
     # the kernel takes strided (B, head, position, dh) views: no copies
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
@@ -143,4 +180,5 @@ def launch_counters() -> tuple:
     return (_dec.paged_decode_attention, _dec.decode_attention,
             _fa.flash_attention, _gm.grouped_mvm, _pc._packed_canvas_matmul,
             _pc._packed_canvas_epilogue, _dq._matmul_dq,
-            _dq._matmul_dq_epilogue)
+            _dq._matmul_dq_epilogue, _fa.flash_bwd_rowdot,
+            _fa.flash_bwd_dkdv, _fa.flash_bwd_dq)

@@ -250,6 +250,7 @@ def launch(x_packed, w, scales, w_format: str, meta, *, bias=None,
     over bf16, int8 or int4 blocks runs on the tensor cores; any other
     pair on f32 FMAs.
     """
+    _build.refuse_grad("packed canvas", x_packed, w, scales, bias, residual)
     activation = activation or "none"
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")

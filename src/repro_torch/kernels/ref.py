@@ -190,6 +190,101 @@ def mha_attention(q, k, v, *, causal=True, window=0, scale=None):
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
+def _masked_scores(q, k, causal, window, scale):
+    """f32 scores (B, KV, G, S, T) of q (B, S, H, dh) against k (B, T,
+    KV, dh), -inf where the flash kernels mask, and the grouped q."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, S, KV, H // KV, dh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    qi = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kj = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return s.masked_fill(~mask, -math.inf), qg, scale
+
+
+def attention_lse(q, k, *, causal=True, window=0, scale=None):
+    """The flash forward's second output: each query row's natural-log
+    sum of exp(scale q.k) over its visible keys, (B, H, S) f32, +inf on
+    a row with none. Layouts as ``mha_attention``'s."""
+    B, S, H, _ = q.shape
+    s, _, _ = _masked_scores(q, k, causal, window, scale)
+    lse = torch.logsumexp(s, dim=-1)                     # (B, KV, G, S)
+    lse = torch.where(torch.isneginf(lse), math.inf, lse)
+    return lse.reshape(B, H, S)
+
+
+def _probs(q, k, lse, causal, scale):
+    """P = exp(scale q.k - lse) (B, KV, G, S, T) in f32 from the forward's
+    ``lse`` (B, H, S); 0 where masked or where the row has no key."""
+    B, S, H, _ = q.shape
+    KV = k.shape[2]
+    s, qg, scale = _masked_scores(q, k, causal, 0, scale)
+    lse = lse.float().reshape(B, KV, H // KV, S)[..., None]
+    return torch.where(torch.isinf(lse), 0.0, torch.exp(s - lse)), qg, scale
+
+
+def _ds(p, v, dout, delta):
+    """dS = P o (dO V^T - D) (B, KV, G, S, T) and dO grouped (B, S, KV,
+    G, dh), in f32."""
+    B, KV, G, S, _ = p.shape
+    do = dout.reshape(B, S, KV, G, -1).float()
+    dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
+    return p * (dp - delta.float().reshape(B, KV, G, S)[..., None]), do
+
+
+def flash_bwd_rowdot(out, dout):
+    """The row-dot pre-pass's plain version: D = rowsum(dout o out) in
+    f32, (B, S, H, dh) twice -> (B, H, S)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2)
+
+
+def flash_bwd_dkdv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
+    """The dK/dV kernel's plain version from the same inputs (model
+    layouts; ``lse`` the forward's, ``delta`` the pre-pass's, both (B, H,
+    S)): dk = scale dS^T q summed over each KV head's G query heads, dv =
+    P^T dO, each in its input's dtype."""
+    p, qg, scale = _probs(q, k, lse, causal, scale)
+    ds, do = _ds(p, v, dout, delta)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p, do)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
+    """The dQ kernel's plain version from the same inputs: dq = scale dS
+    K, in q's dtype."""
+    B, S, H, dh = q.shape
+    p, _, scale = _probs(q, k, lse, causal, scale)
+    ds, _ = _ds(p, v, dout, delta)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    return dq.reshape(B, S, H, dh).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, dout, *, causal=True, scale=None):
+    """The flash backward's plain version: (dq, dk, dv) of
+    ``mha_attention(q, k, v)`` for the upstream gradient ``dout`` (q's
+    shape), by the explicit formulas in f32 with the forward recomputed
+    exactly: O and lse in f32, D = rowsum(dO o O), dS = P o (dO V^T - D),
+    dq = scale dS K, dk = scale dS^T q (summed over each KV head's G query
+    heads), dv = P^T dO. A query row with no visible key has P = 0 (the
+    kernels' zeros), where ``mha_attention`` would average every value.
+    Each result in its input's dtype."""
+    B, S, H, dh = q.shape
+    kw = dict(causal=causal, scale=scale)
+    lse = attention_lse(q, k, **kw)
+    p, _, _ = _probs(q, k, lse, **kw)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(B, S, H, dh)
+    delta = flash_bwd_rowdot(out, dout)
+    dk, dv = flash_bwd_dkdv(q, k, v, dout, lse, delta, **kw)
+    return flash_bwd_dq(q, k, v, dout, lse, delta, **kw), dk, dv
+
+
 def decode_attention(q, k, v, lengths, *, scale=None):
     """q: (B, H, dh); k/v: (B, T, KV, dh); lengths: (B,) valid cache length.
 

@@ -1,8 +1,8 @@
 """Models of the port: the dense decoder-only transformer (with the vlm
 backbone), the MoE decoders (MLA and GQA), RWKV-6, Griffin (the hybrid
 RG-LRU + local attention family) and the whisper encoder-decoder,
-behind ``get_model(cfg)`` (the reference's registry, without the
-training entries)."""
+behind ``get_model(cfg)`` (the reference's registry; the MoE family's
+training loss waits for its own slice, so its ``loss_fn`` is None)."""
 
 from __future__ import annotations
 
@@ -16,9 +16,10 @@ from . import griffin, moe, rwkv6, transformer, whisper
 class ModelApi:
     init_params: Callable
     forward: Callable
+    loss_fn: Callable | None             # None: the family cannot train yet
     prefill: Callable
     decode_step: Callable
-    init_decode_state: Callable | None   # None: the family has none
+    init_decode_state: Callable
 
 
 _FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
@@ -32,9 +33,10 @@ def get_model(cfg) -> ModelApi:
                          f"{sorted(_FAMILIES)}")
     mod = _FAMILIES[cfg.family]
     return ModelApi(init_params=mod.init_params, forward=mod.forward,
-                    prefill=mod.prefill, decode_step=mod.decode_step,
-                    init_decode_state=getattr(mod, "init_decode_state",
-                                              None))
+                    loss_fn=getattr(mod, "loss_fn", None),
+                    prefill=mod.prefill,
+                    decode_step=mod.decode_step,
+                    init_decode_state=mod.init_decode_state)
 
 
 __all__ = ["ModelApi", "get_model", "griffin", "moe", "rwkv6", "transformer",

@@ -1,9 +1,10 @@
 """RecurrentGemma / Griffin (arXiv:2402.19427), hybrid RG-LRU + local
 sliding-window attention, block pattern (rec, rec, attn), in PyTorch.
 
-Counterpart of ``repro.models.griffin`` (its serving entries; the
-training loss is not ported). Every layer is a temporal mix (the RG-LRU
-recurrent branch or windowed MQA) plus a gated MLP, both with residuals.
+Counterpart of ``repro.models.griffin``, serving and the training loss
+(``loss_fn``; ``forward`` writes no state in place). Every layer is a
+temporal mix (the RG-LRU recurrent branch or windowed MQA) plus a gated
+MLP, both with residuals.
 Layers group into super-blocks of one pattern period (rec, rec, attn); a
 tail of rec-only layers covers num_layers % 3 (38 = 12 x 3 + 2). The
 reference's ``lax.scan`` over super-blocks is a Python loop here; the
@@ -111,23 +112,19 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     return params
 
 
-def _layer(tree, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def _layers(cfg, params):
     """(kind, params, rec index or attn index) of every layer in order:
     super-block i is rec 2i, rec 2i + 1, attn i; tail layer j is rec
-    2 * n_super + j."""
+    2 * n_super + j. Each stacked leaf is unbound once
+    (``layers.layer_views``)."""
     n_super, n_tail = _counts(cfg)
-    for i in range(n_super):
-        p = _layer(params["super"], i)
+    for i, p in enumerate(L.layer_views(params["super"], n_super)):
         yield "rec", p["rec1"], 2 * i
         yield "rec", p["rec2"], 2 * i + 1
         yield "attn", p["attn"], i
-    for j in range(n_tail):
-        yield "rec", _layer(params["tail"], j), 2 * n_super + j
+    if n_tail:
+        for j, p in enumerate(L.layer_views(params["tail"], n_tail)):
+            yield "rec", p, 2 * n_super + j
 
 
 # --- RG-LRU recurrent block ----------------------------------------------------------
@@ -170,11 +167,11 @@ def _rglru(x, r_gate, i_gate, lam, h0, length=None):
         a = torch.where(live, a, 1.0)
         scaled = torch.where(live, scaled, 0.0)
     h = h0.float()
-    hs = torch.empty_like(scaled)
+    hs = []
     for t in range(S):
         h = torch.addcmul(scaled[:, t], a[:, t], h)
-        hs[:, t] = h
-    return hs.to(x.dtype), h
+        hs.append(h)
+    return torch.stack(hs, 1).to(x.dtype), h
 
 
 def _mlp(p, x):
@@ -302,34 +299,48 @@ def _rope(cfg, positions):
     return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _super_scan(cfg, params, x, conv, h, length=None):
+def _super_scan(cfg, params, x, conv, h, length=None, *, advance=True,
+                remat=False):
     """Every layer over the whole sequence from the recurrent state
-    (conv, h), which is advanced in place. ``length`` gates the recurrent
-    updates past the live prompt, so a bucket-padded prefill carries the
-    state at position length - 1 (pad keys/values are masked or
-    overwritten by the reader). Returns (hidden, (k, v) each (n_attn, B,
-    S, KV, dh))."""
+    (conv, h), which is advanced in place unless ``advance`` is False
+    (the training forward, which writes nothing in place). ``length``
+    gates the recurrent updates past the live prompt, so a bucket-padded
+    prefill carries the state at position length - 1 (pad keys/values are
+    masked or overwritten by the reader). ``remat`` recomputes each layer
+    in the backward. Returns (hidden, (k, v) each (n_attn, B, S, KV,
+    dh))."""
     B, S, _ = x.shape
     rope = _rope(cfg, torch.arange(S, device=x.device).expand(B, S))
     ks, vs = [], []
     for kind, p, i in _layers(cfg, params):
         if kind == "rec":
-            x, c, hh = _rec_block(p, x, conv[i], h[i], length=length)
-            conv[i].copy_(c)
-            h[i].copy_(hh)
+            x, c, hh = L.checkpointed(_rec_block, p, x, conv[i], h[i],
+                                      length, remat=remat)
+            if advance:
+                conv[i].copy_(c)
+                h[i].copy_(hh)
         else:
-            x, (k, v) = _attn_block_full(cfg, p, x, rope)
+            x, (k, v) = L.checkpointed(_attn_block_full, cfg, p, x, rope,
+                                       remat=remat)
             ks.append(k)
             vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, *, remat=False):
     """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state."""
     tokens = batch["tokens"]
     conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
-    x, _ = _super_scan(cfg, params, _embed(params, tokens), conv, h)
+    x, _ = _super_scan(cfg, params, _embed(params, tokens), conv, h,
+                       advance=False, remat=remat)
     return _head(params, x)
+
+
+def loss_fn(cfg, params, batch, *, remat=True):
+    """Mean cross-entropy (with the z-loss) of the next tokens: the
+    reference's training loss."""
+    logits = forward(cfg, params, batch, remat=remat)
+    return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
 def prefill(cfg, params, batch, cache_len: int = 0):

@@ -1,11 +1,11 @@
-"""Model building blocks of the port (the serving subset of
-``repro.models.layers``: dense, vlm, MoE, ssm and encoder-decoder), in
-PyTorch.
+"""Model building blocks of the port (``repro.models.layers`` without
+its sharding hints and the MoE training router: dense, vlm, MoE, ssm and
+encoder-decoder serving, and the training loss), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
 The paged-cache writers update the pool in place (the reference donates
-it).
+it); nothing on a training forward writes in place.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..kernels import ops
@@ -463,3 +464,38 @@ def multi_step_decode(step_fn, hmax: int, pending, lengths, remaining,
         decode_loop_step(step_fn, step, pending, lengths, remaining, pt,
                          mask, teacher, use_teacher, out)
     return out
+
+
+# --- training ------------------------------------------------------------------------
+
+def layer_views(tree, n: int) -> list:
+    """The ``n`` per-layer views of a tree stacked on a leading layer
+    axis, by one ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where indexing layer by layer would add a full-size
+    zero gradient for every layer (quadratic in depth)."""
+    cols = {k: layer_views(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def checkpointed(fn, *args, remat: bool):
+    """``fn(*args)``; with ``remat`` under autograd its activations are
+    dropped and recomputed in the backward from ``args`` alone — the
+    reference's ``jax.checkpoint(body, policy=nothing_saveable)`` around
+    each scanned block."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def softmax_xent(logits, labels, *, z_loss=1e-4):
+    """Cross-entropy with z-loss; logits (..., V) f32, labels (...) int:
+    logsumexp - the label's logit, plus z_loss * logsumexp^2."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss

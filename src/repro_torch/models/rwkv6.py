@@ -1,10 +1,11 @@
 """RWKV-6 "Finch" (arXiv:2404.05892), attention-free, in PyTorch.
 
-Counterpart of ``repro.models.rwkv6`` (its serving entries; the training
-loss is not ported). Per block: time-mix (token-shift ddlerp -> r/k/v/w/g
-projections -> WKV linear recurrence with data-dependent decay w_t and
-bonus u -> per-head group norm) and channel-mix (squared-ReLU FFN gated
-by sigmoid(r)). The reference's ``lax.scan`` over layers is a Python loop
+Counterpart of ``repro.models.rwkv6``, serving and the training loss
+(``loss_fn``; ``forward`` from a zero state writes nothing in place and
+can recompute each block in the backward). Per block: time-mix
+(token-shift ddlerp -> r/k/v/w/g projections -> WKV linear recurrence
+with data-dependent decay w_t and bonus u -> per-head group norm) and
+channel-mix (squared-ReLU FFN gated by sigmoid(r)). The reference's ``lax.scan`` over layers is a Python loop
 here; the WKV recurrence is plain torch ops, as the reference's is jnp
 (no Pallas site).
 
@@ -236,29 +237,47 @@ def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
 
 # --- forward / prefill / decode ----------------------------------------------------
 
-def _run(cfg, params, tokens, state: RwkvState):
-    """tokens (B, S) through every block from ``state``, which is advanced
-    in place; returns logits (B, S, V) f32."""
+def _logits(cfg, params, tokens, state: RwkvState, remat=False):
+    """tokens (B, S) through every block from ``state``, which is only
+    read: returns logits (B, S, V) f32 and each layer's new (att_prev,
+    ffn_prev, wkv). ``remat`` recomputes each block in the backward."""
     cd = L.COMPUTE_DTYPE
     x = params["embed"].to(cd)[tokens.long()]
     x = L.layernorm(x, params["ln_in"].to(cd), params["ln_inb"].to(cd))
-    for i in range(cfg.num_layers):
-        p = {k: w[i] for k, w in params["blocks"].items()}
-        x, ap, fp, wkv = _block(cfg, p, x, state.att_prev[i],
-                                state.ffn_prev[i], state.wkv[i])
+    new = []
+    for i, p in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
+        x, ap, fp, wkv = L.checkpointed(
+            _block, cfg, p, x, state.att_prev[i], state.ffn_prev[i],
+            state.wkv[i], remat=remat)
+        new.append((ap, fp, wkv))
+    h = L.layernorm(x, params["ln_f"].to(cd), params["ln_fb"].to(cd))
+    return (h @ params["lm_head"].to(cd)).float(), new
+
+
+def _run(cfg, params, tokens, state: RwkvState):
+    """tokens (B, S) through every block from ``state``, which is advanced
+    in place; returns logits (B, S, V) f32."""
+    logits, new = _logits(cfg, params, tokens, state)
+    for i, (ap, fp, wkv) in enumerate(new):
         state.att_prev[i].copy_(ap)
         state.ffn_prev[i].copy_(fp)
         state.wkv[i].copy_(wkv)
-    h = L.layernorm(x, params["ln_f"].to(cd), params["ln_fb"].to(cd))
     state.pos += tokens.shape[1]
-    return (h @ params["lm_head"].to(cd)).float()
+    return logits
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, *, remat=False):
     """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state."""
     tokens = batch["tokens"]
     state = init_decode_state(cfg, tokens.shape[0], device=tokens.device)
-    return _run(cfg, params, tokens, state)
+    return _logits(cfg, params, tokens, state, remat=remat)[0]
+
+
+def loss_fn(cfg, params, batch, *, remat=True):
+    """Mean cross-entropy (with the z-loss) of the next tokens: the
+    reference's training loss."""
+    logits = forward(cfg, params, batch, remat=remat)
+    return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
 def prefill(cfg, params, batch, cache_len: int = 0):

@@ -11,7 +11,15 @@ Weights: the reference keeps f32 params and casts each matrix to bf16 at
 every use. The port's loaders (``init_params``, ``convert``) cast once
 and keep only the bf16 copy of matrices, embeddings and biases, which
 gives the same numbers and halves the weight bytes every step reads; the
-norm scales stay f32 (the norms compute in f32).
+norm scales stay f32 (the norms compute in f32). Training keeps f32
+master weights (``convert.master_params``, ``convert.params_from_jax
+(master=True)``) and casts them once a step (``convert.compute_view``),
+so gradients land in f32 and the forward is the same code.
+
+Training: ``loss_fn`` is the reference's (mean cross-entropy with its
+z-loss); ``forward(remat=True)`` recomputes each block in the backward,
+and the flash attention of the forward differentiates through its
+backward kernels on the card.
 
 Attention: causal attention over a whole sequence (``forward``, the
 static and paged prefill) goes through ``ops.flash_attention``; the
@@ -150,21 +158,28 @@ def _rope(cfg, positions, pos3=None):
     return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _trunk(cfg, params, batch, return_kv: bool):
+def _block(cfg, p, x, rope):
+    """One decoder block over the whole sequence, causal flash attention:
+    (y, k, v)."""
+    q, k, v = _qkv(cfg, p, x, rope)
+    return _finish(cfg, p, x, ops.flash_attention(q, k, v, causal=True)), \
+        k, v
+
+
+def _trunk(cfg, params, batch, return_kv: bool, remat: bool = False):
     """The blocks over the whole sequence with causal flash attention.
     ``batch`` may carry "positions" (B, S), "pos3" (3, B, S) and, for the
-    vlm family, "patch_embeds". Returns (hidden (B, S, D), (k, v) each
-    (L, B, S, KV, dh) or None)."""
+    vlm family, "patch_embeds". ``remat`` recomputes each block in the
+    backward. Returns (hidden (B, S, D), (k, v) each (L, B, S, KV, dh) or
+    None)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     rope = _rope(cfg, batch.get("positions", torch.arange(
         S, device=tokens.device).expand(B, S)), batch.get("pos3"))
     x = _embed_batch(cfg, params, batch)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        q, k, v = _qkv(cfg, p, x, rope)
-        x = _finish(cfg, p, x, ops.flash_attention(q, k, v, causal=True))
+    for p in L.layer_views(params["blocks"], cfg.num_layers):
+        x, k, v = L.checkpointed(_block, cfg, p, x, rope, remat=remat)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -179,10 +194,17 @@ def _last(x, lengths):
 
 # --- full-sequence forward ---------------------------------------------------------
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, *, remat=False):
     """Logits (B, S, V) f32 for batch["tokens"] (B, S)."""
-    x, _ = _trunk(cfg, params, batch, return_kv=False)
+    x, _ = _trunk(cfg, params, batch, return_kv=False, remat=remat)
     return _head(cfg, params, x)
+
+
+def loss_fn(cfg, params, batch, *, remat=True):
+    """Mean next-token cross-entropy (with the z-loss) of batch["tokens"]
+    against batch["labels"] (B, S): the reference's training loss."""
+    logits = forward(cfg, params, batch, remat=remat)
+    return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
 # --- static decode -------------------------------------------------------------------
@@ -192,6 +214,17 @@ class DecodeState:
     k: torch.Tensor        # (L, B, T, KV, dh)
     v: torch.Tensor
     pos: int               # next write offset (lockstep over the batch)
+
+
+def init_decode_state(cfg, batch_size: int, cache_len: int,
+                      dtype=L.COMPUTE_DTYPE, device="cuda") -> DecodeState:
+    """An empty dense cache of ``cache_len`` positions, on the card unless
+    ``device`` says otherwise."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return DecodeState(k=torch.zeros(shape, dtype=dtype, device=dev),
+                       v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
 
 
 def prefill(cfg, params, batch, cache_len: int):

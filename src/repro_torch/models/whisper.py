@@ -119,19 +119,25 @@ def _mlp(p, h):
 
 # --- encoder / decoder -----------------------------------------------------------
 
-def encode(cfg, params, frames):
+def _enc_block(cfg, p, x):
+    """One encoder block: bidirectional self-attention, MLP."""
+    cd = L.COMPUTE_DTYPE
+    h = L.layernorm(x, p["ln1"], p["ln1b"]).to(cd)
+    k, v = _kv(cfg, p, h)
+    attn = ops.flash_attention(_q(cfg, p, h), k, v, causal=False)
+    x = x + _out(cfg, p, attn).to(x.dtype)
+    h2 = L.layernorm(x, p["ln2"], p["ln2b"]).to(cd)
+    return x + _mlp(p, h2).to(x.dtype)
+
+
+def encode(cfg, params, frames, remat=False):
     """frames (B, T_enc, D) precomputed embeddings -> (B, T_enc, D) bf16,
-    bidirectional self-attention through the flash kernel."""
+    bidirectional self-attention through the flash kernel. ``remat``
+    recomputes each block in the backward."""
     cd = L.COMPUTE_DTYPE
     x = frames.to(cd) + params["enc_pos"][None]
-    for i in range(cfg.encoder.num_layers):
-        p = _layer(params["enc_blocks"], i)
-        h = L.layernorm(x, p["ln1"], p["ln1b"]).to(cd)
-        k, v = _kv(cfg, p, h)
-        attn = ops.flash_attention(_q(cfg, p, h), k, v, causal=False)
-        x = x + _out(cfg, p, attn).to(x.dtype)
-        h2 = L.layernorm(x, p["ln2"], p["ln2b"]).to(cd)
-        x = x + _mlp(p, h2).to(x.dtype)
+    for p in L.layer_views(params["enc_blocks"], cfg.encoder.num_layers):
+        x = L.checkpointed(_enc_block, cfg, p, x, remat=remat)
     return L.layernorm(x, params["enc_ln"], params["enc_lnb"]).to(cd)
 
 
@@ -171,28 +177,36 @@ def _head(params, x):
     return (h @ params["embed"].T).float()
 
 
-def _decoder(cfg, params, tokens, enc_out, return_kv: bool):
+def _decoder(cfg, params, tokens, enc_out, return_kv: bool, remat=False):
     """The decoder over whole sequences: (hidden (B, S, D), (k, v) each
     (L, B, S, KV, dh) or None)."""
     S = tokens.shape[1]
     pos_ids = torch.arange(S, device=tokens.device) % DEC_POS_ROWS
     x = params["embed"][tokens.long()] + params["dec_pos"][pos_ids][None]
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _dec_block(cfg, _layer(params["dec_blocks"], i), x,
-                               enc_out)
+    for p in L.layer_views(params["dec_blocks"], cfg.num_layers):
+        x, (k, v) = L.checkpointed(_dec_block, cfg, p, x, enc_out,
+                                   remat=remat)
         if return_kv:
             ks.append(k)
             vs.append(v)
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, *, remat=False):
     """Logits (B, S, V) f32 for batch["tokens"] (B, S) given
     batch["frames"] (B, T_enc, D)."""
-    enc_out = encode(cfg, params, batch["frames"])
-    x, _ = _decoder(cfg, params, batch["tokens"], enc_out, return_kv=False)
+    enc_out = encode(cfg, params, batch["frames"], remat=remat)
+    x, _ = _decoder(cfg, params, batch["tokens"], enc_out, return_kv=False,
+                    remat=remat)
     return _head(params, x)
+
+
+def loss_fn(cfg, params, batch, *, remat=True):
+    """Mean cross-entropy (with the z-loss) of the decoder's next tokens:
+    the reference's training loss."""
+    logits = forward(cfg, params, batch, remat=remat)
+    return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
 # --- static decode -------------------------------------------------------------------

@@ -1,24 +1,40 @@
-"""Shared fault layer, serving half: chaos schedules, straggler
-detection and the retry clock.
+"""Shared fault layer: chaos schedules, straggler detection, the retry
+clock, and the fault-tolerant training supervisor.
 
-Port of the serving half of ``repro.runtime.fault_tolerance``, copied as
-it is. The fleet tier (runtime.fleet) replicates whole serving pools and
-uses these primitives for replica health: the deterministic, seedable
+Port of ``repro.runtime.fault_tolerance``, copied as it is. The fleet
+tier (runtime.fleet) replicates whole serving pools and uses these
+primitives for replica health: the deterministic, seedable
 ``FaultSchedule`` is the chaos-injection plan (kill / degraded-DMA /
 straggler events against named targets), ``StragglerDetector`` is the
 rolling-median step-time policy the router reads, and ``Backoff`` is the
 deterministic retry clock the fleet uses instead of silent head-of-line
 blocking when an admission is refused. ``StepTimeout``,
 ``TransientFault`` and ``TRANSIENT_DEFAULT`` classify faults for a
-control plane. The training supervisor (``ElasticConfig``, ``RunReport``,
-``TrainingSupervisor``) needs the checkpoint manager and comes with the
-training stack.
+control plane.
+
+The training supervisor (``ElasticConfig``, ``RunReport``,
+``TrainingSupervisor``) wraps a step function with the reference's
+policies: periodic checkpoints with atomic publish (the port's
+``CheckpointManager``); fault classification — a transient fault
+(``TransientFault``, ``StepTimeout``, timeouts, an injected ``kill``) is
+retried from the last checkpoint until the elastic shrink engages after
+``max_retries`` in a row, a permanent error gets one restore attempt and
+re-raises on recurrence; straggler detection against the rolling median
+(optionally restarting); and the ``on_shrink`` hook that rebuilds the
+step for fewer replicas (the data pipeline is step-indexed, so no sample
+is lost or repeated).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
+from collections.abc import Callable
+from typing import Any
+
+from ..checkpoint import CheckpointManager
+from .dma import DmaChannel
 
 
 class StepTimeout(RuntimeError):
@@ -227,3 +243,137 @@ class StragglerDetector:
         if len(recent) < 4:
             return None
         return statistics.median(recent)
+
+
+# --- training supervisor ----------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ElasticConfig:
+    checkpoint_every: int = 50
+    max_retries: int = 3                # consecutive failures before shrink
+    straggler_factor: float = 3.0       # x rolling median
+    straggler_window: int = 16
+    straggler_restart: bool = False     # restart on straggler (vs log only)
+    #: transient-exception allowlist — everything else is PERMANENT and
+    #: re-raises after one restore attempt instead of retry-until-shrink
+    transient: tuple[type[BaseException], ...] = TRANSIENT_DEFAULT
+
+
+@dataclasses.dataclass
+class RunReport:
+    steps_done: int
+    retries: int
+    restores: int
+    shrinks: int
+    stragglers: list[int]
+    final_metrics: dict[str, Any]
+    transient_faults: int = 0
+    permanent_faults: int = 0
+    #: per-fault classification: {"step", "kind", "error"}
+    fault_log: list[dict] = dataclasses.field(default_factory=list)
+
+
+class TrainingSupervisor:
+    def __init__(self, manager: CheckpointManager,
+                 cfg: ElasticConfig | None = None, *,
+                 on_shrink: Callable[[int], Any] | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 faults: FaultSchedule | None = None,
+                 dma: DmaChannel | None = None):
+        self.mgr = manager
+        self.cfg = cfg or ElasticConfig()
+        self.on_shrink = on_shrink
+        self.clock = clock
+        self.faults = faults or FaultSchedule()
+        #: optional weight-streaming channel: injected ``dma`` chaos
+        #: events degrade its clock for their window (the same DmaChannel
+        #: object the serving fleet's replicas mutate), restoring to full
+        #: bandwidth when no event is live
+        self.dma = dma
+        self._detector = StragglerDetector(self.cfg.straggler_factor,
+                                           self.cfg.straggler_window)
+        self._fired: set[FaultEvent] = set()
+
+    # -- main loop ---------------------------------------------------------------
+
+    def run(self, state, step_fn: Callable, batch_fn: Callable, *,
+            start_step: int, num_steps: int) -> tuple[Any, RunReport]:
+        """Drive ``state = step_fn(state, batch_fn(step))`` with recovery.
+
+        step_fn returns (state, metrics). state must be restorable via the
+        checkpoint manager (a pytree). Exceptions are CLASSIFIED against
+        ``cfg.transient``: transient faults retry (restoring from the last
+        checkpoint) and escalate to the elastic shrink after
+        ``max_retries`` consecutive hits; a permanent error gets one
+        restore attempt — the failure may have been corrupted state — and
+        re-raises if it strikes again (or no checkpoint exists).
+        """
+        report = RunReport(0, 0, 0, 0, [], {})
+        step = start_step
+        consecutive = 0
+        permanent_attempted = False
+        metrics: dict[str, Any] = {}
+
+        while step < start_step + num_steps:
+            t0 = self.clock()
+            try:
+                if self.dma is not None:
+                    self.dma.degrade(
+                        max(1.0, self.faults.factor("dma", "train", step)))
+                for ev in self.faults.events_at(step, "train"):
+                    if ev.kind == "kill" and ev not in self._fired:
+                        self._fired.add(ev)
+                        raise TransientFault(f"injected {ev.spec}")
+                state, metrics = step_fn(state, batch_fn(step))
+                dt = (self.clock() - t0) \
+                    * self.faults.factor("straggle", "train", step)
+                if self._detector.observe(dt):
+                    report.stragglers.append(step)
+                    if self.cfg.straggler_restart:
+                        raise StepTimeout(
+                            f"step {step}: {dt:.3f}s > "
+                            f"{self.cfg.straggler_factor}x median")
+            except Exception as e:  # noqa: PERF203, BLE001 — classified below
+                transient = isinstance(e, self.cfg.transient)
+                report.retries += 1
+                report.fault_log.append({
+                    "step": step,
+                    "kind": "transient" if transient else "permanent",
+                    "error": repr(e)})
+                if transient:
+                    report.transient_faults += 1
+                    consecutive += 1
+                    if consecutive > self.cfg.max_retries:
+                        if self.on_shrink is None:
+                            raise
+                        # elastic shrink: rebuild mesh/step_fn, resume
+                        step_fn, batch_fn = self.on_shrink(step)
+                        report.shrinks += 1
+                        consecutive = 0
+                else:
+                    report.permanent_faults += 1
+                    # a deterministic error earns ONE restore attempt
+                    # (the fault may have been corrupted state); on
+                    # recurrence — or with nothing to restore — re-raise
+                    # instead of spending the retry budget on a bug
+                    if permanent_attempted \
+                            or self.mgr.latest_step() is None:
+                        raise
+                    permanent_attempted = True
+                if self.mgr.latest_step() is not None:
+                    state, ck = self.mgr.restore(state)
+                    step = ck
+                    report.restores += 1
+                continue
+
+            consecutive = 0
+            step += 1
+            report.steps_done += 1
+            if step % self.cfg.checkpoint_every == 0:
+                self.mgr.save(step, state, extra={"metrics": {
+                    k: float(v) for k, v in metrics.items()
+                    if hasattr(v, "__float__")}})
+
+        report.final_metrics = metrics
+        return state, report

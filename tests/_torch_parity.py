@@ -298,3 +298,82 @@ def chip_pool_setup(monkeypatch):
     zoo, cfgs, tenants = serve.zoo_configs(args)
     pcfg = serve.pool_config(cfgs, args)
     return cs, zoo, cfgs, tenants, pcfg, {a: {} for a in cfgs}
+
+
+# --- training: losses and gradients against the reference's --------------------------
+
+#: losses: the bf16 TOL, relative
+LOSS_RTOL = 2e-2
+
+
+def train_batch(cfg, batch_size=2, seq_len=16, seed=0) -> dict:
+    """A training batch as numpy arrays from a seed: tokens and their
+    next-token labels, with the family's extras (frames, 4 patch
+    embeddings)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1)
+                        ).astype(np.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (batch_size, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["patch_embeds"] = rng.standard_normal(
+            (batch_size, 4, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def flat(tree, prefix="") -> dict:
+    """A nested dict of arrays or tensors as {"a/b": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def reference_loss_and_grads(jcfg, jp, nb, *, remat=False, eager=False):
+    """The reference's ``jax.value_and_grad`` of its ``loss_fn``: (loss,
+    {path: f64 grad}). ``eager``: op by op (``jax.disable_jit``)."""
+    api = jget_model(jcfg)
+    batch = {k: jnp.asarray(v) for k, v in nb.items()}
+
+    def run():
+        return jax.value_and_grad(
+            lambda p: api.loss_fn(jcfg, p, batch, remat=remat))(jp)
+    if eager:
+        with jax.disable_jit():
+            loss, g = run()
+    else:
+        loss, g = run()
+    return float(loss), {k: np.asarray(v, np.float64)
+                         for k, v in flat(g).items()}
+
+
+def port_loss_and_grads(cfg, jp, nb, *, remat=False):
+    """The port's ``loss_fn`` and autograd on the reference's params as
+    f32 masters (``params_from_jax(master=True)``, ``compute_view``):
+    (loss, {path: f64 grad})."""
+    from repro_torch.convert import compute_view
+    from repro_torch.models import get_model
+
+    master = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu",
+                             master=True)
+    leaves = flat(master)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss = get_model(cfg).loss_fn(
+            cfg, compute_view(master),
+            {k: torch.tensor(v) for k, v in nb.items()}, remat=remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    finally:
+        torch.set_num_threads(n)
+    return float(loss.detach()), {
+        k: (np.zeros(t.shape) if g is None else g.double().numpy())
+        for (k, t), g in zip(leaves.items(), grads)}

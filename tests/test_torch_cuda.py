@@ -8,7 +8,10 @@ fixture, so every pytest worker collects the same tests). On the card:
 bf16 in and out: kernel and plain version both round the f32 result to
 bf16, so they agree within tests/test_kernels.py's bf16 TOL (2e-2); f32
 in and out (the packed canvas, the grouped expert GEMM) within its f32
-TOL (rtol 1e-4, atol 2e-4: summation order only).
+TOL (rtol 1e-4, atol 2e-4: summation order only). The flash backward's
+gradients are also held, each as a whole, within a relative Frobenius
+error of GRAD_REL (1e-2): at whisper's 448 x 1,500 cross attention a
+typical dK or dV value is about TOL's atol.
 """
 
 import copy
@@ -28,6 +31,7 @@ from repro_torch.runtime import Engine, EngineConfig, poisson_trace
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-2, atol=2e-2)
+GRAD_REL = 1e-2
 
 
 @pytest.fixture
@@ -873,3 +877,211 @@ def test_graphed_pool_matches_eager_pool_and_measures_its_dma(dev):
     assert isinstance(dma, DeviceDmaChannel) and dma.copies_issued > 0
     dma.check()
     assert dma.measured_stall_steps <= grep.stall_steps
+
+
+# --- training: the flash backward, kernels without one, a train step ---------------
+
+# (B, H, KV, S, T, dh, causal): small and ragged shapes, then the three of
+# chip_smoke (l): olmo-1b's training step, qwen2-vl-7b's G 7, whisper-tiny's
+# cross attention (448 decoder rows against 1,500 frames, not causal)
+BWD_CASES = [
+    (1, 4, 4, 128, 128, 128, True),
+    (2, 8, 2, 130, 130, 128, True),     # ragged tiles, G 4
+    (2, 7, 1, 100, 100, 64, True),      # G 7
+    (1, 4, 2, 70, 200, 128, True),      # S < T
+    (1, 2, 2, 150, 150, 64, False),
+    (1, 2, 1, 40, 20, 64, True),        # S > T: rows with no key
+    (8, 16, 16, 512, 512, 128, True),
+    (8, 28, 4, 512, 512, 128, True),
+    (8, 6, 6, 448, 1500, 64, False),
+]
+
+
+def _close_grad(got, want):
+    """Within TOL element by element, and within GRAD_REL as a whole."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **TOL)
+    rel = (torch.linalg.vector_norm(got - want)
+           / torch.linalg.vector_norm(want)).item()
+    assert rel <= GRAD_REL, f"relative Frobenius error {rel:.3e}"
+
+
+def _bwd_inputs(dev, B, H, KV, S, T, dh, seed=2):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng, (B, S, H, dh), dev), _bf16(rng, (B, T, KV, dh), dev),
+            _bf16(rng, (B, T, KV, dh), dev), _bf16(rng, (B, S, H, dh), dev))
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,dh,causal", BWD_CASES)
+def test_flash_forward_lse_matches_plain(dev, B, H, KV, S, T, dh, causal):
+    """The forward's second output, each row's log-sum-exp (+inf with no
+    visible key), within f32 rounding; the attention output unchanged."""
+    from repro_torch.kernels import ref
+    q, k, v, _ = _bwd_inputs(dev, B, H, KV, S, T, dh)
+    out, lse = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), return_lse=True,
+                                  causal=causal)
+    want = ref.attention_lse(q, k, causal=causal)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    live = ~torch.isinf(want)
+    torch.testing.assert_close(lse[live], want[live], rtol=1e-5, atol=1e-4)
+    assert torch.equal(out.transpose(1, 2),
+                       ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,dh,causal", BWD_CASES)
+def test_flash_backward_kernels_match_plain(dev, B, H, KV, S, T, dh, causal):
+    """Each backward launch against its plain version on the same inputs,
+    and the whole against autograd through ``ref.mha_attention`` in f32
+    from the same bf16 inputs (``ref.flash_attention_bwd`` where rows see
+    no key, which ``mha_attention`` averages), within the bf16 TOL and
+    GRAD_REL; one launch of each a backward; bit-for-bit repeatable (no
+    atomics)."""
+    from repro_torch.kernels import ref
+    q, k, v, do = _bwd_inputs(dev, B, H, KV, S, T, dh)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = fa.flash_attention(qt, kt, vt, return_lse=True, causal=causal)
+    kernels = (fa.flash_bwd_rowdot, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
+    n0 = [c.launches for c in kernels]
+    delta = fa.flash_bwd_rowdot(out, dot)
+    dk, dv = fa.flash_bwd_dkdv(qt, kt, vt, dot, lse, delta, causal=causal)
+    dq = fa.flash_bwd_dq(qt, kt, vt, dot, lse, delta, causal=causal)
+    assert [c.launches - n for c, n in zip(kernels, n0)] == [1, 1, 1]
+    torch.testing.assert_close(
+        delta, ref.flash_bwd_rowdot(out.transpose(1, 2), do), rtol=1e-4,
+        atol=1e-3)
+    wk, wv = ref.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal)
+    wq = ref.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    for got, want in zip((dq, dk, dv), (wq, wk, wv)):
+        _close_grad(got.transpose(1, 2), want)
+    if causal and S > T:
+        exact = ref.flash_attention_bwd(q, k, v, do, causal=causal)
+    else:
+        ts = [t.float().requires_grad_() for t in (q, k, v)]
+        ref.mha_attention(*ts, causal=causal).backward(do.float())
+        exact = [t.grad for t in ts]
+    for got, want in zip((dq, dk, dv), exact):
+        _close_grad(got.transpose(1, 2), want)
+    again = fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+
+
+def test_flash_autograd_on_the_card(dev):
+    """``ops.flash_attention`` under autograd: the kernel forward (with
+    its log-sum-exp) and the three backward launches, the gradients of
+    autograd through the plain version within TOL and GRAD_REL; a window
+    under grad
+    raises."""
+    from repro_torch.kernels import ref
+    q, k, v, do = _bwd_inputs(dev, 2, 8, 2, 200, 200, 128)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = (fa.flash_attention.launches, fa.flash_bwd_dq.launches)
+    ops.flash_attention(*ts, causal=True).backward(do)
+    assert (fa.flash_attention.launches - n0[0],
+            fa.flash_bwd_dq.launches - n0[1]) == (1, 1)
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    ref.mha_attention(*plain).backward(do.float())
+    for t, want in zip(ts, plain):
+        _close_grad(t.grad, want.grad)
+    with pytest.raises(ValueError, match="no window"):
+        ops.flash_attention(*ts, window=64)
+
+
+def test_kernels_without_a_backward_raise_under_grad(dev):
+    """No gradient is dropped without an error: every kernel wrapper
+    without a backward raises when an input requires grad and grad mode
+    is on (the flash forward's own wrapper too: its backward runs through
+    ``ops.flash_attention``), and runs under ``torch.no_grad``."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(0)
+    q = _bf16(rng, (2, 4, 64), dev)
+    cache = _bf16(rng, (2, 32, 2, 64), dev)
+    lengths = torch.tensor([5, 32], dtype=torch.int32, device=dev)
+    pages = _bf16(rng, (2, 5, 8, 64), dev)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    x, w = _bf16(rng, (2, 8, 64), dev), _bf16(rng, (2, 64, 32), dev)
+    w_down = _bf16(rng, (2, 32, 64), dev)
+    # two occupied 128 x 128 blocks, (kb, cb) = (0, 1) and (1, 0)
+    meta, _ = ops.build_block_meta(np.array([[0, 1], [1, 0]]))
+    wb, xp = _bf16(rng, (2, 128, 128), dev), _bf16(rng, (4, 256), dev)
+    payload, scales = ref.quantize_blocks(wb, "int8")
+    kv = cache.transpose(1, 2)
+    # (name, call, the input made to require grad)
+    cases = [
+        ("decode_attention", lambda t: ops.decode_attention(
+            t, cache, cache, lengths), q),
+        ("paged_decode_attention", lambda t: ops.paged_decode_attention(
+            t, pages, pages, table, lengths), q),
+        ("grouped_mvm", lambda t: ops.grouped_mvm(t, w), x),
+        ("moe_expert_ffn", lambda t: ops.moe_expert_ffn(x, t, w, w_down), w),
+        ("packed canvas", lambda t: ops.packed_canvas_matmul(xp, t, meta),
+         wb),
+        ("packed canvas epilogue", lambda t: ops.packed_canvas_matmul(
+            t, wb, meta, activation="gelu"), xp),
+        ("dequant", lambda t: ops.packed_canvas_matmul_dq(
+            t, payload, scales, meta, precision="int8"), xp),
+        ("flash_attention wrapper", lambda t: fa.flash_attention(t, kv, kv),
+         kv),
+    ]
+    for name, call, t in cases:
+        with torch.no_grad():
+            call(t.clone().requires_grad_())
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call(t.clone().requires_grad_())
+
+
+def test_olmo_train_step_kernels_match_the_plain_route(dev, monkeypatch):
+    """olmo-1b at full width cut to 2 layers, B 2 x 256 tokens, from the
+    same f32 masters on the card: the loss and every leaf's gradient
+    through the flash kernels (forward and backward) against the plain
+    route (autograd through ``ref.mha_attention``), the loss within the
+    bf16 TOL and each leaf within a relative Frobenius error of 2e-2; then
+    one ``make_train_step`` step each way, the losses equal within TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import compute_view, master_params
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2)
+    batch = {k: v.to(dev) for k, v in TokenStream(
+        cfg.vocab_size, 256, 2, seed=0).batch(0).items()}
+    init = master_params(T.init_params(cfg, seed=0, device=dev))
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(ops, "_plain", lambda impl, x: True)
+        n0 = fa.flash_bwd_dq.launches
+        params = {k: ({n: t.clone() for n, t in v.items()}
+                      if isinstance(v, dict) else v.clone())
+                  for k, v in init.items()}
+        flat = leaves(params)
+        for t in flat:
+            t.requires_grad_(True)
+        loss = T.loss_fn(cfg, compute_view(params), batch)
+        # olmo's non-parametric norms are empty leaves, outside the graph
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        step = make_train_step(cfg, lr=1e-3, warmup=2, total=10)
+        _, _, m = step(params, adamw_init(params), batch)
+        runs[route] = (float(loss.detach()),
+                       [g for g in grads if g is not None],
+                       float(m["loss"]), fa.flash_bwd_dq.launches - n0)
+    (lk, gk, mk, nk), (lp, gp, mp, np_) = runs["kernel"], runs["plain"]
+    assert (nk, np_) == (2 * cfg.num_layers, 0)
+    np.testing.assert_allclose(lk, lp, rtol=2e-2)
+    np.testing.assert_allclose(mk, mp, rtol=2e-2)
+    assert len(gk) == len(gp) > 0
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 2e-2
+
+
+def test_train_entry_point_refuses_without_cuda(dev, monkeypatch):
+    """With the card hidden, ``launch.train`` raises rather than training
+    on the CPU unasked."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])

@@ -594,6 +594,7 @@ def test_serve_hybrid_on_the_cpu(mode, capsys):
 def test_model_registry_serves_the_hybrid_family():
     api = get_model(get_config(ARCH).reduced())
     assert api.init_decode_state is G.init_decode_state
+    assert api.loss_fn is G.loss_fn
     assert api.prefill is G.prefill and api.decode_step is G.decode_step
     assert api.init_params is G.init_params and api.forward is G.forward
 

@@ -92,6 +92,19 @@ trace = multi_tenant_trace(tenants, 4, mean_interarrival=0.5,
 rep = FleetEngine(zoo, pcfg, pecfg, params, FleetConfig(n_replicas=2),
                   faults=FaultSchedule.parse("kill@2:r0")).run(trace)
 assert rep.requests_lost == 0 and len(rep.completed) == 4
+import tempfile
+import torch
+from repro_torch import checkpoint, data, optim  # noqa: F401
+from repro_torch.launch import steps, train  # noqa: F401
+cfg, params, opt, stream, step = train.build(
+    "olmo-1b", reduced=True, seq_len=16, batch=2, lr=3e-4, steps=1,
+    microbatches=1, device="cpu")
+params, opt, m = step(params, opt, stream.batch(0))
+assert int(opt.step) == 1 and bool(torch.isfinite(m["loss"]))
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.CheckpointManager(d).save(1, (params, opt))
+    (_, opt2), n = checkpoint.CheckpointManager(d).restore((params, opt))
+    assert n == 1 and torch.equal(opt2.m["embed"], opt.m["embed"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -159,6 +172,9 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         pack.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         canvas_from_jax(None, [[0], [0], [1], [1]])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
 
 
 def test_state_constructors_default_to_the_card(monkeypatch):
@@ -176,6 +192,9 @@ def test_state_constructors_default_to_the_card(monkeypatch):
     mla = get_config("deepseek-v2-lite-16b").reduced()
     gqa = get_config("olmoe-1b-7b").reduced()
     for make in (lambda: T.init_paged_decode_state(dense, 4, 8),
+                 lambda: T.init_decode_state(dense, 2, 8),
+                 lambda: T.init_decode_state(
+                     get_config("qwen2-vl-7b").reduced(), 2, 8),
                  lambda: L.paged_cache_init(2, 4, 8, 2, 16),
                  lambda: moe.init_decode_state(mla, 2, 8),
                  lambda: moe.init_decode_state(gqa, 2, 8),
@@ -195,6 +214,9 @@ def test_state_constructors_default_to_the_card(monkeypatch):
                                  device="cpu")
     assert st.wkv.shape == (2, 2, 4, 16, 16)
     assert st.wkv.dtype == torch.bfloat16 and st.wkv.device.type == "cpu"
+    st = T.init_decode_state(dense, 2, 8, device="cpu")
+    assert st.k.shape == (2, 2, 8, 2, 16) and st.pos == 0
+    assert st.v.dtype == torch.bfloat16 and st.v.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

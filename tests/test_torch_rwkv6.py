@@ -330,4 +330,5 @@ def test_serve_rwkv6_on_the_cpu(mode, capsys):
 def test_model_registry_serves_the_ssm_family():
     api = get_model(get_config(ARCH).reduced())
     assert api.init_decode_state is R.init_decode_state
+    assert api.loss_fn is R.loss_fn
     assert api.prefill is R.prefill and api.decode_step is R.decode_step
