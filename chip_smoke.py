@@ -182,7 +182,26 @@ into build/repro_torch/), then:
       plain attention called; ``main`` again resumes from step 12 and its
       step 13 loss equals the first run's bit for bit; then one step's
       breakdown (host enqueue against device busy, ms/step, tokens/s,
-      model FLOPs over 989 TFLOP/s, peak memory).
+      model FLOPs over 989 TFLOP/s, peak memory), and the digest of each
+      gradient leaf of step 1, so that two calls compare leaf by leaf;
+  (m0) holds the grouped GEMM's backward kernels (dX = dY w^T and dW =
+      x^T dY over each expert's live rows) against their plain versions
+      and, together, against autograd through ``ref.grouped_mvm`` in f32,
+      within TOL and GRAD_REL, at olmoe-1b-7b's training shapes (64
+      experts, C 640, D 2048 -> F 1024 and the down product),
+      deepseek-v2-lite-16b's (C 512, F 1408) and a C of 60, rows from a
+      seeded routing with one expert that has none; times each launch
+      beside its bound (live rows only), the plain version and
+      ``torch.bmm``'s product on the same inputs;
+  (m) trains olmoe-1b-7b at full width cut to 4 layers (1.88 B
+      parameters) for 10 steps and deepseek-v2-lite-16b cut to 2 layers
+      for 3 steps, B 8 x 512, through ``launch.train.build_config`` and
+      ``make_train_step`` (remat): every kernel counter zeroed just before
+      and read just after (per layer and step 6 grouped forward, 3 dX, 3
+      dW launches, and olmoe's flash as in (l)), no plain version called,
+      every loss and gradient norm finite, olmoe's loss falling, and
+      olmoe's step 1 run again equal bit for bit (loss, gradient norm and
+      every leaf's digest); then one step's breakdown of each.
 
 The script prints the seconds of each phase as it ends, and its total.
 The checkpoints of (l) go to a temporary directory under build/ beside
@@ -675,9 +694,11 @@ def device_busy(torch, fn) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def breakdown(torch, label: str, fn, steps: int = 4) -> None:
+def breakdown(torch, label: str, fn, steps: int = 4, part=None) -> None:
     """Where one call's time goes: host enqueue time, wall time, device
-    busy time (torch.profiler's kernel time), idle share, top kernels."""
+    busy time (torch.profiler's kernel time), idle share, top kernels;
+    ``part`` (a substring of kernel names) also prints those kernels'
+    summed time and share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -706,6 +727,10 @@ def breakdown(torch, label: str, fn, steps: int = 4) -> None:
              if busy else "not measured"), flush=True)
     for key, ms in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"    {ms:8.3f} ms  {key[:90]}")
+    if part and busy:
+        mine = sum(ms for key, ms in rows if part in key)
+        print(f"    {mine:8.3f} ms  every {part} kernel (share "
+              f"{mine / busy:.3f} of device busy)")
     return busy
 
 
@@ -1984,8 +2009,8 @@ def eager_fused(torch, be):
 
 def plain_calls(ref, L):
     """Wrap every plain version of a kernel of the eight, of the flash
-    backward (and the plain GQA attention) to count its calls; returns
-    (calls, restore)."""
+    and grouped GEMM backwards (and the plain GQA attention) to count its
+    calls; returns (calls, restore)."""
     plain = {"ref.mha_attention": (ref, "mha_attention"),
              "ref.decode_attention": (ref, "decode_attention"),
              "ref.paged_decode_attention": (ref, "paged_decode_attention"),
@@ -1993,7 +2018,7 @@ def plain_calls(ref, L):
              "layers.gqa_attention": (L, "gqa_attention"),
              **{f"ref.{n}": (ref, n) for n in (
                  "flash_attention_bwd", "flash_bwd_rowdot", "flash_bwd_dkdv",
-                 "flash_bwd_dq")}}
+                 "flash_bwd_dq", "grouped_mvm_bwd_dx", "grouped_mvm_bwd_dw")}}
     calls = dict.fromkeys(plain, 0)
     saved = {k: getattr(m, n) for k, (m, n) in plain.items()}
 
@@ -2644,6 +2669,7 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
     import tempfile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch import steps
     from repro_torch.optim.adamw import leaves
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2665,11 +2691,13 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
         for c in counters:
             c.launches = 0
         calls, restore = plain_calls(ref, L)
+        digests, undo_digests = first_gradients(steps)
         t0 = time.monotonic()
         try:
             out = run_captured(torch, lambda: train.main(argv))
         finally:
             restore()
+            undo_digests()
         wall = time.monotonic() - t0
         counts = {c.__name__: c.launches for c in counters}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2687,6 +2715,7 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
         print(f"  {line}")
     for line in resumed:
         print(f"  (resumed) {line}")
+    print_digests(cfg.name, digests)
     steps, layers = args.steps, cfg.num_layers
     want = {"flash_attention": 2 * layers * steps,
             **{f"flash_bwd_{n}": layers * steps
@@ -2765,6 +2794,282 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
     free_card(torch)
 
 
+def leaf_names(tree, prefix="") -> list:
+    """A param tree's leaf paths in ``optim.adamw.leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                             f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def leaf_digest(torch, t) -> str:
+    """An order-free digest of an f32 tensor's bits: the sum of its 32-bit
+    words as integers, modulo 2^64, in hex. One changed element changes
+    it, so two calls' digests tell which leaf first differs."""
+    words = t.detach().contiguous().view(-1).view(torch.int32)
+    total = sum(int(part.sum(dtype=torch.int64))
+                for part in words.split(1 << 26))
+    return f"{total % 2**64:016x}"
+
+
+def first_gradients(steps):
+    """Wrap ``steps.adamw_update`` so that its first call keeps the digest
+    of every gradient leaf, by path (the train step's gradients before the
+    clip, which ``adamw_update`` applies in place); returns (digests,
+    undo)."""
+    update, digests = steps.adamw_update, {}
+
+    def recorded(params, grads, opt, **kw):
+        if not digests:
+            import torch
+            for name, g in zip(leaf_names(params), grads):
+                digests[name] = leaf_digest(torch, g)
+        return update(params, grads, opt, **kw)
+    steps.adamw_update = recorded
+
+    def undo():
+        steps.adamw_update = update
+    return digests, undo
+
+
+def print_digests(label: str, digests: dict) -> None:
+    print(f"  {label} step-1 gradient digests (sum of f32 words mod 2^64): "
+          + ", ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
+
+
+# --- MoE training: the grouped GEMM's backward and the MoE train step -----------------
+
+# (label, E, C, D, F, routed tokens, top-k) of the grouped GEMM's backward:
+# the live rows of each expert come from a seeded top-k routing of that many
+# tokens (clamped to C), and one expert has none. olmoe-1b-7b's training
+# shapes at B 8 x 512 (C 640 of moe_dims; gate/up D 2048 -> F 1024, and the
+# down product), deepseek-v2-lite-16b's (C 512, F 1408), and a C off the
+# 128-row tile; the first is the kernels record's row
+GROUPED_BWD_SHAPES = (
+    ("olmoe gate/up", 64, 640, 2048, 1024, 4096, 8),
+    ("olmoe down", 64, 640, 1024, 2048, 4096, 8),
+    ("deepseek gate/up", 64, 512, 2048, 1408, 4096, 6),
+    ("ragged C=60", 64, 60, 2048, 1408, 48, 6),
+)
+
+
+def phase_grouped_bwd(torch, ops, gm, ref):
+    """(m0) the grouped GEMM's backward kernels (dX = dY w^T, dW = x^T dY
+    over the live rows) against their plain versions at the MoE training
+    shapes, each within TOL and GRAD_REL, and the two together against
+    autograd through ``ref.grouped_mvm`` in f32 from the same bf16 inputs;
+    dead rows of dX and the dW of an expert with none are zeros; a second
+    launch repeats bit for bit; ``ops.grouped_mvm`` under autograd runs
+    one dX and one dW launch with the same bits. Times each launch beside
+    its bound (live rows only), its plain version and ``torch.bmm``'s
+    product on the same inputs. Returns the two kernels' records
+    (launches filled in by (m))."""
+    print("== (m0) grouped GEMM backward vs plain versions", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    rows_out, errs, rels = {}, {"dx": 0.0, "dw": 0.0}, {"dx": 0.0, "dw": 0.0}
+    for label, E, C, D, F, tokens, k in GROUPED_BWD_SHAPES:
+        x = torch.randn((E, C, D), generator=gen, device=DEV
+                        ).to(torch.bfloat16)
+        w = (torch.randn((E, D, F), generator=gen, device=DEV) / D ** 0.5
+             ).to(torch.bfloat16)
+        dy = torch.randn((E, C, F), generator=gen, device=DEV
+                         ).to(torch.bfloat16)
+        rows = routed_rows(torch, gen, E, tokens, k).clamp_(max=C)
+        rows[1] = 0
+        got = {"dx": gm.grouped_mvm_bwd_dx(dy, w, rows),
+               "dw": gm.grouped_mvm_bwd_dw(x, dy, rows)}
+        torch.cuda.synchronize()
+        want = {"dx": ref.grouped_mvm_bwd_dx(dy, w, rows),
+                "dw": ref.grouped_mvm_bwd_dw(x, dy, rows)}
+        xf, wf = (t.float().requires_grad_() for t in (x, w))
+        ref.grouped_mvm(xf, wf, rows).backward(dy.float())
+        exact = {"dx": xf.grad, "dw": wf.grad}
+        res = {}
+        for kn in ("dx", "dw"):
+            assert torch.isfinite(got[kn]).all(), f"{label} {kn}: non-finite"
+            e1, r1 = compare_grad(torch, got[kn], want[kn], f"{label} {kn}")
+            e2, r2 = compare_grad(torch, got[kn], exact[kn],
+                                  f"{label} {kn} (autograd)")
+            errs[kn] = max(errs[kn], e1, e2)
+            rels[kn] = max(rels[kn], r1, r2)
+            res[kn] = (r1, r2)
+        dead = torch.arange(C, device=DEV)[None, :] >= rows[:, None]
+        assert not got["dx"][dead].any(), f"{label}: dX of a dead row"
+        assert not got["dw"][rows == 0].any(), f"{label}: dW of no rows"
+        assert torch.equal(gm.grouped_mvm_bwd_dx(dy, w, rows), got["dx"]) \
+            and torch.equal(gm.grouped_mvm_bwd_dw(x, dy, rows), got["dw"]), \
+            f"{label}: a second launch differs"
+        n0 = (gm.grouped_mvm_bwd_dx.launches, gm.grouped_mvm_bwd_dw.launches)
+        xa, wa = (t.clone().requires_grad_() for t in (x, w))
+        ops.grouped_mvm(xa, wa, rows).backward(dy)
+        assert (gm.grouped_mvm_bwd_dx.launches - n0[0],
+                gm.grouped_mvm_bwd_dw.launches - n0[1]) == (1, 1)
+        assert torch.equal(xa.grad, got["dx"]) and \
+            torch.equal(wa.grad, got["dw"]), f"{label}: autograd route"
+        del xf, wf, exact, xa, wa
+        t = {"dx": cuda_ms(torch, lambda: gm.grouped_mvm_bwd_dx(dy, w, rows)),
+             "dw": cuda_ms(torch, lambda: gm.grouped_mvm_bwd_dw(x, dy, rows))}
+        plain = {"dx": cuda_ms(torch, lambda: ref.grouped_mvm_bwd_dx(
+                     dy, w, rows), iters=3, warmup=1),
+                 "dw": cuda_ms(torch, lambda: ref.grouped_mvm_bwd_dw(
+                     x, dy, rows), iters=3, warmup=1)}
+        wt = w.transpose(1, 2)
+        xt = x.transpose(1, 2)
+        lib = {"dx": cuda_ms(torch, lambda: torch.bmm(dy, wt)),
+               "dw": cuda_ms(torch, lambda: torch.bmm(xt, dy))}
+        touched = int((rows > 0).sum())
+        n_rows = int(rows.sum())
+        flops = 2 * n_rows * D * F
+        nbytes = {"dx": (n_rows * F + touched * D * F + E * C * D) * 2,
+                  "dw": (n_rows * (D + F) + E * D * F) * 2}
+        bounds = {kn: bound(flops, nbytes[kn]) for kn in nbytes}
+        print(f"  {label} (E {E} C {C} D {D} F {F}; {touched} experts, "
+              f"{n_rows} rows live): " + "  ".join(
+                  f"{kn} {t[kn]:.4f} ms (bound {bounds[kn][0]:.4f} "
+                  f"{bounds[kn][1]}, plain {plain[kn]:.4f}, torch.bmm "
+                  f"{lib[kn]:.4f}; relative error {res[kn][0]:.2e} vs plain, "
+                  f"{res[kn][1]:.2e} vs f32 autograd)" for kn in t),
+              flush=True)
+        if not rows_out:
+            rows_out = {kn: dict(ms=t[kn], plain_ms=plain[kn],
+                                 bound_ms=bounds[kn][0],
+                                 bound_by=bounds[kn][1], library_ms=lib[kn])
+                        for kn in t}
+        del x, w, dy, got, want
+    free_card(torch)
+    src = "src/repro_torch/kernels/csrc/grouped_mvm.cu"
+    return [dict(name=f"grouped_mvm_bwd_{kn}", route="cuda", source=src,
+                 replaces="src/repro/kernels/packed_mvm.py:55",
+                 counter=getattr(gm, f"grouped_mvm_bwd_{kn}"),
+                 max_abs_err=errs[kn], max_rel_err=rels[kn], **rows_out[kn])
+            for kn in ("dx", "dw")]
+
+
+# (arch, layers, steps) of (m): full width, depth cut to fit one card's
+# training state (olmoe-1b-7b's 16 layers need ~111 GB; 4 hold 30.1 GB of
+# f32 masters, gradients and AdamW moments), B 8 x 512 synthetic tokens
+MOE_TRAIN = (("olmoe-1b-7b", 4, 10), ("deepseek-v2-lite-16b", 2, 3))
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 512, 8
+
+
+def moe_train_run(torch, train, cfg, n_steps: int):
+    """``train.build_config`` on the card, then ``n_steps`` steps from seed
+    0: [(loss, pre-clip gradient norm)] at full precision, and the last
+    (params, opt)."""
+    _, params, opt, stream, step = train.build_config(
+        cfg, seq_len=MOE_TRAIN_SEQ, batch=MOE_TRAIN_BATCH, lr=3e-4,
+        steps=n_steps, microbatches=1, device=DEV)
+    out = []
+    for i in range(n_steps):
+        params, opt, m = step(params, opt, stream.batch(i))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, (params, opt, stream, step)
+
+
+def phase_moe_train(torch, train, steps, ops, ref, L, grouped, bwd_kernels):
+    """(m) MoE training on the card through ``launch.train.build_config``
+    and ``make_train_step`` (remat, AdamW): olmoe-1b-7b (GQA-MoE, 64
+    experts top-8) at full width cut to 4 layers, 10 steps of B 8 x 512,
+    and deepseek-v2-lite-16b (MLA-MoE, top-6, 2 shared experts) cut to 2
+    layers, 3 steps. Every kernel counter is zeroed just before and read
+    just after: per layer and step 6 grouped forward launches (3, and 3
+    again in the recomputed block), 3 dX and 3 dW, and olmoe's 2 flash
+    forward and 1 of each flash backward launch, nothing else, and no
+    plain version called. Every loss and gradient norm is finite and
+    olmoe's loss falls; olmoe's step 1 run again from a fresh build gives
+    the same loss, gradient norm and gradient digests bit for bit. Then
+    one step's breakdown each (ms, tokens/s, host enqueue against device
+    busy, peak memory, top kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import leaves
+
+    counters = ops.launch_counters()
+    counts_main = None
+    for arch, n_layers, n_steps in MOE_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+        print(f"== (m) MoE training {cfg.name} at full width, {n_layers} "
+              f"layers, {n_steps} steps of B {MOE_TRAIN_BATCH} x "
+              f"{MOE_TRAIN_SEQ}", flush=True)
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        calls, restore = plain_calls(ref, L)
+        digests, undo = first_gradients(steps)
+        t0 = time.monotonic()
+        try:
+            record, state = moe_train_run(torch, train, cfg, n_steps)
+        finally:
+            restore()
+            undo()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(t.numel() for t in leaves(state[0]))
+        per = n_layers * n_steps
+        want = {"grouped_mvm": 6 * per, "grouped_mvm_bwd_dx": 3 * per,
+                "grouped_mvm_bwd_dw": 3 * per}
+        if cfg.mla is None:
+            want.update({"flash_attention": 2 * per,
+                         **{f"flash_bwd_{n}": per
+                            for n in ("rowdot", "dkdv", "dq")}})
+        print(f"  {n_params / 1e9:.3f} B parameters; losses "
+              f"{[round(l_, 4) for l_, _ in record]}; gradient norms "
+              f"{[round(g, 3) for _, g in record]}; launches {counts}; "
+              f"plain versions called {calls}; {wall:.1f} s with init; "
+              f"peak memory {peak:.1f} GiB", flush=True)
+        print_digests(cfg.name, digests)
+        assert counts == {k: want.get(k, 0) for k in counts}, counts
+        assert not any(calls.values()), calls
+        assert all(math.isfinite(v) for r in record for v in r), record
+        if arch == "olmoe-1b-7b":
+            counts_main = counts
+            assert record[-1][0] < record[0][0], record
+            del state
+            free_card(torch)
+            again, undo = first_gradients(steps)
+            try:
+                rec2, state = moe_train_run(torch, train, cfg, 1)
+            finally:
+                undo()
+            print(f"  step 1 again: loss {rec2[0][0]!r} / {record[0][0]!r}, "
+                  f"gradient norm {rec2[0][1]!r} / {record[0][1]!r}; "
+                  f"digests equal: {again == digests}", flush=True)
+            assert rec2[0] == record[0], (rec2, record[0])
+            assert again == digests, {k: (again[k], v)
+                                      for k, v in digests.items()
+                                      if again.get(k) != v}
+        params, opt, stream, step = state
+        batch = stream.batch(0)
+        box = [params, opt]
+
+        def one():
+            box[0], box[1], m = step(box[0], box[1], batch)
+            return m
+        busy = breakdown(torch, f"train step {cfg.name} {n_layers} layers "
+                         f"B={MOE_TRAIN_BATCH} S={MOE_TRAIN_SEQ}", one,
+                         steps=3, part="grouped_mvm")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(3):
+            m = one()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) / 3 * 1e3
+        tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+        print(f"  train step {ms:.1f} ms ({busy:.1f} ms device busy), "
+              f"{tokens / ms * 1e3:.0f} tokens/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; loss "
+              f"{float(m['loss']):.4f}", flush=True)
+        del state, params, opt, box, m, batch, step
+        free_card(torch)
+    for k in bwd_kernels:
+        del k["counter"]
+        k["launches"] = counts_main[k["name"]]
+        assert k["launches"] > 0, f"{k['name']} never ran on the main path"
+    grouped["launches_train"] = counts_main["grouped_mvm"]
+
+
 def init(torch, api, cfg):
     """Random weights of ``cfg`` from seed 0 on the card, timed."""
     t0 = time.monotonic()
@@ -2805,7 +3110,7 @@ def main(argv=None) -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import ref
     from repro_torch import checkpoint as ckpt
-    from repro_torch.launch import pack, serve, train
+    from repro_torch.launch import pack, serve, steps, train
     from repro_torch.planner import WeightMatrix, pack_canvas
 
     smi = subprocess.run(
@@ -2999,6 +3304,11 @@ def main(argv=None) -> int:
     phase_train(torch, train, ckpt, ops, ref, Lyr, kernels, bwd)
     lap("(l)")
     kernels += bwd
+    grouped_bwd = phase_grouped_bwd(torch, ops, gm, ref)
+    lap("(m0)")
+    phase_moe_train(torch, train, steps, ops, ref, Lyr, grouped, grouped_bwd)
+    lap("(m)")
+    kernels += grouped_bwd
     print(f"all phases {time.monotonic() - t_start:.0f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           " GiB")

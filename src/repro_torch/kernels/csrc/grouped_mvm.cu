@@ -482,6 +482,265 @@ grouped_mvm_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+// --- backward: dX and dW of the masked product (bf16) -----------------------------
+// The gradient of y[e] = x[e] w[e] over the live rows c < rows[e] of expert e:
+//
+//   dX[e] (C, D) = dY[e] (C, F) . w[e]^T        rows c >= rows[e] zero
+//   dW[e] (D, F) = x[e]^T (D, C) . dY[e] (C, F)  summed over c < rows[e] only
+//
+// Not a Pallas site: the reference differentiates jnp's einsum; the port's
+// training forward runs the kernels above, its gradient these two. Both take
+// the prefill instance's shape: a 128 x 128 output tile on 8 warps as 4 x 2
+// (a 32 x 64 piece each, mma.sync m16n8k16 bf16 -> f32), 64-deep chunks of
+// the summed axis through a three-stage cp.async ring with one barrier a
+// chunk, and one rounding at the flush. Each block writes its tile once:
+// nothing crosses blocks, there are no atomics, and a launch repeats bit for
+// bit.
+//
+// dX is an "NT" product: w[e] (D, F) row-major holds the F weights of each
+// output column d contiguous, which is the column-major B operand of
+// mma.sync ...row.col as it is stored. So its chunk is staged [d][f] like the
+// dY chunk [c][f] and both are read by plain ldmatrix: no transposed copy of
+// w. A block per (expert, 128-row c-tile, 128-column d-tile) walks F; rows
+// past the live count are zero-filled, a warp whose 32 rows are all dead
+// skips its products, and a tile wholly past them writes zeros and reads no
+// weight (an expert with no rows reads none).
+//
+// dW is a "TN" product: a block per (expert, 128-row d-tile, 128-column
+// f-tile) walks the expert's live rows itself, 64 a chunk, x's chunk staged
+// [c][d] and read transposed by ldmatrix .trans as the A operand, dY's [c][f]
+// read as the forward reads its w chunk. An expert with no live rows writes
+// zeros and reads nothing.
+//
+// Bound: at training size (olmoe-1b-7b: 64 experts, C 640, D 2048, F 1024;
+// about 512 live rows an expert) each is bound by its 2 x live rows x D x F
+// multiply-adds, about 8 times its bytes at the card's balance point.
+
+constexpr int BWD_ROW = MMA_KC + 8;                // padded 64-deep row, elements
+constexpr int DX_TILE = BLK * BWD_ROW * 2;         // 128 rows x 72: 18,432 bytes
+constexpr int DX_STAGE = 2 * DX_TILE;
+constexpr int DX_SMEM = MMA_STAGES * DX_STAGE;     // 110,592: two blocks a SM
+constexpr int DW_TILE = MMA_KC * SROW * 2;         // 64 rows x 136: 17,408 bytes
+constexpr int DW_STAGE = 2 * DW_TILE;
+constexpr int DW_SMEM = MMA_STAGES * DW_STAGE;     // 104,448: two blocks a SM
+
+// The 4 x 2 warps' (128, 128) tile of f32 sums, rounded to bf16 into a
+// row-major (rows, cols) matrix with leading dimension ``ld``: fragment (row
+// g | g + 8, columns 2t, 2t + 1) of each tile, g = lane / 4, t = lane % 4;
+// cols % 8 == 0 keeps column pairs whole.
+__device__ __forceinline__ void flush_tile(const float (&acc)[2][8][4],
+                                           __nv_bfloat16* __restrict__ out,
+                                           int r0, int c0, int rows, int cols,
+                                           int ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int col = c0 + wn * 64 + ni * 8 + (lane & 3) * 2;
+      if (col >= cols) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + wm * 32 + mi * 16 + (lane >> 2) + h * 8;
+        if (row < rows)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ld + col) =
+              __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(THREADS)
+grouped_mvm_dx_kernel(const __nv_bfloat16* __restrict__ dy,
+                      const __nv_bfloat16* __restrict__ w,
+                      __nv_bfloat16* __restrict__ dx,
+                      const int32_t* __restrict__ rows, int C, int D, int F) {
+  constexpr int NS = MMA_STAGES, CH = MMA_KC / 8;  // 16-byte copies a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int e = blockIdx.z, c0 = blockIdx.x * MMA_BM, d0 = blockIdx.y * BLK;
+  const int live = live_rows(rows, e, C);
+  if (c0 >= live) {                // no live row here: no weight is read
+    zero_tile(dx, e, c0, MMA_BM, C, d0, BLK, D);
+    return;
+  }
+  const __nv_bfloat16* dye = dy + (size_t)e * C * F;
+  const __nv_bfloat16* we = w + (size_t)e * D * F;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;         // 32-row, 64-column piece
+  const bool busy = c0 + wm * 32 < live;           // any live row in the piece
+  const int nk = (F + MMA_KC - 1) / MMA_KC;
+  // stage F columns [k0, k0 + 64) of dY's live rows and of w's d-tile rows
+  auto prefetch = [&](int kc) {
+    const int k0 = kc * MMA_KC;
+    uint8_t* ad = smem + (kc % NS) * DX_STAGE;
+    uint8_t* bd = ad + DX_TILE;
+    for (int i = tid; i < MMA_BM * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH, col = k0 + c * 8;
+      const bool oka = c0 + r < live && col < F, okb = d0 + r < D && col < F;
+      cp16(ad + (r * BWD_ROW + c * 8) * 2,
+           dye + (oka ? (size_t)(c0 + r) * F + col : 0), oka);
+      cp16(bd + (r * BWD_ROW + c * 8) * 2,
+           we + (okb ? (size_t)(d0 + r) * F + col : 0), okb);
+    }
+  };
+
+  float acc[2][8][4];                              // [m16 tile][n8 tile][4]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) prefetch(s);
+    cp_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_wait<NS - 2>();
+    // chunk kc is visible to all; every warp is done with chunk kc - 1,
+    // whose slot the prefetch below refills
+    __syncthreads();
+    if (kc + NS - 1 < nk) prefetch(kc + NS - 1);
+    cp_commit();
+    if (!busy) continue;
+    const __nv_bfloat16* as =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (kc % NS) * DX_STAGE);
+    const __nv_bfloat16* bs = as + DX_TILE / 2;
+#pragma unroll
+    for (int kk = 0; kk < MMA_KC; kk += 16) {
+      uint32_t a[2][4];
+      // A = dY: lane l addresses row l % 16, columns kk + 8 (l / 16)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], as + (wm * 32 + mi * 16 + (lane & 15)) * BWD_ROW + kk +
+                           (lane >> 4) * 8);
+      // B = w^T, stored [d][f] (n-major, k contiguous): matrices (n 0-7 |
+      // 8-15) x (k 0-7 | 8-15) give b0b1 / b2b3 of two n8 tiles
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        ldsm_x4(b, bs + (wn * 64 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                            BWD_ROW + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma16816(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  // rows past the live count hold zeros (their dY rows were zero-filled, or
+  // the warp skipped its products)
+  flush_tile(acc, dx + (size_t)e * C * D, c0, d0, C, D, D);
+}
+
+__global__ void __launch_bounds__(THREADS)
+grouped_mvm_dw_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ dy,
+                      __nv_bfloat16* __restrict__ dw,
+                      const int32_t* __restrict__ rows, int C, int D, int F) {
+  constexpr int NS = MMA_STAGES, CH = BLK / 8;     // 16-byte copies a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int e = blockIdx.z, f0 = blockIdx.x * BLK, d0 = blockIdx.y * BLK;
+  const int live = live_rows(rows, e, C);
+  if (live == 0) {                 // no token chose this expert
+    zero_tile(dw, e, d0, BLK, D, f0, BLK, F);
+    return;
+  }
+  const __nv_bfloat16* xe = x + (size_t)e * C * D;
+  const __nv_bfloat16* dye = dy + (size_t)e * C * F;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;         // 32-row, 64-column piece
+  const int nk = (live + MMA_KC - 1) / MMA_KC;     // the live rows only
+  // stage live rows [k0, k0 + 64) of x's d-tile and of dY's f-tile
+  auto prefetch = [&](int kc) {
+    const int k0 = kc * MMA_KC;
+    uint8_t* ad = smem + (kc % NS) * DW_STAGE;
+    uint8_t* bd = ad + DW_TILE;
+    for (int i = tid; i < MMA_KC * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH, row = k0 + r;
+      const bool oka = row < live && d0 + c * 8 < D;
+      const bool okb = row < live && f0 + c * 8 < F;
+      cp16(ad + (r * SROW + c * 8) * 2,
+           xe + (oka ? (size_t)row * D + d0 + c * 8 : 0), oka);
+      cp16(bd + (r * SROW + c * 8) * 2,
+           dye + (okb ? (size_t)row * F + f0 + c * 8 : 0), okb);
+    }
+  };
+
+  float acc[2][8][4];                              // [m16 tile][n8 tile][4]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) prefetch(s);
+    cp_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_wait<NS - 2>();
+    // chunk kc is visible to all; every warp is done with chunk kc - 1,
+    // whose slot the prefetch below refills
+    __syncthreads();
+    if (kc + NS - 1 < nk) prefetch(kc + NS - 1);
+    cp_commit();
+    const __nv_bfloat16* as =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (kc % NS) * DW_STAGE);
+    const __nv_bfloat16* bs = as + DW_TILE / 2;
+#pragma unroll
+    for (int kk = 0; kk < MMA_KC; kk += 16) {
+      // A = x^T, stored [c][d] (k-major): matrix j = lane / 8 is (d +8 (j &
+      // 1), c +8 (j / 2)), read transposed
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4_t(a[mi], as + (kk + (lane >> 4) * 8 + (lane & 7)) * SROW +
+                             wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
+      // B = dY, stored [c][f] (k-major rows), transposed as the forward's w
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bs + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * SROW +
+                         wn * 64 + nj * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma16816(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  flush_tile(acc, dw + (size_t)e * D * F, d0, f0, D, F, F);
+}
+
+// One backward launch: the kernel's shared-memory limit set on its first
+// launch (``configured`` is the kernel's own), a grid of (x tiles, y tiles,
+// E) blocks.
+template <typename Kernel>
+cudaError_t launch_bwd(Kernel kernel, bool& configured, int bytes, dim3 grid,
+                       const void* a, const void* b, void* out,
+                       const int32_t* rows, int C, int D, int F,
+                       cudaStream_t stream) {
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<__nv_bfloat16*>(out), rows, C, D, F);
+  return cudaGetLastError();
+}
+
 // Sets the kernel's dynamic shared memory limit on its first launch (a
 // stream capture must not be the first) and launches the (c-tiles,
 // f-tiles, E) grid, c-tiles fastest. ``configured`` is the kernel's own.
@@ -573,4 +832,32 @@ extern "C" int grouped_mvm_launch(const void* x, const void* w, void* y,
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// dX (E, C, D) = dY (E, C, F) . w^T over the live rows, bf16; rows as
+// grouped_mvm_launch's. Returns cudaError_t.
+extern "C" int grouped_mvm_bwd_dx_launch(const void* dy, const void* w,
+                                         void* dx, const void* rows, int E,
+                                         int C, int D, int F, void* stream) {
+  static_assert(DX_SMEM <= SMEM_MAX, "shared memory over the per-block limit");
+  static bool configured = false;
+  if (E > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((C + MMA_BM - 1) / MMA_BM, (D + BLK - 1) / BLK, E);
+  return launch_bwd(grouped_mvm_dx_kernel, configured, DX_SMEM, grid, dy, w,
+                    dx, static_cast<const int32_t*>(rows), C, D, F,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// dW (E, D, F) = x^T . dY summed over the live rows, bf16; an expert with
+// none gets zeros. Returns cudaError_t.
+extern "C" int grouped_mvm_bwd_dw_launch(const void* x, const void* dy,
+                                         void* dw, const void* rows, int E,
+                                         int C, int D, int F, void* stream) {
+  static_assert(DW_SMEM <= SMEM_MAX, "shared memory over the per-block limit");
+  static bool configured = false;
+  if (E > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((F + BLK - 1) / BLK, (D + BLK - 1) / BLK, E);
+  return launch_bwd(grouped_mvm_dw_kernel, configured, DW_SMEM, grid, x, dy,
+                    dw, static_cast<const int32_t*>(rows), C, D, F,
+                    static_cast<cudaStream_t>(stream));
 }

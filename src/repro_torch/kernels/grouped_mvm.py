@@ -22,7 +22,16 @@ D and F where the reference shrank its tiles to divisors.
 
 The plain version is ``ref.grouped_mvm``; ``ops`` picks between them by the
 tensors' device. This wrapper only launches: it takes CUDA tensors and
-raises on anything the kernel does not take.
+raises on anything the kernel does not take, and on an input that
+requires grad (its gradient runs through ``ops.grouped_mvm``).
+
+``grouped_mvm_bwd_dx`` / ``grouped_mvm_bwd_dw`` launch the backward
+kernels of the same file (no Pallas site: the reference differentiates
+jnp): dX = dY w^T and dW = x^T dY over the live rows, bf16 on the tensor
+cores, each output tile written once by one block (no atomics), bound by
+the multiply-adds at training size. Their plain versions are
+``ref.grouped_mvm_bwd_dx`` / ``ref.grouped_mvm_bwd_dw``; ``ops`` runs
+them from its autograd function ``_GroupedMVM``.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def block_rows(C: int, dtype) -> int:
@@ -70,12 +80,7 @@ def grouped_mvm(x, w, rows=None):
                          f"{tuple(w.shape)} are not (E, C, D), (E, D, F)")
     E, C, D = x.shape
     F = w.shape[2]
-    if rows is not None and (rows.device != x.device
-                             or rows.dtype != torch.int32
-                             or rows.shape != (E,)
-                             or not rows.is_contiguous()):
-        raise ValueError(f"grouped_mvm: rows must be a contiguous ({E},) "
-                         f"int32 tensor on {x.device}")
+    _check_rows("grouped_mvm", rows, E, x.device)
     vec = 16 // x.element_size()
     if D % vec or F % vec:
         raise ValueError(f"grouped_mvm: D ({D}) and F ({F}) must be "
@@ -95,4 +100,77 @@ def grouped_mvm(x, w, rows=None):
     return y
 
 
+def _check_rows(what, rows, E, device):
+    if rows is not None and (rows.device != device
+                             or rows.dtype != torch.int32
+                             or rows.shape != (E,)
+                             or not rows.is_contiguous()):
+        raise ValueError(f"{what}: rows must be a contiguous ({E},) int32 "
+                         f"tensor on {device}")
+
+
+def _bwd_launch(wrapper, a, b, out_shape, rows, dims):
+    """Check a backward launch's bf16 operands ``a`` and ``b``, allocate
+    its output, launch the C entry named after ``wrapper`` with (E, C, D,
+    F) = ``dims`` and count the launch on ``wrapper``."""
+    what = wrapper.__name__
+    _build.refuse_grad(what, a, b)
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: the backward kernels take bfloat16, "
+                             f"got {t.dtype}; call the plain version "
+                             f"(ref.{what}) for float32")
+        if t.device.type != "cuda" or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: need a contiguous, 16-byte aligned "
+                             f"CUDA tensor, got one on {t.device}")
+    E, C, D, F = dims
+    _check_rows(what, rows, E, a.device)
+    if D % 8 or F % 8:
+        raise ValueError(f"{what}: D ({D}) and F ({F}) must be multiples "
+                         f"of 8")
+    if E > 65535:
+        raise ValueError(f"{E} experts exceed the grid")
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=a.device)
+    if out.numel():
+        fn = _build.function("grouped_mvm", f"{what}_launch", _BWD_ARGS)
+        _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        None if rows is None else rows.data_ptr(), E, C, D,
+                        F, torch.cuda.current_stream(a.device).cuda_stream),
+                     what)
+        wrapper.launches += 1
+    return out
+
+
+def grouped_mvm_bwd_dx(dy, w, rows=None):
+    """dX (E, C, D) = dY (E, C, F) @ w[e]^T, f32 sums, one rounding to
+    bf16; rows c >= rows[e] come out zero and their dY rows are never
+    read, nor the weights of an expert with none. dy and w: contiguous
+    bf16 CUDA tensors, w (E, D, F); D and F multiples of 8."""
+    if dy.dim() != 3 or w.dim() != 3 or w.shape[0] != dy.shape[0] \
+            or w.shape[2] != dy.shape[2]:
+        raise ValueError(f"grouped_mvm_bwd_dx: dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} are not (E, C, F), (E, D, F)")
+    E, C, F = dy.shape
+    D = w.shape[1]
+    return _bwd_launch(grouped_mvm_bwd_dx, dy, w, (E, C, D), rows,
+                       (E, C, D, F))
+
+
+def grouped_mvm_bwd_dw(x, dy, rows=None):
+    """dW (E, D, F) = x[e]^T @ dY[e] summed over the live rows c <
+    rows[e] only, f32 sums, one rounding to bf16; an expert with no rows
+    gets zeros and reads nothing. x (E, C, D) and dy (E, C, F):
+    contiguous bf16 CUDA tensors; D and F multiples of 8."""
+    if x.dim() != 3 or dy.dim() != 3 or x.shape[:2] != dy.shape[:2]:
+        raise ValueError(f"grouped_mvm_bwd_dw: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} are not (E, C, D), (E, C, F)")
+    E, C, D = x.shape
+    F = dy.shape[2]
+    return _bwd_launch(grouped_mvm_bwd_dw, x, dy, (E, D, F), rows,
+                       (E, C, D, F))
+
+
 grouped_mvm.launches = 0
+grouped_mvm_bwd_dx.launches = 0
+grouped_mvm_bwd_dw.launches = 0

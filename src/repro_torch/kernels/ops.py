@@ -2,9 +2,10 @@
 
 A CUDA tensor launches the Hopper kernel (or the kernel wrapper raises);
 a CPU tensor takes the plain PyTorch version in ``ref``. Under autograd
-the plain versions differentiate as any torch code and flash attention
-through its backward kernels; every other kernel raises when an input
-requires grad (it has no backward yet). ``impl="ref"``
+the plain versions differentiate as any torch code, flash attention
+through its backward kernels and the grouped expert GEMM through its
+dX / dW kernels; every other kernel raises when an input requires grad
+(it has no backward yet). ``impl="ref"``
 asks for the plain version on any device — the tests and
 ``chip_smoke.py``'s kernel-vs-plain comparisons use it.
 """
@@ -110,12 +111,38 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 # --- grouped MoE GEMM --------------------------------------------------------------
 
+class _GroupedMVM(torch.autograd.Function):
+    """The grouped expert GEMM kernel and its hand-written backward: the
+    dX kernel (dY w^T) and the dW kernel (x^T dY), both over the live
+    ``rows`` only, as the forward masks them."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows):
+        ctx.save_for_backward(x, w, rows)
+        return _gm.grouped_mvm(x, w, rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rows = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _gm.grouped_mvm_bwd_dx(dy, w, rows) \
+            if ctx.needs_input_grad[0] else None
+        dw = _gm.grouped_mvm_bwd_dw(x, dy, rows) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
 def grouped_mvm(x, w, rows=None, *, impl: str = "kernel"):
     """x (E, C, D) @ w (E, D, F) -> (E, C, F), f32 accumulation, one
     rounding to x's dtype. ``rows`` ((E,) int32, or None for all C):
-    expert e's rows past rows[e] come out zero and are never read."""
+    expert e's rows past rows[e] come out zero and are never read.
+    Differentiable on either path: the plain version through autograd,
+    the kernel through its dX / dW kernels (``_GroupedMVM``, bf16) when
+    grad mode is on and x or w requires grad."""
     if _plain(impl, x):
         return ref.grouped_mvm(x, w, rows)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMVM.apply(x, w, rows)
     return _gm.grouped_mvm(x, w, rows)
 
 
@@ -123,7 +150,8 @@ def moe_expert_ffn(xe, w_gate, w_up, w_down, rows=None, *,
                    impl: str = "kernel"):
     """SwiGLU over dispatched expert inputs xe (E, C, D): silu(xe @ Wg) *
     (xe @ Wu), then @ Wd, each product rounded to xe's dtype; ``rows``
-    as ``grouped_mvm``'s, passed to all three products."""
+    as ``grouped_mvm``'s, passed to all three products. Differentiable
+    as ``grouped_mvm`` is."""
     h = torch.nn.functional.silu(grouped_mvm(xe, w_gate, rows, impl=impl)) \
         * grouped_mvm(xe, w_up, rows, impl=impl)
     return grouped_mvm(h, w_down, rows, impl=impl)
@@ -181,4 +209,5 @@ def launch_counters() -> tuple:
             _fa.flash_attention, _gm.grouped_mvm, _pc._packed_canvas_matmul,
             _pc._packed_canvas_epilogue, _dq._matmul_dq,
             _dq._matmul_dq_epilogue, _fa.flash_bwd_rowdot,
-            _fa.flash_bwd_dkdv, _fa.flash_bwd_dq)
+            _fa.flash_bwd_dkdv, _fa.flash_bwd_dq, _gm.grouped_mvm_bwd_dx,
+            _gm.grouped_mvm_bwd_dw)

@@ -163,6 +163,33 @@ def grouped_mvm(x, w, rows=None):
     return y.to(x.dtype)
 
 
+def _live(t, rows):
+    """``t`` (E, C, ...) with the rows c >= rows[e] of expert e zeroed
+    (all rows where ``rows`` is None), in f32."""
+    t = t.float()
+    if rows is None:
+        return t
+    c = torch.arange(t.shape[1], device=t.device)
+    return torch.where((c[None, :] < rows.to(t.device)[:, None])[..., None],
+                       t, 0.0)
+
+
+def grouped_mvm_bwd_dx(dy, w, rows=None):
+    """The dX kernel's plain version: dX (E, C, D) = dY (E, C, F) @ W[e]^T
+    over the live rows, f32 products and sums, one rounding to dY's
+    dtype; rows c >= rows[e] come out zero. With ``grouped_mvm_bwd_dw``,
+    the gradient of ``grouped_mvm(x, w, rows)``'s output."""
+    return torch.bmm(_live(dy, rows), w.float().transpose(1, 2)).to(dy.dtype)
+
+
+def grouped_mvm_bwd_dw(x, dy, rows=None):
+    """The dW kernel's plain version: dW (E, D, F) = X[e]^T @ dY[e] summed
+    over the live rows c < rows[e] only, f32 products and sums, one
+    rounding to x's dtype; an expert with no rows gets zeros."""
+    return torch.bmm(_live(x, rows).transpose(1, 2),
+                     _live(dy, rows)).to(x.dtype)
+
+
 # --- attention -------------------------------------------------------------------
 
 def mha_attention(q, k, v, *, causal=True, window=0, scale=None):

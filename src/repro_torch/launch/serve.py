@@ -340,6 +340,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="codeqwen1.5-7b")
     ap.add_argument("--full", action="store_true",
                     help="published width (default: the reduced config)")
+    ap.add_argument("--mesh", default="host", choices=("host", "pod"),
+                    help="host: one device; pod (the reference's "
+                         "production mesh) waits for the mesh slice")
     ap.add_argument("--mode", default="auto",
                     choices=("auto", "engine", "static", "pool", "fleet"),
                     help="auto: the engine where the config has a backend, "
@@ -407,6 +410,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the sharded meshes wait for the port's "
+            f"mesh/sharding/dryrun slice (ROADMAP, Queue 1); the port "
+            f"serves on one device")
     if args.mode == "pool":
         return run_pool(args)
     if args.mode == "fleet":

@@ -32,10 +32,6 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
     metrics {"loss", "grad_norm", "lr"} (0-d tensors on the device and a
     float)."""
     api = get_model(cfg)
-    if api.loss_fn is None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no training loss in "
-            f"the port yet (ROADMAP, Queue 1)")
     lr_fn = cosine_schedule(lr, warmup, total)
 
     def grads_of(params, flat, batch):

@@ -7,15 +7,22 @@ weights random f32 masters from seed 0. Without ``--full`` the reduced
 config trains; ``--full`` trains the published config on one card
 (olmo-1b, the default, needs about 19 GB of f32 params, grads and AdamW
 state). On the card the flash attention of the forward runs its kernel
-and differentiates through the hand-written backward kernels. The MoE
-family has no training loss in the port yet (its expert GEMM has no
-backward): ``make_train_step`` refuses it. ``--mesh pod|multipod`` (the
-reference's sharded meshes) waits for the multi-GPU slice (ROADMAP,
-Queue 1). Resumes from the newest checkpoint in ``--ckpt-dir`` when it
-holds one. Returns 0 when the last loss is below the first.
+and differentiates through the hand-written backward kernels, and a MoE
+model's (``--arch olmoe-1b-7b`` or ``deepseek-v2-lite-16b``) expert
+products run the grouped GEMM kernel and differentiate through its dX /
+dW kernels; its loss adds 0.01 x the load-balance loss, as the
+reference's does. The full MoE configs need more training state than
+one 80 GB card holds (olmoe-1b-7b's 16 layers about 111 GB);
+``build_config`` builds a run from any config, such as one cut in depth.
+``--mesh pod|multipod`` (the reference's sharded meshes) waits for the
+multi-GPU slice (ROADMAP, Queue 1). Resumes from the newest checkpoint
+in ``--ckpt-dir`` when it holds one. Returns 0 when the last loss is
+below the first.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 20 --seq-len 32 --batch 4 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --device cpu --steps 20 --seq-len 32 --batch 4 --ckpt-dir build/ckpt_moe
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20 \\
       --seq-len 512 --batch 8 --ckpt-dir build/ckpt_full
 """
@@ -43,13 +50,19 @@ from .steps import make_train_step
 def build(arch: str, *, reduced: bool, seq_len: int, batch: int, lr: float,
           steps: int, microbatches: int, seed: int = 0, device="cuda"):
     """(cfg, f32 master params, AdamW state, token stream, step function
-    taking (params, opt, batch of host tensors)) on ``device``. The
-    masters are the model's random init, drawn in its serving dtypes and
-    widened to f32."""
-    dev = resolve_device(device)
+    taking (params, opt, batch of host tensors)) on ``device`` for
+    ``arch``, its reduced config where ``reduced``: ``build_config``."""
     cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
+    return build_config(cfg.reduced() if reduced else cfg, seq_len=seq_len,
+                        batch=batch, lr=lr, steps=steps,
+                        microbatches=microbatches, seed=seed, device=device)
+
+
+def build_config(cfg, *, seq_len: int, batch: int, lr: float, steps: int,
+                 microbatches: int, seed: int = 0, device="cuda"):
+    """``build`` from a config: the masters are the model's random init
+    from ``seed``, drawn in its serving dtypes and widened to f32."""
+    dev = resolve_device(device)
     params = master_params(get_model(cfg).init_params(cfg, seed=seed,
                                                       device=dev))
     opt = adamw_init(params)

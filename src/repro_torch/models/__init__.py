@@ -1,8 +1,9 @@
 """Models of the port: the dense decoder-only transformer (with the vlm
 backbone), the MoE decoders (MLA and GQA), RWKV-6, Griffin (the hybrid
 RG-LRU + local attention family) and the whisper encoder-decoder,
-behind ``get_model(cfg)`` (the reference's registry; the MoE family's
-training loss waits for its own slice, so its ``loss_fn`` is None)."""
+behind ``get_model(cfg)`` (the reference's registry): every family has
+the reference's ``loss_fn``, the MoE family's with the load-balance
+loss."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from . import griffin, moe, rwkv6, transformer, whisper
 class ModelApi:
     init_params: Callable
     forward: Callable
-    loss_fn: Callable | None             # None: the family cannot train yet
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     init_decode_state: Callable
@@ -33,7 +34,7 @@ def get_model(cfg) -> ModelApi:
                          f"{sorted(_FAMILIES)}")
     mod = _FAMILIES[cfg.family]
     return ModelApi(init_params=mod.init_params, forward=mod.forward,
-                    loss_fn=getattr(mod, "loss_fn", None),
+                    loss_fn=mod.loss_fn,
                     prefill=mod.prefill,
                     decode_step=mod.decode_step,
                     init_decode_state=mod.init_decode_state)

@@ -1,6 +1,7 @@
 """Model building blocks of the port (``repro.models.layers`` without
-its sharding hints and the MoE training router: dense, vlm, MoE, ssm and
-encoder-decoder serving, and the training loss), in PyTorch.
+its sharding hints and the one-hot MoE oracle ``moe_router`` /
+``moe_ffn_dense``: dense, vlm, MoE, ssm and encoder-decoder serving, and
+training: the loss, the MoE load-balance loss, remat), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -305,8 +306,70 @@ def moe_dims_dropless(cfg, n_tokens: int) -> MoEDims:
     return MoEDims(m.num_experts, m.top_k, max(n_tokens, 4))
 
 
+class _Dispatch(torch.autograd.Function):
+    """The MoE dispatch: x (N, D) into a flat (R, D) expert batch, zeros
+    but row ``row[i]`` = x[src[i]] for each claim i in expert order (the
+    last row R - 1 is the trash of dropped claims). Its backward sums each
+    token's K claim rows (``row_nk`` (N, K), its claims' rows in token
+    order) in ascending row, so expert, order: one gather and K - 1 adds
+    in x's dtype, as the forward's combine adds. Autograd's own backward
+    of ``x[src]`` would sort every index to scatter-add them."""
+
+    @staticmethod
+    def forward(ctx, x, src, row, row_nk, R):
+        ctx.save_for_backward(row_nk)
+        out = torch.zeros((R, x.shape[1]), dtype=x.dtype, device=x.device)
+        out[row] = x[src]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (row_nk,) = ctx.saved_tensors
+        ordered = torch.sort(row_nk, dim=-1).values
+        gx = g[ordered[:, 0]]
+        for k in range(1, ordered.shape[1]):
+            gx = gx + g[ordered[:, k]]
+        return gx, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The MoE combine's gather: the expert outputs ye (R - 1, D) at each
+    token's claim rows ``row_nk`` (N, K) -> (N, K, D), the trash row R - 1
+    reading zeros. The rows of kept claims are distinct, so the backward
+    writes each claim's gradient to its row (the trash row's is dropped):
+    no scatter-add, no sort."""
+
+    @staticmethod
+    def forward(ctx, ye, row_nk):
+        ctx.save_for_backward(row_nk)
+        ctx.rows = ye.shape[0]
+        pad = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))])
+        return pad[row_nk]
+
+    @staticmethod
+    def backward(ctx, g):
+        (row_nk,) = ctx.saved_tensors
+        out = g.new_zeros((ctx.rows + 1, g.shape[-1]))
+        out[row_nk.reshape(-1)] = g.reshape(-1, g.shape[-1])
+        return out[:-1], None
+
+
+def load_balance_loss(probs, gate_idx, num_experts: int):
+    """The Switch-style auxiliary load-balancing loss of the reference's
+    ``_load_balance_loss``: E x sum over experts of (mean router
+    probability) x (share of tokens whose top-1 pick it is), in f32. The
+    top-1 counts come from a ``scatter_add_`` (no host read); only the
+    mean probabilities carry a gradient."""
+    N = probs.shape[0]
+    top1 = gate_idx[:, 0]
+    hits = torch.zeros(num_experts, dtype=torch.float32,
+                       device=probs.device).scatter_add_(
+        0, top1, torch.ones_like(top1, dtype=torch.float32))
+    return num_experts * torch.sum(probs.float().mean(0) * (hits / N))
+
+
 def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
-            return_keep=False):
+            return_keep=False, return_aux=False):
     """Sort/scatter dispatch -> grouped SwiGLU -> combine, on one device
     (the reference's ``moe_ffn`` with one data-parallel group).
 
@@ -316,7 +379,9 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     ``keep_override`` ((N, k) bool) replays a recorded drop population:
     forced-drop claims never queue, forced-keep claims take positions
     counted over the forced-keep claims only. ``return_keep`` appends the
-    realized (N, k) keep mask.
+    realized (N, k) keep mask, then ``return_aux`` the 0-d f32
+    ``load_balance_loss`` of this routing (training asks for it; serving
+    does not, so its device work is unchanged).
 
     Every step stays on the device with no host read: expert counts come
     from a ``scatter_add_`` (``bincount`` would read its max back), the
@@ -357,18 +422,16 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     # row e * C + pos of the flat (E * C + 1, D) batch; dropped claims go
     # to the trash row E * C, which the expert batch never sees
     row = torch.where(keep, e_sorted * C + pos, E * C)
-    xe = torch.zeros((E * C + 1, D), dtype=x2d.dtype, device=dev)
-    xe[row] = x2d[t_flat[order]]
+    inv = torch.argsort(order)
+    row_nk = row[inv].reshape(N, K)             # (token, slot) order
+    xe = _Dispatch.apply(x2d, t_flat[order], row, row_nk, E * C + 1)
     rows = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
         0, e_sorted, keep.to(torch.int32))
     ye = ops.moe_expert_ffn(xe[:E * C].view(E, C, D), p["w_gate"],
                             p["w_up"], p["w_down"], rows)       # (E, C, D)
-    ye = torch.cat([ye.view(E * C, D),
-                    torch.zeros((1, D), dtype=ye.dtype, device=dev)])
     # back to (token, slot) order, then each token's slots by expert id
-    inv = torch.argsort(order)
     keep_nk = keep[inv].reshape(N, K)
-    y_nk = ye[row[inv]].reshape(N, K, D)
+    y_nk = _Combine.apply(ye.view(E * C, D), row_nk)
     w_nk = (gate_vals * keep_nk).to(x2d.dtype)
     by_expert = torch.argsort(gate_idx, dim=-1)
     contrib = torch.gather(y_nk * w_nk[..., None], 1,
@@ -376,9 +439,9 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     y = contrib[:, 0]
     for k in range(1, K):
         y = y + contrib[:, k]
-    if return_keep:
-        return y, keep_nk
-    return y
+    out = (y, *((keep_nk,) if return_keep else ()),
+           *((load_balance_loss(probs, gate_idx, E),) if return_aux else ()))
+    return out if len(out) > 1 else y
 
 
 def init_moe_params(cfg, d_model: int, gen, device):

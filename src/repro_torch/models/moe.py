@@ -23,6 +23,12 @@ Routing: the full-sequence paths take the exact-length expert capacity
 (``route_keep``) a prompt's drop population; decode is dropless. The
 latent-page (paged) paths serve the MLA branch only: GQA-MoE is static-
 only, as in the reference.
+
+Training: ``loss_fn`` is the reference's, cross-entropy plus 0.01 x the
+load-balance loss averaged over layers; the blocks walk per-layer views
+of the stacked leaves and, with ``remat``, are recomputed in the
+backward, where the expert products differentiate through the grouped
+GEMM's dX / dW kernels.
 """
 
 from __future__ import annotations
@@ -178,35 +184,63 @@ def _causal_attend(cfg, q_lat, q_rope, latents):
 
 # --- MoE tail --------------------------------------------------------------------
 
-def _moe_ffn_tail(cfg, p, y, dims, route_keep=None, return_keep=False):
+def _moe_ffn_tail(cfg, p, y, dims, route_keep=None, return_keep=False,
+                  return_aux=False):
     """Second half of every block: norm -> routed experts (+ shared
     experts) -> residual. ``route_keep`` (B, S, k) replays a drop
-    population; ``return_keep`` also returns the realized one."""
+    population. Returns (y, the realized keep mask (B, S, k) where
+    ``return_keep`` else None, the load-balance loss where ``return_aux``
+    else None)."""
     _, norm = L.make_norm(cfg)
     B, S, D = y.shape
     h2 = norm(y, p["ln2"]).to(L.COMPUTE_DTYPE).reshape(B * S, D)
     mp = p["moe"]
     out = L.moe_ffn(h2, mp, dims, keep_override=None if route_keep is None
                     else route_keep.reshape(B * S, -1),
-                    return_keep=return_keep)
-    ff = out[0] if return_keep else out
+                    return_keep=return_keep, return_aux=return_aux)
+    out = out if isinstance(out, tuple) else (out,)
+    ff = out[0]
     if cfg.moe.num_shared_experts:
         ff = ff + L.swiglu(h2, mp["shared_gate"], mp["shared_up"],
                            mp["shared_down"])
     res = y + ff.reshape(B, S, D).to(y.dtype)
-    if return_keep:
-        return res, out[1].reshape(B, S, -1)
-    return res
+    keep = out[1].reshape(B, S, -1) if return_keep else None
+    return res, keep, out[-1] if return_aux else None
 
 
 # --- full sequence -------------------------------------------------------------------
 
-def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
-           return_kv=False, return_keep=False):
-    """The blocks over whole sequences, causal. Returns (hidden (B, S,
-    D), the cache rows or None — MLA: latents (L, B, S, r + dr); GQA:
-    (k, v) each (L, B, S, KV, dh) — and keeps (L, B, S, k) or None)."""
+def _block(cfg, p, x, rope, dims, route_keep, return_keep, return_aux):
+    """One block over whole sequences, causal: (y, its cache rows — MLA:
+    latents (B, S, r + dr); GQA: (k, v) each (B, S, KV, dh) —, keep or
+    None, aux or None)."""
     _, norm = L.make_norm(cfg)
+    if cfg.mla is None:
+        q, k, v = _qkv(cfg, p, x, rope)
+        y = _gqa_out(cfg, p, x, ops.flash_attention(q, k, v, causal=True))
+        kv = (k, v)
+    else:
+        h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
+        q_lat, q_rope, kv = _mla_in(cfg, p, h, rope)
+        y = _mla_out(cfg, p, x, _causal_attend(cfg, q_lat, q_rope, kv))
+    y, keep, aux = _moe_ffn_tail(cfg, p, y, dims, route_keep=route_keep,
+                                 return_keep=return_keep,
+                                 return_aux=return_aux)
+    return y, kv, keep, aux
+
+
+def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
+           return_kv=False, return_keep=False, return_aux=False,
+           remat=False):
+    """The blocks over whole sequences, causal, each block's params a
+    view of the stacked leaves (``layers.layer_views``: one gradient a
+    leaf, not a full-size one a layer). ``remat`` recomputes each block
+    in the backward (``layers.checkpointed``); the recomputation routes
+    as the first pass did: the same inputs, so the same router product,
+    ``topk`` and stable sort. Returns (hidden (B, S, D), the cache rows or
+    None — MLA: latents (L, B, S, r + dr); GQA: (k, v) each (L, B, S, KV,
+    dh) —, keeps (L, B, S, k) or None, the mean over layers of the
+    load-balance loss or None)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -217,45 +251,51 @@ def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
     if route_capacity is not None:
         dims = dataclasses.replace(dims, capacity=route_capacity)
     x = _embed(params, tokens)
-    kvs, keeps = [], []
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        if cfg.mla is None:
-            q, k, v = _qkv(cfg, p, x, rope)
-            y = _gqa_out(cfg, p, x, ops.flash_attention(q, k, v,
-                                                        causal=True))
-            kv = (k, v)
-        else:
-            h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
-            q_lat, q_rope, kv = _mla_in(cfg, p, h, rope)
-            y = _mla_out(cfg, p, x, _causal_attend(cfg, q_lat, q_rope, kv))
-        out = _moe_ffn_tail(cfg, p, y, dims, route_keep=None
-                            if route_keep is None else route_keep[i],
-                            return_keep=return_keep)
-        x = out[0] if return_keep else out
-        if return_keep:
-            keeps.append(out[1])
+    kvs, keeps, auxs = [], [], []
+    for i, p in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
+        x, kv, keep, aux = L.checkpointed(
+            _block, cfg, p, x, rope, dims,
+            None if route_keep is None else route_keep[i], return_keep,
+            return_aux, remat=remat)
+        keeps.append(keep)
+        auxs.append(aux)
         if return_kv:
             kvs.append(kv)
     if return_kv:
         kvs = torch.stack(kvs) if cfg.mla is not None else \
             tuple(torch.stack(t) for t in zip(*kvs))
     return (x, kvs if return_kv else None,
-            torch.stack(keeps) if return_keep else None)
+            torch.stack(keeps) if return_keep else None,
+            torch.stack(auxs).mean() if return_aux else None)
 
 
-def forward(cfg, params, batch, *, route_capacity=None, route_keep=None,
-            return_route_keep=False):
-    """Logits (B, S, V) f32 for batch["tokens"] (B, S). ``route_capacity``
-    overrides the expert-capacity ceiling (serving passes the exact-length
-    one of a padded prompt); ``route_keep`` (L, B, S, k) replays a
-    recorded drop population; ``return_route_keep`` also returns the
-    realized (L, B, S, k) one."""
-    x, _, keeps = _trunk(cfg, params, batch, route_capacity=route_capacity,
-                         route_keep=route_keep,
-                         return_keep=return_route_keep)
-    logits = _head(cfg, params, x)
-    return (logits, keeps) if return_route_keep else logits
+def forward(cfg, params, batch, *, remat=False, return_aux=False,
+            route_capacity=None, route_keep=None, return_route_keep=False):
+    """Logits (B, S, V) f32 for batch["tokens"] (B, S). ``remat``
+    recomputes each block in the backward; ``return_aux`` also returns
+    the load-balance loss averaged over layers (the reference's ``aux``).
+    ``route_capacity`` overrides the expert-capacity ceiling (serving
+    passes the exact-length one of a padded prompt); ``route_keep`` (L,
+    B, S, k) replays a recorded drop population; ``return_route_keep``
+    also returns the realized (L, B, S, k) one. Extra outputs in the
+    reference's order: (logits, aux, keeps)."""
+    x, _, keeps, aux = _trunk(cfg, params, batch,
+                              route_capacity=route_capacity,
+                              route_keep=route_keep,
+                              return_keep=return_route_keep,
+                              return_aux=return_aux, remat=remat)
+    out = (_head(cfg, params, x), *((aux,) if return_aux else ()),
+           *((keeps,) if return_route_keep else ()))
+    return out if len(out) > 1 else out[0]
+
+
+def loss_fn(cfg, params, batch, *, remat=True, aux_coef=0.01):
+    """The reference's MoE training loss: mean next-token cross-entropy
+    (with the z-loss) of batch["tokens"] against batch["labels"] (B, S),
+    plus ``aux_coef`` x the load-balance loss averaged over layers."""
+    logits, aux = forward(cfg, params, batch, remat=remat, return_aux=True)
+    return torch.mean(L.softmax_xent(logits, batch["labels"])) \
+        + aux_coef * aux
 
 
 # --- static decode -------------------------------------------------------------------
@@ -287,7 +327,7 @@ def prefill(cfg, params, batch, cache_len: int):
     cache of ``cache_len`` positions, return the last position's logits
     (B, V) and the state."""
     B, S = batch["tokens"].shape
-    x, kv, _ = _trunk(cfg, params, batch, return_kv=True)
+    x, kv, _, _ = _trunk(cfg, params, batch, return_kv=True)
     logits = _head(cfg, params, x[:, -1:])[:, 0]
     if cfg.mla is not None:
         kv = torch.nn.functional.pad(kv.to(L.COMPUTE_DTYPE),
@@ -328,7 +368,7 @@ def decode_step(cfg, params, state: MoEDecodeState, tokens):
             state.kv[i, :, pos] = latent[:, 0].to(state.kv.dtype)
             cache = state.kv[i, :, :pos + 1].to(L.COMPUTE_DTYPE)
             y = _mla_out(cfg, p, x, _mla_attend(cfg, q_lat, q_rope, cache))
-        x = _moe_ffn_tail(cfg, p, y, dims)
+        x = _moe_ffn_tail(cfg, p, y, dims)[0]
     state.pos = pos + 1
     return _head(cfg, params, x)[:, 0], state
 
@@ -368,9 +408,10 @@ def paged_prefill(cfg, params, batch, lengths, *, route_capacity=None,
     ``route_keep`` replays a recorded drop population (re-prefill after
     preemption)."""
     _need_mla(cfg)
-    x, kv, keeps = _trunk(cfg, params, batch, route_capacity=route_capacity,
-                          route_keep=route_keep, return_kv=True,
-                          return_keep=True)
+    x, kv, keeps, _ = _trunk(cfg, params, batch,
+                             route_capacity=route_capacity,
+                             route_keep=route_keep, return_kv=True,
+                             return_keep=True)
     return (_head(cfg, params, _last(x, lengths))[:, 0],
             kv.to(L.COMPUTE_DTYPE), keeps)
 
@@ -402,7 +443,7 @@ def _mla_paged_block(cfg, p, x, rope, pages, page_table, page_ids, offsets,
     valid = (torch.arange(T, device=x.device)[None, :]
              <= pos[:, None])[:, None, None, :]
     y = _mla_out(cfg, p, x, _mla_attend(cfg, q_lat, q_rope, g, valid))
-    return _moe_ffn_tail(cfg, p, y, dims)
+    return _moe_ffn_tail(cfg, p, y, dims)[0]
 
 
 def paged_decode_step(cfg, params, state: MoEPagedState, tokens,

@@ -17,6 +17,7 @@ tokens that dropless decode kept.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import importlib.util
@@ -334,22 +335,113 @@ def flat(tree, prefix="") -> dict:
     return out
 
 
-def reference_loss_and_grads(jcfg, jp, nb, *, remat=False, eager=False):
+def reference_loss_and_grads(jcfg, jp, nb, *, remat=False, eager=False,
+                             routes=None):
     """The reference's ``jax.value_and_grad`` of its ``loss_fn``: (loss,
-    {path: f64 grad}). ``eager``: op by op (``jax.disable_jit``)."""
+    {path: f64 grad}). ``eager``: op by op (``jax.disable_jit``);
+    ``routes``: op by op with its MoE layers' expert choices taken from
+    ``routes`` (``reference_routes``)."""
     api = jget_model(jcfg)
     batch = {k: jnp.asarray(v) for k, v in nb.items()}
 
     def run():
         return jax.value_and_grad(
             lambda p: api.loss_fn(jcfg, p, batch, remat=remat))(jp)
-    if eager:
+    if routes is not None:
+        with reference_routes(routes), jax.disable_jit():
+            loss, g = run()
+    elif eager:
         with jax.disable_jit():
             loss, g = run()
     else:
         loss, g = run()
     return float(loss), {k: np.asarray(v, np.float64)
                          for k, v in flat(g).items()}
+
+
+# --- MoE routing: near a tie, the two packages may pick different experts ----------
+
+@contextlib.contextmanager
+def port_routes():
+    """Record each call of the port's ``layers.moe_ffn`` while the block
+    runs: a list of (router probabilities (N, E), expert choices (N, k)),
+    as numpy, computed as ``moe_ffn`` computes them."""
+    from repro_torch.models import layers as L
+
+    seen, moe_ffn = [], L.moe_ffn
+
+    def recorded(x2d, p, dims, **kw):
+        with torch.no_grad():
+            probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+            seen.append((probs.numpy(),
+                         torch.topk(probs, dims.top_k, dim=-1)[1].numpy()))
+        return moe_ffn(x2d, p, dims, **kw)
+    L.moe_ffn = recorded
+    try:
+        yield seen
+    finally:
+        L.moe_ffn = moe_ffn
+
+
+class _PinnedTopK:
+    """``jax.lax`` whose ``top_k`` returns the next recorded choices (and
+    the probabilities it was given at them), recording what it saw."""
+
+    def __init__(self, picks, seen):
+        self.picks, self.seen = list(picks), seen
+
+    def __getattr__(self, name):
+        return getattr(jax.lax, name)
+
+    def top_k(self, probs, k):
+        if not isinstance(probs, jax.core.Tracer):
+            self.seen.append(np.asarray(probs))
+        idx = jnp.asarray(self.picks.pop(0))
+        assert idx.shape == (probs.shape[0], k), idx.shape
+        return jnp.take_along_axis(probs, idx, axis=-1), idx
+
+
+@contextlib.contextmanager
+def reference_routes(picks):
+    """Op by op (use with ``jax.disable_jit``, so each MoE layer calls
+    ``top_k`` once, in order), the reference's ``moe_ffn`` routes its
+    tokens to ``picks`` (one (N, k) array a call, e.g. the port's from
+    ``port_routes``) instead of its own top-k; yields the list of the
+    router probabilities it computed (calls outside a gradient trace).
+    Every pick must be used."""
+    import repro.models.layers as JL
+
+    shim = _PinnedTopK(picks, [])
+    JL.lax = shim
+    try:
+        yield shim.seen
+    finally:
+        JL.lax = jax.lax
+    assert not shim.picks, f"{len(shim.picks)} routes left unused"
+
+
+def routes_differ_at_ties_only(port, reference_probs) -> int:
+    """Each token whose chosen experts differ between the port's routing
+    and the reference's own top-k of its probabilities (computed on the
+    same routing history) must sit at a near-tie: the reference's margin
+    between its k-th and (k+1)-th probability at most twice the largest
+    difference of the two packages' probabilities at that token, which
+    is when rounding can reorder them; and no probability may differ by
+    more than 1e-2 (a few bf16 quanta). Returns the number of such
+    tokens."""
+    flips = 0
+    for (probs, idx), ref_probs in zip(port, reference_probs, strict=True):
+        k = idx.shape[1]
+        order = np.argsort(-ref_probs, axis=-1, kind="stable")
+        differ = np.any(np.sort(order[:, :k], -1) != np.sort(idx, -1), -1)
+        ranked = np.take_along_axis(ref_probs, order, axis=-1)
+        margin = ranked[:, k - 1] - ranked[:, k]
+        dp = np.abs(probs - ref_probs).max(-1)
+        assert dp.max() <= 1e-2, dp.max()
+        assert np.all(margin[differ] <= 2 * dp[differ]), (margin[differ],
+                                                          dp[differ])
+        flips += int(differ.sum())
+    return flips
 
 
 def port_loss_and_grads(cfg, jp, nb, *, remat=False):

@@ -990,8 +990,10 @@ def test_flash_autograd_on_the_card(dev):
 def test_kernels_without_a_backward_raise_under_grad(dev):
     """No gradient is dropped without an error: every kernel wrapper
     without a backward raises when an input requires grad and grad mode
-    is on (the flash forward's own wrapper too: its backward runs through
-    ``ops.flash_attention``), and runs under ``torch.no_grad``."""
+    is on (the flash forward's and the grouped GEMM's own wrappers too:
+    their backwards run through ``ops.flash_attention`` and
+    ``ops.grouped_mvm``, and the grouped backward's wrappers have none of
+    their own), and runs under ``torch.no_grad``."""
     from repro_torch.kernels import ref
     rng = np.random.default_rng(0)
     q = _bf16(rng, (2, 4, 64), dev)
@@ -1004,6 +1006,7 @@ def test_kernels_without_a_backward_raise_under_grad(dev):
     # two occupied 128 x 128 blocks, (kb, cb) = (0, 1) and (1, 0)
     meta, _ = ops.build_block_meta(np.array([[0, 1], [1, 0]]))
     wb, xp = _bf16(rng, (2, 128, 128), dev), _bf16(rng, (4, 256), dev)
+    dy = _bf16(rng, (2, 8, 32), dev)
     payload, scales = ref.quantize_blocks(wb, "int8")
     kv = cache.transpose(1, 2)
     # (name, call, the input made to require grad)
@@ -1012,8 +1015,10 @@ def test_kernels_without_a_backward_raise_under_grad(dev):
             t, cache, cache, lengths), q),
         ("paged_decode_attention", lambda t: ops.paged_decode_attention(
             t, pages, pages, table, lengths), q),
-        ("grouped_mvm", lambda t: ops.grouped_mvm(t, w), x),
-        ("moe_expert_ffn", lambda t: ops.moe_expert_ffn(x, t, w, w_down), w),
+        ("grouped_mvm wrapper", lambda t: gm.grouped_mvm(t, w), x),
+        ("grouped_mvm_bwd_dx", lambda t: gm.grouped_mvm_bwd_dx(t, w_down),
+         x),
+        ("grouped_mvm_bwd_dw", lambda t: gm.grouped_mvm_bwd_dw(x, t), dy),
         ("packed canvas", lambda t: ops.packed_canvas_matmul(xp, t, meta),
          wb),
         ("packed canvas epilogue", lambda t: ops.packed_canvas_matmul(
@@ -1085,3 +1090,137 @@ def test_train_entry_point_refuses_without_cuda(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--steps", "1"])
+
+
+# --- MoE training: the grouped GEMM's backward, an olmoe train step ---------------
+
+# (E, C, D, F): ragged rows (one expert with none, one full) past one
+# 128-row tile, D and F off the 128 grid, C under one tile, and olmoe-1b-7b's
+# training shape (C 640 at B 8 x 512)
+GROUPED_BWD_CASES = [
+    (4, 130, 64, 32),
+    (3, 60, 200, 72),
+    (8, 256, 256, 136),
+    (64, 640, 2048, 1024),
+]
+
+
+def _grouped_bwd_inputs(dev, E, C, D, F, seed=3):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, C + 1, E)
+    rows[:2] = (0, C)
+    return (_bf16(rng, (E, C, D), dev),
+            (_bf16(rng, (E, D, F), dev).float() / D ** 0.5).to(torch.bfloat16),
+            _bf16(rng, (E, C, F), dev),
+            torch.tensor(rows, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("E,C,D,F", GROUPED_BWD_CASES)
+def test_grouped_backward_kernels_match_plain(dev, E, C, D, F):
+    """The dX and dW kernels against their plain versions on the same bf16
+    inputs and, together, against autograd through ``ref.grouped_mvm`` in
+    f32, within TOL and GRAD_REL; dead rows of dX and the dW of an expert
+    with no rows are zeros (dY and x are not zero there); one launch each;
+    bit-for-bit repeatable (no atomics)."""
+    from repro_torch.kernels import ref
+    x, w, dy, rows = _grouped_bwd_inputs(dev, E, C, D, F)
+    n0 = (gm.grouped_mvm_bwd_dx.launches, gm.grouped_mvm_bwd_dw.launches)
+    dx = gm.grouped_mvm_bwd_dx(dy, w, rows)
+    dw = gm.grouped_mvm_bwd_dw(x, dy, rows)
+    assert (gm.grouped_mvm_bwd_dx.launches - n0[0],
+            gm.grouped_mvm_bwd_dw.launches - n0[1]) == (1, 1)
+    assert dx.shape == (E, C, D) and dw.shape == (E, D, F)
+    _close_grad(dx, ref.grouped_mvm_bwd_dx(dy, w, rows))
+    _close_grad(dw, ref.grouped_mvm_bwd_dw(x, dy, rows))
+    xf, wf = (t.float().requires_grad_() for t in (x, w))
+    ref.grouped_mvm(xf, wf, rows).backward(dy.float())
+    _close_grad(dx, xf.grad)
+    _close_grad(dw, wf.grad)
+    dead = torch.arange(C, device=dev)[None, :] >= rows[:, None]
+    assert not dx[dead].any() and not dw[0].any()
+    assert torch.equal(gm.grouped_mvm_bwd_dx(dy, w, rows), dx)
+    assert torch.equal(gm.grouped_mvm_bwd_dw(x, dy, rows), dw)
+    full_dx = gm.grouped_mvm_bwd_dx(dy, w)
+    _close_grad(full_dx, ref.grouped_mvm_bwd_dx(dy, w))
+
+
+def test_grouped_autograd_on_the_card(dev):
+    """``ops.grouped_mvm`` and ``ops.moe_expert_ffn`` under autograd on the
+    card: the forward kernel and one dX and one dW launch a product, the
+    gradients of autograd through the plain products on the same bf16
+    inputs (each product f32 with one rounding, as the kernels) within
+    TOL and GRAD_REL; an input that needs no gradient costs no launch;
+    the backward kernels take bf16 only."""
+    E, C, D, F = 8, 200, 256, 136
+    x, w, dy, rows = _grouped_bwd_inputs(dev, E, C, D, F, seed=4)
+    rng = np.random.default_rng(5)
+    wg, wu = w, (_bf16(rng, (E, D, F), dev).float() / D ** 0.5
+                 ).to(torch.bfloat16)
+    wd = (_bf16(rng, (E, F, D), dev).float() / F ** 0.5).to(torch.bfloat16)
+    g = _bf16(rng, (E, C, D), dev)
+    counters = (gm.grouped_mvm, gm.grouped_mvm_bwd_dx, gm.grouped_mvm_bwd_dw)
+    n0 = [c.launches for c in counters]
+    ts = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    ops.moe_expert_ffn(*ts, rows).backward(g)
+    assert [c.launches - n for c, n in zip(counters, n0)] == [3, 3, 3]
+    plain = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    ops.moe_expert_ffn(*plain, rows, impl="ref").backward(g)
+    for t, want in zip(ts, plain):
+        _close_grad(t.grad, want.grad)
+    n0 = [c.launches for c in counters]
+    wa = w.clone().requires_grad_()
+    ops.grouped_mvm(x, wa, rows).backward(dy)
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 0, 1]
+    assert torch.equal(wa.grad, gm.grouped_mvm_bwd_dw(x, dy, rows))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.grouped_mvm(x.float(), w.float().requires_grad_()).backward(
+            dy.float())
+
+
+def test_olmoe_train_step_kernels_match_the_plain_route(dev, monkeypatch):
+    """olmoe-1b-7b at full width (64 experts, top-8) cut to 2 layers, B 2 x
+    128 tokens, from the same f32 masters on the card: the loss and every
+    leaf's gradient through the kernels (flash and grouped GEMM, forward
+    and backward, remat) against the plain route, the loss within the
+    bf16 TOL and each leaf within a relative Frobenius error of 2e-2; the
+    kernel route launches 3 dX and 3 dW a layer, the plain route none;
+    then one ``make_train_step`` step each way, the losses equal within
+    TOL. A token at a routing near-tie may take another expert on one
+    route than on the other: one of 256 tokens' claims moves a stacked
+    expert leaf's gradient by well under the bound."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import compute_view, master_params
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=2)
+    batch = {k: v.to(dev) for k, v in TokenStream(
+        cfg.vocab_size, 128, 2, seed=0).batch(0).items()}
+    init = master_params(moe.init_params(cfg, seed=0, device=dev))
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(ops, "_plain", lambda impl, x: True)
+        n0 = (gm.grouped_mvm_bwd_dx.launches, gm.grouped_mvm_bwd_dw.launches)
+        params = copy.deepcopy(init)
+        flat = leaves(params)
+        for t in flat:
+            t.requires_grad_(True)
+        loss = moe.loss_fn(cfg, compute_view(params), batch)
+        grads = torch.autograd.grad(loss, flat)
+        step = make_train_step(cfg, lr=1e-3, warmup=2, total=10)
+        _, _, m = step(params, adamw_init(params), batch)
+        runs[route] = (float(loss.detach()), grads, float(m["loss"]),
+                       (gm.grouped_mvm_bwd_dx.launches - n0[0],
+                        gm.grouped_mvm_bwd_dw.launches - n0[1]))
+    (lk, gk, mk, nk), (lp, gp, mp, np_) = runs["kernel"], runs["plain"]
+    assert nk == (2 * 3 * cfg.num_layers,) * 2 and np_ == (0, 0)
+    np.testing.assert_allclose(lk, lp, rtol=2e-2)
+    np.testing.assert_allclose(mk, mp, rtol=2e-2)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 2e-2

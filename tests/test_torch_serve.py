@@ -267,3 +267,54 @@ def test_full_zoo_that_cannot_fit_the_card_raises_first(monkeypatch):
         serve.main(["--mode", "pool", "--full"])
     with pytest.raises(RuntimeError, match="GB free"):
         serve.main(["--mode", "fleet", "--full"])
+
+
+class _Parsed(Exception):
+    """Carries the namespace an entry point's parser produced."""
+
+
+def _reference_args(monkeypatch, argv) -> argparse.Namespace:
+    """The reference's ``serve.main`` flags for ``argv``, as its own parser
+    reads them (its ``main`` parses inline, then builds a mesh): the
+    parse is intercepted before anything runs."""
+    parse = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        raise _Parsed(parse(self, args, namespace))
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(_Parsed) as got:
+        jserve.main(argv)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    return got.value.args[0]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "host"],
+    ["--mesh", "host", "--mode", "static", "--batch", "3", "--gen", "4"],
+    ["--mesh", "pod", "--mode", "pool", "--policy", "round_robin"]])
+def test_serve_parses_the_reference_mesh_flag(monkeypatch, argv):
+    """``--mesh`` takes the reference's choices and default (host): every
+    flag the reference's parser reads, the port's reads the same (the
+    port's parser already turns ``--requests`` 0 into 3 x ``--batch``,
+    which the reference does after parsing)."""
+    want = vars(_reference_args(monkeypatch, argv))
+    got = vars(serve.parse_args(argv))
+    assert want["mesh"] == argv[1] and want["requests"] == 0
+    want["requests"] = 3 * want["batch"]
+    assert {k: got[k] for k in want} == want
+    assert serve.parse_args([]).mesh == "host"
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--mesh", "multipod"])
+
+
+def test_serve_runs_on_the_host_mesh_and_refuses_pod(capsys):
+    """``--mesh host`` (the reference's default spelled out) serves as
+    without the flag; ``--mesh pod`` raises, naming the mesh slice."""
+    argv = ["--mode", "static", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "5", "--gen", "3", "--greedy"]
+    assert serve.main(["--mesh", "host", *argv]) == 0
+    header, rows = _parse(capsys.readouterr().out,
+                          get_config("codeqwen1.5-7b").vocab_size)
+    assert header.startswith("arch=codeqwen1.5-7b") and len(rows) == 2
+    with pytest.raises(NotImplementedError, match="mesh"):
+        serve.main(["--mesh", "pod", *argv])

@@ -41,15 +41,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import (LOSS_RTOL, flat,  # noqa: E402
-                           port_loss_and_grads, reference_loss_and_grads,
-                           train_batch)
+                           port_loss_and_grads, port_routes,
+                           reference_loss_and_grads, reference_routes,
+                           routes_differ_at_ties_only, train_batch)
 from repro.configs import get_config as jget  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import get_model as jget_model  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.optim import adamw_init as jadamw_init  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import compute_view, params_from_jax  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
@@ -60,9 +61,10 @@ from repro_torch.optim import adamw_init  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 TOL32 = dict(rtol=1e-4, atol=1e-5)
 #: one config a family: dense (and dense with qkv biases), vlm, ssm,
-#: hybrid, encdec
+#: hybrid, encdec, MoE with GQA and with MLA (and shared experts)
 ARCHS = ["olmo-1b", "codeqwen1.5-7b", "qwen2-vl-7b", "rwkv6-7b",
-         "recurrentgemma-9b", "whisper-tiny"]
+         "recurrentgemma-9b", "whisper-tiny", "olmoe-1b-7b",
+         "deepseek-v2-lite-16b"]
 GRAD_REL = 2e-2
 #: the most the reference's own spread may widen GRAD_REL to
 GRAD_REL_CAP = 5e-2
@@ -108,35 +110,55 @@ def test_softmax_xent_matches_reference():
 
 
 def test_model_registry_trains_every_family_but_moe():
-    """``ModelApi`` has the reference's training entry: ``loss_fn`` for
-    dense, vlm, ssm, hybrid and encdec (None for MoE, whose training
-    waits), and dense and vlm have ``init_decode_state``."""
+    """``ModelApi`` has the reference's training entry for every family,
+    MoE included: ``loss_fn`` is the family module's (the MoE one adds the
+    load-balance loss), ``make_train_step`` takes each, and dense, vlm
+    and MoE have their ``init_decode_state``."""
     from repro_torch.models import griffin, moe, rwkv6, transformer, whisper
     for arch, mod in (("olmo-1b", transformer), ("qwen2-vl-7b", transformer),
                       ("rwkv6-7b", rwkv6), ("recurrentgemma-9b", griffin),
-                      ("whisper-tiny", whisper)):
-        api = get_model(get_config(arch).reduced())
+                      ("whisper-tiny", whisper), ("olmoe-1b-7b", moe),
+                      ("deepseek-v2-lite-16b", moe)):
+        cfg = get_config(arch).reduced()
+        api = get_model(cfg)
         assert api.loss_fn is mod.loss_fn
         assert api.init_decode_state is mod.init_decode_state
-    api = get_model(get_config("olmoe-1b-7b").reduced())
-    assert api.loss_fn is None and api.init_decode_state is \
-        moe.init_decode_state
-    with pytest.raises(NotImplementedError, match="moe family"):
-        make_train_step(get_config("olmoe-1b-7b").reduced())
+        assert jget_model(jget(arch).reduced()).loss_fn is not None
+        assert callable(make_train_step(cfg))
 
 
 # --- every family's loss and gradients ------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch):
+    """The loss within the bf16 TOL and each leaf's gradient within the
+    module's bound. A MoE model's router may pick other experts than the
+    reference's for a token at a near-tie, as the reference's own two runs
+    may (the finding behind ``close_to_reference``); one token moved
+    between experts moves those experts' gradients by a few percent. So
+    its gradients are held against the reference routed as the port
+    routed (``reference_routes``, op by op), and every token routed
+    otherwise must be a near-tie (``routes_differ_at_ties_only``)."""
     jcfg, cfg, jp = _setup(arch)
     nb = train_batch(cfg)
     jl, jg = reference_loss_and_grads(jcfg, jp, nb)
     _, jg_eager = reference_loss_and_grads(jcfg, jp, nb, eager=True)
-    tl, tg = port_loss_and_grads(cfg, jp, nb)
+    with port_routes() as routes:
+        tl, tg = port_loss_and_grads(cfg, jp, nb)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     spread = max(_rel_errors(jg_eager, jg).values())
     bound = min(max(GRAD_REL, 2 * spread), GRAD_REL_CAP)
+    if cfg.family == "moe":
+        assert len(routes) == cfg.num_layers
+        picks = [idx for _, idx in routes]
+        with reference_routes(picks) as ref_probs, jax.disable_jit():
+            jget_model(jcfg).forward(jcfg, jp, {k: jnp.asarray(v)
+                                                for k, v in nb.items()})
+        routes_differ_at_ties_only(routes, ref_probs)
+        jl, jg = reference_loss_and_grads(jcfg, jp, nb, routes=picks)
+        np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
+    else:
+        assert not routes
     errs = _rel_errors(tg, jg)
     bad = {k: e for k, e in errs.items() if not e <= bound}
     assert not bad, (bound, bad)
@@ -190,7 +212,8 @@ def test_f32_loss_and_grads_match_reference():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-7b", "recurrentgemma-9b",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b"])
 def test_remat_gives_the_same_loss_and_grads(arch):
     """``remat=True`` recomputes each block in the backward (the
     reference's ``jax.checkpoint``): the same numbers as without."""
@@ -261,7 +284,9 @@ def test_two_microbatches_match_one_batch():
 
 @pytest.mark.parametrize("arch,microbatches", [("olmo-1b", 1),
                                                ("olmo-1b", 2),
-                                               ("qwen2-vl-7b", 1)])
+                                               ("qwen2-vl-7b", 1),
+                                               ("olmoe-1b-7b", 1),
+                                               ("deepseek-v2-lite-16b", 1)])
 def test_train_steps_match_reference(arch, microbatches):
     """Three steps of ``make_train_step`` (AdamW at lr 1e-3, warmup 2, a
     cosine over 10, the global-norm clip; ``microbatches`` slices of the
@@ -273,7 +298,9 @@ def test_train_steps_match_reference(arch, microbatches):
     may move either way in either package. The key bias ``bk`` is held
     only within the total: softmax is nearly invariant to it (only
     RoPE's rotation of k + bk tells its directions apart), so its
-    gradient is mostly bf16 rounding."""
+    gradient is mostly bf16 rounding. A MoE model's reference steps run
+    op by op, routed as the port's step routed (see
+    ``test_loss_and_grads_match_reference``)."""
     jcfg, cfg, jp = _setup(arch)
     nbs = _batches(cfg, 3)
     kw = dict(lr=1e-3, warmup=2, total=10, remat=False,
@@ -284,10 +311,17 @@ def test_train_steps_match_reference(arch, microbatches):
     opt = adamw_init(params)
     step = make_train_step(cfg, **kw)
     for nb in nbs:
-        jparams, jopt, jm = jstep(jparams, jopt, {k: jnp.asarray(v)
-                                                  for k, v in nb.items()})
-        params, opt, m = step(params, opt, {k: torch.tensor(v)
-                                            for k, v in nb.items()})
+        with port_routes() as routes:
+            params, opt, m = step(params, opt, {k: torch.tensor(v)
+                                                for k, v in nb.items()})
+        jbatch = {k: jnp.asarray(v) for k, v in nb.items()}
+        if cfg.family == "moe":
+            assert len(routes) == cfg.num_layers * microbatches
+            with reference_routes([idx for _, idx in routes]), \
+                    jax.disable_jit():
+                jparams, jopt, jm = jstep(jparams, jopt, jbatch)
+        else:
+            jparams, jopt, jm = jstep(jparams, jopt, jbatch)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(m["grad_norm"]),
@@ -532,3 +566,242 @@ def test_as_rows_copies_only_layouts_the_kernels_refuse():
         got = fa.as_rows(bad)
         assert got is not bad and got.is_contiguous()
         assert torch.equal(got, bad)
+
+
+# --- MoE training: the load-balance loss, the grouped GEMM's backward -------------
+
+def test_load_balance_loss_matches_reference():
+    """``layers.load_balance_loss`` against the reference's
+    ``_load_balance_loss`` on the same probabilities and top-k picks (ties
+    among the picks included), within f32 rounding; and ``moe_ffn``'s
+    ``return_aux`` gives it on the router's own probabilities without
+    changing the output or the keep mask."""
+    rng = np.random.default_rng(7)
+    for N, E, K in ((32, 4, 2), (200, 64, 8), (9, 6, 1)):
+        logits = rng.standard_normal((N, E)).astype(np.float32)
+        logits[0] = 0.0                      # a token whose picks all tie
+        probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+        idx = np.argsort(-probs, axis=-1, kind="stable")[:, :K]
+        want = JL._load_balance_loss(jnp.asarray(probs), jnp.asarray(idx),
+                                     JL.MoEDims(E, K, 4))
+        got = L.load_balance_loss(torch.tensor(probs), torch.tensor(idx), E)
+        assert got.dtype == torch.float32 and got.shape == ()
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    cfg = get_config("olmoe-1b-7b").reduced()
+    p = {k: v[0] for k, v in get_model(cfg).init_params(
+        cfg, seed=0, device="cpu")["blocks"]["moe"].items()}
+    x = torch.tensor(rng.standard_normal((24, cfg.d_model)),
+                     dtype=torch.bfloat16)
+    dims = L.moe_dims(cfg, 24)
+    y, keep = L.moe_ffn(x, p, dims, return_keep=True)
+    y2, keep2, aux = L.moe_ffn(x, p, dims, return_keep=True, return_aux=True)
+    y3, aux3 = L.moe_ffn(x, p, dims, return_aux=True)
+    assert torch.equal(y, y2) and torch.equal(y, y3)
+    assert torch.equal(keep, keep2) and torch.equal(aux, aux3)
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    want = JL._load_balance_loss(
+        jnp.asarray(probs.numpy()),
+        jnp.asarray(torch.topk(probs, dims.top_k, dim=-1)[1].numpy()), dims)
+    np.testing.assert_allclose(float(aux), float(want), rtol=1e-6)
+
+
+def test_moe_loss_adds_the_averaged_load_balance_loss():
+    """``moe.loss_fn`` is the mean cross-entropy plus ``aux_coef`` x the
+    load-balance loss averaged over layers (``forward``'s ``return_aux``),
+    as the reference's ``moe.loss_fn``; ``forward`` returns its extras in
+    the reference's order (logits, aux, keeps)."""
+    from repro_torch.models import moe
+    jcfg, cfg, jp = _setup("deepseek-v2-lite-16b")
+    view = compute_view(_master(jp))
+    batch = {k: torch.tensor(v) for k, v in train_batch(cfg).items()}
+    with torch.no_grad():
+        logits, aux, keeps = moe.forward(cfg, view, batch, return_aux=True,
+                                         return_route_keep=True)
+        assert torch.equal(logits, moe.forward(cfg, view, batch))
+        assert keeps.shape == (cfg.num_layers, 2, 16, cfg.moe.top_k)
+        xent = torch.mean(L.softmax_xent(logits, batch["labels"]))
+        for coef in (0.01, 0.5):
+            np.testing.assert_allclose(
+                float(moe.loss_fn(cfg, view, batch, aux_coef=coef)),
+                float(xent + coef * aux), rtol=1e-6)
+    jlogits, jaux = jget_model(jcfg).forward(
+        jcfg, jp, {k: jnp.asarray(v) for k, v in train_batch(cfg).items()},
+        return_aux=True)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=2e-2)
+
+
+# (E, C, D, F, rows): ragged rows with an expert that has none and a full
+# one, C off any tile, all rows live (rows None)
+GROUPED_CASES = [
+    (4, 12, 16, 24, [0, 12, 5, 1]),
+    (3, 60, 32, 8, [60, 0, 33]),
+    (2, 7, 8, 16, None),
+]
+
+
+def _grouped_inputs(E, C, D, F, rows, seed=0):
+    rng = np.random.default_rng(seed)
+    x, w, dy = (rng.standard_normal(s).astype(np.float32)
+                for s in ((E, C, D), (E, D, F), (E, C, F)))
+    return x, w, dy, (None if rows is None
+                      else torch.tensor(rows, dtype=torch.int32))
+
+
+def _autograd_of_grouped(x, w, dy, rows, dtype=torch.float32):
+    """(dx, dw) by torch autograd through ``ref.grouped_mvm``."""
+    tx, tw = (torch.tensor(a).to(dtype).requires_grad_() for a in (x, w))
+    ref.grouped_mvm(tx, tw, rows).backward(torch.tensor(dy).to(dtype))
+    return tx.grad, tw.grad
+
+
+@pytest.mark.parametrize("E,C,D,F,rows", GROUPED_CASES)
+def test_grouped_backward_plain_is_the_gradient(E, C, D, F, rows):
+    """``ref.grouped_mvm_bwd_dx`` / ``_dw`` (the kernels' formulas: f32
+    products over the live rows, one rounding) against torch autograd
+    through ``ref.grouped_mvm`` with the same ``rows``, in f32 within f32
+    TOL and in bf16 bit for bit; against ``jax.grad`` of the reference's
+    masked einsum; and dead rows of dX and the dW of an expert with no
+    rows are zeros."""
+    x, w, dy, tr = _grouped_inputs(E, C, D, F, rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        tx, tw, tdy = (torch.tensor(a).to(dtype) for a in (x, w, dy))
+        dx = ref.grouped_mvm_bwd_dx(tdy, tw, tr)
+        dw = ref.grouped_mvm_bwd_dw(tx, tdy, tr)
+        assert dx.dtype == dw.dtype == dtype
+        want_dx, want_dw = _autograd_of_grouped(x, w, dy, tr, dtype)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(dx.numpy(), want_dx.numpy(), **TOL32)
+            np.testing.assert_allclose(dw.numpy(), want_dw.numpy(), **TOL32)
+        else:
+            assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+    live = np.full(E, C) if rows is None else np.asarray(rows)
+    mask = (np.arange(C)[None, :] < live[:, None])[..., None]
+
+    def masked(x_, w_):
+        y = jnp.einsum("ecd,edf->ecf", x_, w_)
+        return jnp.sum(jnp.where(mask, y, 0.0) * jnp.asarray(dy))
+    jdx, jdw = jax.grad(masked, argnums=(0, 1))(jnp.asarray(x),
+                                                jnp.asarray(w))
+    dx = ref.grouped_mvm_bwd_dx(torch.tensor(dy), torch.tensor(w), tr)
+    dw = ref.grouped_mvm_bwd_dw(torch.tensor(x), torch.tensor(dy), tr)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **TOL32)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), **TOL32)
+    assert not dx.numpy()[~np.broadcast_to(mask, dx.shape)].any()
+    assert not dw.numpy()[live == 0].any()
+
+
+def _emulate_grouped(monkeypatch):
+    """Stand the grouped GEMM's three wrappers in with their plain
+    versions, counting launches and refusing grad as the wrappers do, and
+    route ``ops`` to the kernel path on CPU tensors."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grouped_mvm as gm
+
+    def fwd(x, w, rows=None):
+        _build.refuse_grad("grouped_mvm", x, w)
+        fwd.launches += 1
+        return ref.grouped_mvm(x, w, rows)
+
+    def dx(dy, w, rows=None):
+        _build.refuse_grad("grouped_mvm_bwd_dx", dy, w)
+        assert dy.is_contiguous()
+        dx.launches += 1
+        return ref.grouped_mvm_bwd_dx(dy, w, rows)
+
+    def dw(x, dy, rows=None):
+        _build.refuse_grad("grouped_mvm_bwd_dw", x, dy)
+        dw.launches += 1
+        return ref.grouped_mvm_bwd_dw(x, dy, rows)
+
+    for f, name in ((fwd, "grouped_mvm"), (dx, "grouped_mvm_bwd_dx"),
+                    (dw, "grouped_mvm_bwd_dw")):
+        f.launches = 0
+        monkeypatch.setattr(gm, name, f)
+    monkeypatch.setattr(ops, "_plain", lambda impl, x: impl == "ref")
+    return fwd, dx, dw
+
+
+@pytest.mark.parametrize("E,C,D,F,rows", GROUPED_CASES)
+def test_grouped_autograd_function_matches_autograd_of_plain(
+        monkeypatch, E, C, D, F, rows):
+    """The kernel route (``ops._GroupedMVM``) with the three wrappers
+    emulated by their plain versions: one forward launch, one dX and one
+    dW launch, and the gradients of autograd through ``ref.grouped_mvm``
+    (in f32 and in bf16); a launch is skipped for an input that needs no
+    gradient, and without grad the forward launches alone."""
+    counters = _emulate_grouped(monkeypatch)
+    x, w, dy, tr = _grouped_inputs(E, C, D, F, rows, seed=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = [c.launches for c in counters]
+        tx, tw = (torch.tensor(a).to(dtype).requires_grad_() for a in (x, w))
+        out = ops.grouped_mvm(tx, tw, tr)
+        assert out.grad_fn is not None and out.dtype == dtype
+        # an upstream gradient in a layout the kernels do not take
+        g = torch.tensor(dy).to(dtype).transpose(0, 1).contiguous() \
+            .transpose(0, 1)
+        out.backward(g)
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+        want_dx, want_dw = _autograd_of_grouped(x, w, dy, tr, dtype)
+        assert torch.equal(tx.grad, want_dx) and torch.equal(tw.grad, want_dw)
+    tx, tw = torch.tensor(x), torch.tensor(w).requires_grad_()
+    ops.grouped_mvm(tx, tw, tr).backward(torch.tensor(dy))
+    assert [c.launches for c in counters] == [3, 2, 3]
+    with torch.no_grad():
+        ops.grouped_mvm(tx, tw, tr)
+    assert [c.launches for c in counters] == [4, 2, 3]
+
+
+def test_moe_expert_ffn_differentiates_through_the_kernel_route(monkeypatch):
+    """The SwiGLU of three grouped products under autograd on the kernel
+    route: three forward launches, three dX and three dW, and the
+    gradients of autograd through the plain products; under
+    ``layers.checkpointed`` the forward launches once more."""
+    counters = _emulate_grouped(monkeypatch)
+    E, C, D, F = 3, 10, 16, 24
+    rng = np.random.default_rng(2)
+    xe, wg, wu, wd = (rng.standard_normal(s).astype(np.float32) / 4
+                      for s in ((E, C, D), (E, D, F), (E, D, F), (E, F, D)))
+    rows = torch.tensor([10, 0, 4], dtype=torch.int32)
+    dy = torch.tensor(rng.standard_normal((E, C, D)).astype(np.float32))
+
+    def grads(impl, remat=False):
+        ts = [torch.tensor(a).requires_grad_() for a in (xe, wg, wu, wd)]
+        L.checkpointed(lambda *t: ops.moe_expert_ffn(*t, rows, impl=impl),
+                       *ts, remat=remat).backward(dy)
+        return [t.grad for t in ts]
+    want = grads("ref")
+    assert [c.launches for c in counters] == [0, 0, 0]
+    for got in (grads("kernel"), grads("kernel", remat=True)):
+        for g, w_ in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w_.numpy(), **TOL32)
+    assert [c.launches for c in counters] == [9, 6, 6]
+
+
+def test_moe_training_forward_launches_each_product_per_layer(monkeypatch):
+    """A reduced MoE train step on the kernel route (the flash and grouped
+    wrappers emulated): per layer three grouped forward launches, three
+    more when remat recomputes the block, three dX and three dW; the
+    recomputed blocks route as the first pass did, so remat gives the same
+    loss and gradients."""
+    counters = _emulate_grouped(monkeypatch)
+    _emulate_kernels(monkeypatch)
+    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b"):
+        _, cfg, jp = _setup(arch)
+        batch = {k: torch.tensor(v)
+                 for k, v in train_batch(cfg, seed=3).items()}
+        out = {}
+        for remat in (False, True):
+            before = [c.launches for c in counters]
+            params = _master(jp)
+            flat_p = [t.requires_grad_() for t in flat(params).values()]
+            loss = get_model(cfg).loss_fn(cfg, compute_view(params), batch,
+                                          remat=remat)
+            grads = torch.autograd.grad(loss, flat_p, allow_unused=True)
+            n = cfg.num_layers
+            assert [c.launches - b for c, b in zip(counters, before)] == \
+                [3 * n * (1 + remat), 3 * n, 3 * n], arch
+            out[remat] = (float(loss.detach()), grads)
+        assert out[False][0] == out[True][0]
+        for a, b in zip(out[False][1], out[True][1]):
+            assert (a is None) == (b is None) and (a is None
+                                                   or torch.equal(a, b))
