@@ -191,8 +191,9 @@ into build/repro_torch/), then:
       experts, C 640, D 2048 -> F 1024 and the down product),
       deepseek-v2-lite-16b's (C 512, F 1408) and a C of 60, rows from a
       seeded routing with one expert that has none; times each launch
-      beside its bound (live rows only), the plain version and
-      ``torch.bmm``'s product on the same inputs;
+      beside its bound (live rows only), its TFLOP/s over the live rows,
+      the plain version, ``torch.bmm``'s product on the same inputs and,
+      with ``--parent``, the parent tree's dX and dW kernels;
   (m) trains olmoe-1b-7b at full width cut to 4 layers (1.88 B
       parameters) for 10 steps and deepseek-v2-lite-16b cut to 2 layers
       for 3 steps, B 8 x 512, through ``launch.train.build_config`` and
@@ -209,8 +210,9 @@ the script and are removed.
 ``--parent DIR`` names an unpacked checkout of an earlier commit: its
 attention kernels, packed canvas and grouped GEMM are built into
 DIR/build and timed in the same call beside this tree's, at (a)'s,
-(d1)'s, (e0)'s and (f0)'s shapes (an earlier kernel only where it has an
-instance for G, and the grouped GEMM only where every row is live).
+(d1)'s, (e0)'s, (f0)'s and (m0)'s shapes (an earlier kernel only where
+it has an instance for G, the grouped GEMM's forward only where every
+row is live, and its backward where the parent has one).
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -2853,7 +2855,7 @@ GROUPED_BWD_SHAPES = (
 )
 
 
-def phase_grouped_bwd(torch, ops, gm, ref):
+def phase_grouped_bwd(torch, ops, gm, ref, parent=None):
     """(m0) the grouped GEMM's backward kernels (dX = dY w^T, dW = x^T dY
     over the live rows) against their plain versions at the MoE training
     shapes, each within TOL and GRAD_REL, and the two together against
@@ -2861,10 +2863,15 @@ def phase_grouped_bwd(torch, ops, gm, ref):
     dead rows of dX and the dW of an expert with none are zeros; a second
     launch repeats bit for bit; ``ops.grouped_mvm`` under autograd runs
     one dX and one dW launch with the same bits. Times each launch beside
-    its bound (live rows only), its plain version and ``torch.bmm``'s
-    product on the same inputs. Returns the two kernels' records
-    (launches filled in by (m))."""
+    its bound (live rows only), its TFLOP/s over the live rows, its plain
+    version, ``torch.bmm``'s product on the same inputs and (given the
+    parent's ops) the parent tree's ``grouped_mvm_bwd_dx`` / ``_dw``.
+    Returns the two kernels' records (launches filled in by (m))."""
     print("== (m0) grouped GEMM backward vs plain versions", flush=True)
+    old_gm = None if parent is None else importlib.import_module(
+        parent.__name__.rsplit(".", 1)[0] + ".grouped_mvm")
+    if not hasattr(old_gm, "grouped_mvm_bwd_dw"):    # a tree without them
+        old_gm = None
     gen = torch.Generator(device=DEV).manual_seed(11)
     rows_out, errs, rels = {}, {"dx": 0.0, "dw": 0.0}, {"dx": 0.0, "dw": 0.0}
     for label, E, C, D, F, tokens, k in GROUPED_BWD_SHAPES:
@@ -2917,6 +2924,12 @@ def phase_grouped_bwd(torch, ops, gm, ref):
         xt = x.transpose(1, 2)
         lib = {"dx": cuda_ms(torch, lambda: torch.bmm(dy, wt)),
                "dw": cuda_ms(torch, lambda: torch.bmm(xt, dy))}
+        old = {"dx": "", "dw": ""}
+        if old_gm is not None:
+            old = {"dx": ", parent %.4f" % cuda_ms(
+                       torch, lambda: old_gm.grouped_mvm_bwd_dx(dy, w, rows)),
+                   "dw": ", parent %.4f" % cuda_ms(
+                       torch, lambda: old_gm.grouped_mvm_bwd_dw(x, dy, rows))}
         touched = int((rows > 0).sum())
         n_rows = int(rows.sum())
         flops = 2 * n_rows * D * F
@@ -2925,10 +2938,12 @@ def phase_grouped_bwd(torch, ops, gm, ref):
         bounds = {kn: bound(flops, nbytes[kn]) for kn in nbytes}
         print(f"  {label} (E {E} C {C} D {D} F {F}; {touched} experts, "
               f"{n_rows} rows live): " + "  ".join(
-                  f"{kn} {t[kn]:.4f} ms (bound {bounds[kn][0]:.4f} "
-                  f"{bounds[kn][1]}, plain {plain[kn]:.4f}, torch.bmm "
-                  f"{lib[kn]:.4f}; relative error {res[kn][0]:.2e} vs plain, "
-                  f"{res[kn][1]:.2e} vs f32 autograd)" for kn in t),
+                  f"{kn} {t[kn]:.4f} ms ({flops / t[kn] / 1e9:.0f} TFLOP/s "
+                  f"over the live rows; bound {bounds[kn][0]:.4f} "
+                  f"{bounds[kn][1]}{old[kn]}, plain {plain[kn]:.4f}, "
+                  f"torch.bmm {lib[kn]:.4f}; relative error "
+                  f"{res[kn][0]:.2e} vs plain, {res[kn][1]:.2e} vs f32 "
+                  f"autograd)" for kn in t),
               flush=True)
         if not rows_out:
             rows_out = {kn: dict(ms=t[kn], plain_ms=plain[kn],
@@ -3304,7 +3319,7 @@ def main(argv=None) -> int:
     phase_train(torch, train, ckpt, ops, ref, Lyr, kernels, bwd)
     lap("(l)")
     kernels += bwd
-    grouped_bwd = phase_grouped_bwd(torch, ops, gm, ref)
+    grouped_bwd = phase_grouped_bwd(torch, ops, gm, ref, parent)
     lap("(m0)")
     phase_moe_train(torch, train, steps, ops, ref, Lyr, grouped, grouped_bwd)
     lap("(m)")

@@ -27,9 +27,13 @@ requires grad (its gradient runs through ``ops.grouped_mvm``).
 
 ``grouped_mvm_bwd_dx`` / ``grouped_mvm_bwd_dw`` launch the backward
 kernels of the same file (no Pallas site: the reference differentiates
-jnp): dX = dY w^T and dW = x^T dY over the live rows, bf16 on the tensor
-cores, each output tile written once by one block (no atomics), bound by
-the multiply-adds at training size. Their plain versions are
+jnp): dX = dY w^T and dW = x^T dY over the live rows, bf16 on ``wgmma``
+with both operands brought into shared memory by TMA under ``mbarrier``s,
+a persistent grid walking 128 x 256 output tiles expert-major, each
+written once by one block (no atomics); dX's blocks go in two-block
+clusters where C holds two row tiles, a pair of tiles sharing one operand
+by multicast. At training size each is bound about equally by its
+multiply-adds and its bytes (dW writes the whole (E, D, F) gradient). Their plain versions are
 ``ref.grouped_mvm_bwd_dx`` / ``ref.grouped_mvm_bwd_dw``; ``ops`` runs
 them from its autograd function ``_GroupedMVM``.
 """
@@ -145,8 +149,11 @@ def _bwd_launch(wrapper, a, b, out_shape, rows, dims):
 def grouped_mvm_bwd_dx(dy, w, rows=None):
     """dX (E, C, D) = dY (E, C, F) @ w[e]^T, f32 sums, one rounding to
     bf16; rows c >= rows[e] come out zero and their dY rows are never
-    read, nor the weights of an expert with none. dy and w: contiguous
-    bf16 CUDA tensors, w (E, D, F); D and F multiples of 8."""
+    counted (a 128-row tile that holds a live row loads them, a tile
+    wholly past the live rows loads nothing), and an expert with none
+    reads no weight. At training size it is bound about equally by its
+    multiply-adds and by reading dY and w once and writing dX. dy and w:
+    contiguous bf16 CUDA tensors, w (E, D, F); D and F multiples of 8."""
     if dy.dim() != 3 or w.dim() != 3 or w.shape[0] != dy.shape[0] \
             or w.shape[2] != dy.shape[2]:
         raise ValueError(f"grouped_mvm_bwd_dx: dy {tuple(dy.shape)} and w "
@@ -159,9 +166,12 @@ def grouped_mvm_bwd_dx(dy, w, rows=None):
 
 def grouped_mvm_bwd_dw(x, dy, rows=None):
     """dW (E, D, F) = x[e]^T @ dY[e] summed over the live rows c <
-    rows[e] only, f32 sums, one rounding to bf16; an expert with no rows
-    gets zeros and reads nothing. x (E, C, D) and dy (E, C, F):
-    contiguous bf16 CUDA tensors; D and F multiples of 8."""
+    rows[e] only (the last 64-row chunk's dead rows are zeroed on chip
+    before they are multiplied), f32 sums, one rounding to bf16; an
+    expert with no rows gets zeros and reads nothing. At training size
+    it is bound about equally by its multiply-adds and by writing the
+    (E, D, F) output. x (E, C, D) and dy (E, C, F): contiguous bf16 CUDA
+    tensors; D and F multiples of 8."""
     if x.dim() != 3 or dy.dim() != 3 or x.shape[:2] != dy.shape[:2]:
         raise ValueError(f"grouped_mvm_bwd_dw: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} are not (E, C, D), (E, C, F)")

@@ -1094,36 +1094,51 @@ def test_train_entry_point_refuses_without_cuda(dev, monkeypatch):
 
 # --- MoE training: the grouped GEMM's backward, an olmoe train step ---------------
 
-# (E, C, D, F): ragged rows (one expert with none, one full) past one
+# (E, C, D, F, full): ragged rows (one expert with none, one full) past one
 # 128-row tile, D and F off the 128 grid, C under one tile, and olmoe-1b-7b's
-# training shape (C 640 at B 8 x 512)
+# training shape (C 640 at B 8 x 512); then the edges of the TMA tiles: one
+# expert, C 1, C exactly 64, D = F = 8 (the wrapper's least), a C off the
+# 64-row chunk with every expert full (``full``), and three row tiles
+# under three column tiles (dX's walk pairs an odd last live row tile
+# across column tiles, the third alone)
 GROUPED_BWD_CASES = [
-    (4, 130, 64, 32),
-    (3, 60, 200, 72),
-    (8, 256, 256, 136),
-    (64, 640, 2048, 1024),
+    (4, 130, 64, 32, False),
+    (3, 60, 200, 72, False),
+    (8, 256, 256, 136, False),
+    (64, 640, 2048, 1024, False),
+    (1, 200, 128, 64, False),
+    (4, 1, 64, 72, False),
+    (4, 64, 128, 96, False),
+    (4, 100, 8, 8, False),
+    (4, 200, 136, 72, True),
+    (6, 300, 520, 64, False),
 ]
 
 
-def _grouped_bwd_inputs(dev, E, C, D, F, seed=3):
+def _grouped_bwd_inputs(dev, E, C, D, F, seed=3, full=False):
+    """x, w, dy and the live rows: drawn from [0, C], the first expert
+    with none and the second full where E > 1; all C with ``full``."""
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, C + 1, E)
-    rows[:2] = (0, C)
+    if full:
+        rows[:] = C
+    elif E > 1:
+        rows[:2] = (0, C)
     return (_bf16(rng, (E, C, D), dev),
             (_bf16(rng, (E, D, F), dev).float() / D ** 0.5).to(torch.bfloat16),
             _bf16(rng, (E, C, F), dev),
             torch.tensor(rows, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("E,C,D,F", GROUPED_BWD_CASES)
-def test_grouped_backward_kernels_match_plain(dev, E, C, D, F):
+@pytest.mark.parametrize("E,C,D,F,full", GROUPED_BWD_CASES)
+def test_grouped_backward_kernels_match_plain(dev, E, C, D, F, full):
     """The dX and dW kernels against their plain versions on the same bf16
     inputs and, together, against autograd through ``ref.grouped_mvm`` in
     f32, within TOL and GRAD_REL; dead rows of dX and the dW of an expert
     with no rows are zeros (dY and x are not zero there); one launch each;
-    bit-for-bit repeatable (no atomics)."""
+    bit-for-bit repeatable (no atomics); ``rows=None`` (all C) for both."""
     from repro_torch.kernels import ref
-    x, w, dy, rows = _grouped_bwd_inputs(dev, E, C, D, F)
+    x, w, dy, rows = _grouped_bwd_inputs(dev, E, C, D, F, full=full)
     n0 = (gm.grouped_mvm_bwd_dx.launches, gm.grouped_mvm_bwd_dw.launches)
     dx = gm.grouped_mvm_bwd_dx(dy, w, rows)
     dw = gm.grouped_mvm_bwd_dw(x, dy, rows)
@@ -1137,11 +1152,13 @@ def test_grouped_backward_kernels_match_plain(dev, E, C, D, F):
     _close_grad(dx, xf.grad)
     _close_grad(dw, wf.grad)
     dead = torch.arange(C, device=dev)[None, :] >= rows[:, None]
-    assert not dx[dead].any() and not dw[0].any()
+    assert not dx[dead].any() and not dw[rows == 0].any()
     assert torch.equal(gm.grouped_mvm_bwd_dx(dy, w, rows), dx)
     assert torch.equal(gm.grouped_mvm_bwd_dw(x, dy, rows), dw)
     full_dx = gm.grouped_mvm_bwd_dx(dy, w)
     _close_grad(full_dx, ref.grouped_mvm_bwd_dx(dy, w))
+    full_dw = gm.grouped_mvm_bwd_dw(x, dy)
+    _close_grad(full_dw, ref.grouped_mvm_bwd_dw(x, dy))
 
 
 def test_grouped_autograd_on_the_card(dev):
