@@ -2444,23 +2444,31 @@ FLASH_BWD_SHAPES = (
 )
 
 
-def phase_flash_bwd(torch, fa, ref):
+def phase_flash_bwd(torch, fa, ref, parent=None):
     """(l0) the flash backward against its plain versions at the training
     paths' shapes: the kernel forward's log-sum-exp against
     ``ref.attention_lse``, each of the three launches (row-dot, dK/dV,
     dQ) against its plain version on the same inputs, and the whole
     backward against autograd through ``ref.mha_attention`` in f32 from
     the same bf16 inputs and a fixed upstream dO; each gradient within TOL
-    element by element and within GRAD_REL as a whole. Times each launch
-    and the whole beside its bound (five products; bf16 tensors read or
-    written once), the plain versions, and the SDPA backward on the same
-    inputs (SDPA's forward and backward, less its forward). Returns the
-    three kernels' records (launches filled in by (l)); the dK/dV record
-    also carries the whole backward's time, bound and plain time and the
-    SDPA backward's at the first shape."""
+    element by element and within GRAD_REL as a whole; a second backward
+    repeats bit for bit. Times each launch and the whole beside its bound
+    (five products; bf16 tensors read or written once), its TFLOP/s over
+    the visible pairs (seven products in all: dK/dV's four, dQ's three),
+    the plain versions, the SDPA backward on the same inputs (SDPA's
+    forward and backward, less its forward) and (given the parent's ops)
+    the parent tree's three launches and whole backward, parent, this
+    tree, this tree, parent. Returns the three kernels' records (launches
+    filled in by (l)); the dK/dV record also carries the whole backward's
+    time, bound and plain time and the SDPA backward's at the first
+    shape."""
     import torch.nn.functional as F
 
     print("== (l0) flash backward vs plain versions", flush=True)
+    pfa = None if parent is None else importlib.import_module(
+        parent.__name__.rsplit(".", 1)[0] + ".flash_attention")
+    if not hasattr(pfa, "flash_bwd_dq"):         # a tree without them
+        pfa = None
     rows, errs = {}, dict.fromkeys(("rowdot", "dkdv", "dq"), 0.0)
     rels = dict.fromkeys(("dkdv", "dq"), 0.0)
     for name, B, H, KV, S, T, dh, causal in FLASH_BWD_SHAPES:
@@ -2503,18 +2511,37 @@ def phase_flash_bwd(torch, fa, ref):
                                     f"{name} {what} (whole backward)")
                  for got, want, what in zip((dq, dk, dv), plain_bwd(),
                                             ("dq", "dk", "dv"))}
-        # times: each launch, the whole backward, the plain versions
-        t = {"rowdot": cuda_ms(torch, lambda: fa.flash_bwd_rowdot(out, dot),
-                               iters=50, hide_host=True),
-             "dkdv": cuda_ms(torch, lambda: fa.flash_bwd_dkdv(
-                 qt, kt, vt, dot, lse, delta, causal=causal), iters=20,
-                 hide_host=True),
-             "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq(
-                 qt, kt, vt, dot, lse, delta, causal=causal), iters=20,
-                 hide_host=True)}
-        whole_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
-            qt, kt, vt, out, dot, lse, causal=causal), iters=20,
-            hide_host=True)
+        again = fa.flash_attention_bwd(qt, kt, vt, out, dot, lse,
+                                       causal=causal)
+        assert torch.equal(delta, fa.flash_bwd_rowdot(out, dot)) and all(
+            torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))), \
+            f"{name}: a second backward differs"
+        del again
+
+        # times: each launch and the whole backward, of this tree and
+        # (given) the parent's in turns, then the plain versions
+        def times(mod):
+            return {"rowdot": cuda_ms(torch, lambda: mod.flash_bwd_rowdot(
+                        out, dot), iters=50, hide_host=True),
+                    "dkdv": cuda_ms(torch, lambda: mod.flash_bwd_dkdv(
+                        qt, kt, vt, dot, lse, delta, causal=causal),
+                        iters=20, hide_host=True),
+                    "dq": cuda_ms(torch, lambda: mod.flash_bwd_dq(
+                        qt, kt, vt, dot, lse, delta, causal=causal),
+                        iters=20, hide_host=True),
+                    "whole": cuda_ms(torch, lambda: mod.flash_attention_bwd(
+                        qt, kt, vt, out, dot, lse, causal=causal), iters=20,
+                        hide_host=True)}
+        if pfa is None:
+            t = times(fa)
+        else:
+            old = [times(pfa)]
+            t = times(fa)
+            t2 = times(fa)
+            old.append(times(pfa))
+            t = {kn: min(t[kn], t2[kn]) for kn in t}
+            old = {kn: min(o[kn] for o in old) for kn in t}
+        whole_ms = t.pop("whole")
         plain = {"rowdot": cuda_ms(torch, lambda: ref.flash_bwd_rowdot(
                      ot, do), iters=5),
                  "dkdv": cuda_ms(torch, lambda: ref.flash_bwd_dkdv(
@@ -2548,18 +2575,23 @@ def phase_flash_bwd(torch, fa, ref):
                   for kname in flops}
         b_whole = bound(5 * fwd_flops // 2,
                         2 * (4 * n_q + 4 * n_k) + 4 * n_s)
+        tflops = {kname: flops[kname] / t[kname] / 1e9 for kname in t}
+        old_txt = {kname: "" if pfa is None else f", parent {old[kname]:.4f}"
+                   for kname in (*t, "whole")}
         print(f"  {name}: relative Frobenius error (limit {GRAD_REL}) "
               f"per launch " + ", ".join(
                   f"{w} {launch[w][1]:.3e}" for w in launch) + "; whole " +
               ", ".join(f"{w} {whole[w][1]:.3e}" for w in whole) +
               f"; max_abs_err whole "
               f"{max(e for e, _ in whole.values()):.3e}; backward "
-              f"{whole_ms:.4f} ms (bound {b_whole[0]:.4f} ms, "
-              f"{b_whole[1]}; plain {plain_whole:.4f} ms; sdpa backward "
-              f"{sdpa_bwd:.4f} ms = {sdpa_both:.4f} forward + backward - "
-              f"{sdpa_fwd:.4f} forward)\n    " + "  ".join(
-                  f"{kname} {t[kname]:.4f} ms (bound {bounds[kname][0]:.4f}"
-                  f" {bounds[kname][1]}, plain {plain[kname]:.4f})"
+              f"{whole_ms:.4f} ms ({3.5 * fwd_flops / whole_ms / 1e9:.0f} "
+              f"TFLOP/s over the visible pairs; bound {b_whole[0]:.4f} ms, "
+              f"{b_whole[1]}{old_txt['whole']}; plain {plain_whole:.4f} ms; "
+              f"sdpa backward {sdpa_bwd:.4f} ms = {sdpa_both:.4f} forward + "
+              f"backward - {sdpa_fwd:.4f} forward)\n    " + "  ".join(
+                  f"{kname} {t[kname]:.4f} ms ({tflops[kname]:.0f} TFLOP/s; "
+                  f"bound {bounds[kname][0]:.4f} {bounds[kname][1]}"
+                  f"{old_txt[kname]}, plain {plain[kname]:.4f})"
                   for kname in t), flush=True)
         if not rows:
             # no library call computes one launch's function; the whole
@@ -2572,6 +2604,10 @@ def phase_flash_bwd(torch, fa, ref):
                                 whole_bound_ms=b_whole[0],
                                 whole_plain_ms=plain_whole,
                                 library_whole_ms=sdpa_bwd)
+            if pfa is not None:
+                for kname in rows:
+                    rows[kname]["parent_ms"] = old[kname]
+                rows["dkdv"]["parent_whole_ms"] = old["whole"]
         del q, k, v, do, out, lse, delta, dq, dk, dv
     free_card(torch)
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -3314,7 +3350,7 @@ def main(argv=None) -> int:
     del pooled
     free_card(torch)
 
-    bwd = phase_flash_bwd(torch, fa, ref)
+    bwd = phase_flash_bwd(torch, fa, ref, parent)
     lap("(l0)")
     phase_train(torch, train, ckpt, ops, ref, Lyr, kernels, bwd)
     lap("(l)")

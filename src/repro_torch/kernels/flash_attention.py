@@ -12,11 +12,13 @@ anything the kernels do not take.
 
 The reference has no backward kernel (its training differentiates jnp
 attention through XLA); the port's backward is three launches of its
-own: ``flash_bwd_rowdot`` (D = rowsum(dO o O)), ``flash_bwd_dkdv`` (one
-program per key tile and KV head, summing over the G query heads of its
-group inside the program) and ``flash_bwd_dq`` (one per query tile and
-head), with no atomics, so a step repeats bit for bit. They take the
-forward's causal mask or none, not its window.
+own: ``flash_bwd_rowdot`` (D = rowsum(dO o O)), ``flash_bwd_dkdv`` (a
+key tile of a KV head at a time, summing over the G query heads of its
+group inside the program) and ``flash_bwd_dq`` (128 query rows of a head
+at a time), with no atomics, so a step repeats bit for bit. dK/dV and dQ
+are Hopper kernels: tiles land by TMA through tensor maps built per call
+over the tensors' own strides, and every product runs on ``wgmma``. They
+take the forward's causal mask or none, not its window.
 """
 
 from __future__ import annotations
@@ -114,12 +116,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 
 
 def flash_bwd_rowdot(out, dout):
-    """D = rowsum(dout o out) in f32: (B, H, S, dh) twice -> (B, H, S)."""
+    """D = rowsum(dout o out) in f32: (B, H, S, dh) twice -> (B, H, S).
+    Each row is read as dh / 8 lanes of 16 bytes."""
     B, H, S, dh = out.shape
     _check_rows("out", out)
     _check_rows("dout", dout)
     if dout.shape != out.shape:
         raise ValueError("flash_bwd_rowdot: inconsistent shapes")
+    if dh not in (64, 128):
+        raise ValueError(f"no kernel instance for dh={dh}")
     delta = torch.empty((B, H, S), dtype=torch.float32, device=out.device)
     strides = _strides(out, dout)
     fn = _build.function("flash_attention", "flash_attention_bwd_rowdot",
@@ -142,8 +147,10 @@ def _stats(lse, delta, B, H, S):
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     """dK, dV (each in k's strides) of the attention ``flash_attention``
     computed, from dout (q's shape), the forward's ``lse`` and
-    ``flash_bwd_rowdot``'s ``delta``. Each program owns 64 keys of one KV
-    head and sums over every query row of its G heads."""
+    ``flash_bwd_rowdot``'s ``delta``. A key tile of one KV head sums over
+    every query row of its G heads: at dh 128, 64 keys, whose two
+    warpgroups own 64 columns each of dK and dV (one block an SM walking
+    the tiles); at dh 64, 128 keys, 64 a warpgroup."""
     B, H, S, T, KV, dh = _check(q, k, v)
     _check_rows("dout", dout)
     if dout.shape != q.shape:
@@ -166,8 +173,9 @@ def flash_bwd_dkdv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     """dQ (in q's strides), from the same inputs as ``flash_bwd_dkdv``.
-    Each program owns 64 query rows of one head and walks the forward's
-    key range."""
+    A tile of 128 query rows of one head (64 a warpgroup) walks the
+    forward's key range, 64 keys a step; one block an SM walks the
+    tiles."""
     B, H, S, T, KV, dh = _check(q, k, v)
     _check_rows("dout", dout)
     if dout.shape != q.shape:

@@ -881,43 +881,62 @@ def test_graphed_pool_matches_eager_pool_and_measures_its_dma(dev):
 
 # --- training: the flash backward, kernels without one, a train step ---------------
 
-# (B, H, KV, S, T, dh, causal): small and ragged shapes, then the three of
-# chip_smoke (l): olmo-1b's training step, qwen2-vl-7b's G 7, whisper-tiny's
-# cross attention (448 decoder rows against 1,500 frames, not causal)
+# (B, H, KV, S, T, dh, causal, packed): small and ragged shapes, then the
+# three of chip_smoke (l): olmo-1b's training step, qwen2-vl-7b's G 7,
+# whisper-tiny's cross attention (448 decoder rows against 1,500 frames, not
+# causal); packed: q, k and v are slices of one (B, S, H + 2 KV, dh) tensor,
+# so the kernels' tensor maps take strides that are not dense and an offset
+# base
 BWD_CASES = [
-    (1, 4, 4, 128, 128, 128, True),
-    (2, 8, 2, 130, 130, 128, True),     # ragged tiles, G 4
-    (2, 7, 1, 100, 100, 64, True),      # G 7
-    (1, 4, 2, 70, 200, 128, True),      # S < T
-    (1, 2, 2, 150, 150, 64, False),
-    (1, 2, 1, 40, 20, 64, True),        # S > T: rows with no key
-    (8, 16, 16, 512, 512, 128, True),
-    (8, 28, 4, 512, 512, 128, True),
-    (8, 6, 6, 448, 1500, 64, False),
+    (1, 4, 4, 128, 128, 128, True, False),
+    (2, 8, 2, 130, 130, 128, True, False),     # ragged tiles, G 4
+    (2, 7, 1, 100, 100, 64, True, False),      # G 7
+    (1, 4, 2, 70, 200, 128, True, False),      # S < T
+    (1, 2, 2, 150, 150, 64, False, False),
+    (1, 2, 1, 40, 20, 64, True, False),        # S > T: rows with no key
+    (8, 16, 16, 512, 512, 128, True, False),
+    (8, 28, 4, 512, 512, 128, True, False),
+    (8, 6, 6, 448, 1500, 64, False, False),
+    (2, 8, 2, 130, 130, 128, True, True),      # packed q, k, v
+    (1, 4, 4, 1, 1, 128, True, False),         # one row, one key
+    (2, 4, 2, 1, 1500, 64, False, False),      # one row against 1,500 keys
+    (2, 6, 3, 77, 333, 64, True, False),       # dh 64, ragged, S < T
 ]
+# the ids the cases had before the packed flag: a packed case says so
+BWD_IDS = ["-".join(map(str, c[:7])) + ("-packed" if c[7] else "")
+           for c in BWD_CASES]
 
 
 def _close_grad(got, want):
-    """Within TOL element by element, and within GRAD_REL as a whole."""
+    """Within TOL element by element, and within GRAD_REL as a whole where
+    the reference is not zero (a row that sees one key has dS = 0, so dQ
+    and dK are zero but for rounding, and no relative error exists)."""
     got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, **TOL)
-    rel = (torch.linalg.vector_norm(got - want)
-           / torch.linalg.vector_norm(want)).item()
-    assert rel <= GRAD_REL, f"relative Frobenius error {rel:.3e}"
+    norm = torch.linalg.vector_norm(want).item()
+    if norm:
+        rel = torch.linalg.vector_norm(got - want).item() / norm
+        assert rel <= GRAD_REL, f"relative Frobenius error {rel:.3e}"
 
 
-def _bwd_inputs(dev, B, H, KV, S, T, dh, seed=2):
+def _bwd_inputs(dev, B, H, KV, S, T, dh, seed=2, packed=False):
     rng = np.random.default_rng(seed)
+    if packed:                      # S == T: one projection's output
+        qkv = _bf16(rng, (B, S, H + 2 * KV, dh), dev)
+        return (qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:],
+                _bf16(rng, (B, S, H, dh), dev))
     return (_bf16(rng, (B, S, H, dh), dev), _bf16(rng, (B, T, KV, dh), dev),
             _bf16(rng, (B, T, KV, dh), dev), _bf16(rng, (B, S, H, dh), dev))
 
 
-@pytest.mark.parametrize("B,H,KV,S,T,dh,causal", BWD_CASES)
-def test_flash_forward_lse_matches_plain(dev, B, H, KV, S, T, dh, causal):
+@pytest.mark.parametrize("B,H,KV,S,T,dh,causal,packed", BWD_CASES,
+                         ids=BWD_IDS)
+def test_flash_forward_lse_matches_plain(dev, B, H, KV, S, T, dh, causal,
+                                         packed):
     """The forward's second output, each row's log-sum-exp (+inf with no
     visible key), within f32 rounding; the attention output unchanged."""
     from repro_torch.kernels import ref
-    q, k, v, _ = _bwd_inputs(dev, B, H, KV, S, T, dh)
+    q, k, v, _ = _bwd_inputs(dev, B, H, KV, S, T, dh, packed=packed)
     out, lse = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), return_lse=True,
                                   causal=causal)
@@ -929,8 +948,10 @@ def test_flash_forward_lse_matches_plain(dev, B, H, KV, S, T, dh, causal):
                        ops.flash_attention(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("B,H,KV,S,T,dh,causal", BWD_CASES)
-def test_flash_backward_kernels_match_plain(dev, B, H, KV, S, T, dh, causal):
+@pytest.mark.parametrize("B,H,KV,S,T,dh,causal,packed", BWD_CASES,
+                         ids=BWD_IDS)
+def test_flash_backward_kernels_match_plain(dev, B, H, KV, S, T, dh, causal,
+                                            packed):
     """Each backward launch against its plain version on the same inputs,
     and the whole against autograd through ``ref.mha_attention`` in f32
     from the same bf16 inputs (``ref.flash_attention_bwd`` where rows see
@@ -938,7 +959,7 @@ def test_flash_backward_kernels_match_plain(dev, B, H, KV, S, T, dh, causal):
     GRAD_REL; one launch of each a backward; bit-for-bit repeatable (no
     atomics)."""
     from repro_torch.kernels import ref
-    q, k, v, do = _bwd_inputs(dev, B, H, KV, S, T, dh)
+    q, k, v, do = _bwd_inputs(dev, B, H, KV, S, T, dh, packed=packed)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     out, lse = fa.flash_attention(qt, kt, vt, return_lse=True, causal=causal)
     kernels = (fa.flash_bwd_rowdot, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
