@@ -13,7 +13,10 @@ into build/repro_torch/), then:
       enqueue hidden, beside ``scaled_dot_product_attention`` where one
       call computes the same function, and computes each kernel's bound
       from this run's inputs; the paged decode also at GQA groups of 4,
-      7 and 12 and in 1, 2, 4 and 8 splits;
+      7, 8 and 12 and in 1, 2, 4 and 8 splits; both also at (n)'s
+      command-r-35b shapes (paged decode B 8, KV 8, G 8 over 40-page table
+      rows of 129-576 tokens; flash H 64 over KV 8 at S 128, 384 and 512,
+      causal); each shape's error and time go into the kernels line;
   (b) serves codeqwen1.5-7b at full width (random weights from a seed)
       through the continuous-batching engine: 8 slots, a seeded trace of
       16 requests, greedy decode in fused horizons of 32, each replayed
@@ -163,6 +166,23 @@ into build/repro_torch/), then:
       token count and each differing stream greedy-consistent; then the
       entry points ``launch.serve.run_pool`` and ``run_fleet`` on the same
       params;
+  (n) the mesh slice's full-width path on one card: ``launch.serve
+      --mesh pod`` must raise, naming its 256 ranks; then ``launch.serve``'s
+      ``--mesh host --full --arch command-r-35b --greedy`` pieces (the
+      1x1 ``DeviceMesh`` on nccl, installed for the model code, its shape
+      and backend printed; the params drawn through ``serve.init_params``
+      from the seed) serve command-r-35b at full width and depth (40
+      layers, 60.31 GiB of bf16, GQA 64/8, vocabulary 256,000), every
+      earlier phase's params freed first, through the engine on (b)'s
+      settings (8 slots, page 16, fused horizons of 32 replayed from CUDA
+      graphs) and a seeded 8-request trace (prompts 128-512, generations
+      32-64, greedy): every kernel counter zeroed just before and read
+      just after (40 paged-decode launches a decode step, 40 flash
+      launches a prefill, nothing else, no plain attention called), its
+      eager twin as in (b), three requests teacher-forced through the
+      full forward, the peak card memory; then (n') the eager-vs-graphed
+      horizons of (b'') at 8 steps and the graphed step's device time
+      beside its bytes bound, computed from this run's weights and cache;
   (l0) holds the flash backward (the row-dot pre-pass, the dK/dV kernel
       and the dQ kernel) against its plain versions on the card, each
       launch on the same inputs and the whole against autograd through
@@ -212,7 +232,10 @@ attention kernels, packed canvas and grouped GEMM are built into
 DIR/build and timed in the same call beside this tree's, at (a)'s,
 (d1)'s, (e0)'s, (f0)'s and (m0)'s shapes (an earlier kernel only where
 it has an instance for G, the grouped GEMM's forward only where every
-row is live, and its backward where the parent has one).
+row is live, and its backward where the parent has one). With it, (c+)
+also times the host's share of the one-rank model code of both trees in
+turns (parent, this, this, parent) on codeqwen1.5-7b's params: an eager
+fused horizon of 8 engine steps and a static decode step.
 
 Any failed check raises and the script exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit from
@@ -367,20 +390,25 @@ def load_parent(path):
 
 # (label, B, KV, G, lengths, T) of the paged decode kernel: rows ragged to
 # 2,048 tokens (a length-0 row third), the first at codeqwen1.5-7b's widths
-# (the main row), then GQA groups of 4, 7 (qwen2-vl-7b) and 12
-# (command-r-plus); last, the engine's decode step of (b') (8 x 400 tokens
-# in 40-page table rows)
+# (the main row), then GQA groups of 4, 7 (qwen2-vl-7b), 8 (command-r-35b)
+# and 12 (command-r-plus); then the engine's decode step of (b') (8 x 400
+# tokens in 40-page table rows) and one of (n) at command-r-35b's widths
+# (rows ragged over (n)'s 129-576 tokens in 40-page table rows)
 RAGGED = [2048, 1, 700, 0, 1333, 16, 1999, 257]
 PAGED_SHAPES = (("decode B=8 KV=32 G=1", 8, 32, 1, RAGGED, 2048),
                 ("decode B=8 KV=8 G=4", 8, 8, 4, RAGGED, 2048),
                 ("decode B=8 KV=4 G=7", 8, 4, 7, RAGGED, 2048),
+                ("decode B=8 KV=8 G=8", 8, 8, 8, RAGGED, 2048),
                 ("decode B=8 KV=8 G=12", 8, 8, 12, RAGGED, 2048),
                 ("decode B=8 KV=32 G=1 engine step 8 x 400 of 640", 8, 32, 1,
-                 [400] * 8, 640))
+                 [400] * 8, 640),
+                ("decode B=8 KV=8 G=8 (n) engine step 129-576 of 640", 8, 8,
+                 8, [576, 129, 300, 512, 160, 450, 237, 388], 640))
 
 
 # (label, B, H, KV, S, T, window, dh, causal) of the flash kernel; the first
-# is codeqwen1.5-7b's 512-token prefill (the main row)
+# is codeqwen1.5-7b's 512-token prefill (the main row); (n)'s prefills of
+# command-r-35b (G 8) at its prompt buckets 128, 384 and 512 follow
 FLASH_SHAPES = (
     ("flash S=T=512 H=KV=32", 1, 32, 32, 512, 512, 0, 128, True),
     ("flash S=T=300 H=KV=32", 1, 32, 32, 300, 300, 0, 128, True),
@@ -391,17 +419,21 @@ FLASH_SHAPES = (
      True),
     ("flash whisper encoder B=8 S=T=1500 H=KV=6 dh=64", 8, 6, 6, 1500, 1500,
      0, 64, False),
+    ("flash (n) S=T=128 H=64 KV=8", 1, 64, 8, 128, 128, 0, 128, True),
+    ("flash (n) S=T=384 H=64 KV=8", 1, 64, 8, 384, 384, 0, 128, True),
+    ("flash (n) S=T=512 H=64 KV=8", 1, 64, 8, 512, 512, 0, 128, True),
 )
 
 
 def phase_kernels(torch, ops, dec, fa, parent=None):
     """(a) every attention kernel against its plain version, timed at
     main-path shapes with the host hidden (and the parent's kernel, if
-    given). Returns the kernel records (launches filled in later)."""
+    given). Returns the kernel records (launches filled in later), each
+    with every shape's error and time under ``shapes``."""
     import torch.nn.functional as F
 
     print("== (a) kernels vs plain versions", flush=True)
-    dec_err, dec_main = 0.0, None
+    dec_err, dec_main, dec_shapes = 0.0, None, []
     for name, B, KV, G, lengths, T in PAGED_SHAPES:
         args, flops, nbytes = decode_case(torch, B, KV, G, lengths, T=T)
         got = ops.paged_decode_attention(*args)
@@ -434,11 +466,12 @@ def phase_kernels(torch, ops, dec, fa, parent=None):
               f"({plan} splits; {ms / KV:.5f} ms a kv head){old}  plain "
               f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})\n"
               f"    splits -> ms  {sweep}", flush=True)
+        dec_shapes.append(dict(shape=name, max_abs_err=err, ms=ms))
         if dec_main is None:
             dec_main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None)
 
-    fa_err, fa_main = 0.0, None
+    fa_err, fa_main, fa_shapes = 0.0, None, []
     for name, B, H, KV, S, T, window, dh, causal in FLASH_SHAPES:
         (q, k, v), flops, nbytes = flash_case(torch, B, H, KV, S, T, window,
                                               dh, causal)
@@ -467,6 +500,7 @@ def phase_kernels(torch, ops, dec, fa, parent=None):
         print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{old}  "
               f"plain {plain:.4f} ms  sdpa {sdpa}  bound {b_ms:.4f} ms "
               f"({b_by})", flush=True)
+        fa_shapes.append(dict(shape=name, max_abs_err=err, ms=ms))
         if fa_main is None:
             fa_main = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib)
@@ -476,11 +510,12 @@ def phase_kernels(torch, ops, dec, fa, parent=None):
              source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:172",
              counter=dec.paged_decode_attention, max_abs_err=dec_err,
-             **dec_main),
+             **dec_main, shapes=dec_shapes),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
-             counter=fa.flash_attention, max_abs_err=fa_err, **fa_main),
+             counter=fa.flash_attention, max_abs_err=fa_err, **fa_main,
+             shapes=fa_shapes),
     ]
 
 
@@ -1873,6 +1908,96 @@ def run_captured(torch, fn, rc_want: int = 0) -> list[str]:
     return buf.getvalue().rstrip().splitlines()
 
 
+def phase_host_pair(torch, rt, T, cfg, params, h=8, reps=5):
+    """(c+), with ``--parent``: the host's share of the one-rank model code
+    of this tree and the parent's, in turns (parent, this, this, parent)
+    within this call, on the same params, state and inputs: an eager
+    fused horizon of ``h`` engine steps from (b'')'s state (8 slots x 400
+    cached tokens, 40-page table rows) and a static decode step (8 rows
+    at position 400 of a 640-token cache). Prints each turn's median host
+    enqueue and wall a step, and this tree's over the parent's; the two
+    trees' tokens and logits must be equal bit for bit."""
+    import importlib
+    import statistics
+    print(f"== (c+) host enqueue, parent tree vs this tree, {cfg.name}",
+          flush=True)
+    trees = {"parent": (
+        importlib.import_module("parent_repro_torch.runtime"),
+        importlib.import_module("parent_repro_torch.models.transformer")),
+        "this": (rt, T)}
+    B, M, page, ctx = 8, 40, 16, 400
+    ecfg = rt.EngineConfig(num_slots=B, page_size=page, num_pages=1 + B * M,
+                           max_pages_per_seq=M, prefill_bucket=128,
+                           greedy=True, horizon=h)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    start = dict(
+        pending=torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                              device=DEV, dtype=torch.int32),
+        lengths=torch.full((B,), ctx, dtype=torch.int32, device=DEV),
+        remaining=torch.full((B,), h, dtype=torch.int32, device=DEV))
+    table = torch.arange(1, 1 + B * M, dtype=torch.int32,
+                         device=DEV).view(B, M)
+    mask = torch.ones((B,), dtype=torch.bool, device=DEV)
+    cache = T.init_decode_state(cfg, B, 640)
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    tokens = start["pending"].clone()
+    backends = {}
+    for name, (trt, _) in trees.items():
+        be = trt.resolve_backend(cfg)(cfg, params, ecfg)
+        g = torch.Generator(device=DEV).manual_seed(10)
+        for t in vars(be.state).values():
+            if isinstance(t, torch.Tensor):
+                t.normal_(generator=g)
+        backends[name] = be
+
+    def horizon(name):
+        t = {k: v.clone() for k, v in start.items()}
+        return backends[name].decode_eager(
+            t["pending"], t["lengths"], t["remaining"], table, mask, h)
+
+    def static(name):
+        tm = trees[name][1]
+        state = tm.DecodeState(k=cache.k, v=cache.v, pos=ctx)
+        return tm.decode_step(cfg, params, state, tokens)[0]
+
+    def turn(fn, name, per_call):
+        enq, wall = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(name)
+            enq.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        return (statistics.median(enq) * 1e3 / per_call,
+                statistics.median(wall) * 1e3 / per_call, out)
+
+    with torch.no_grad():
+        for label, fn, per_call in (("eager horizon", horizon, h),
+                                    ("static decode step", static, 1)):
+            outs = {name: fn(name) for name in trees}      # warm-up
+            same = (torch.equal(outs["parent"], outs["this"])
+                    if label == "static decode step" else
+                    all(torch.equal(a, b) for a, b in zip(
+                        outs["parent"], outs["this"])))
+            assert same, f"{label}: the trees' results differ"
+            got = {"parent": [], "this": []}
+            for name in ("parent", "this", "this", "parent"):
+                enq, wall, _ = turn(fn, name, per_call)
+                got[name].append((enq, wall))
+                print(f"  {label}, {name}: host enqueue {enq:.3f} ms  wall "
+                      f"{wall:.3f} ms a step", flush=True)
+            mean = {n: [sum(v[i] for v in got[n]) / 2 for i in (0, 1)]
+                    for n in got}
+            print(f"  {label}: this / parent host enqueue "
+                  f"{mean['this'][0] / mean['parent'][0]:.4f}, wall "
+                  f"{mean['this'][1] / mean['parent'][1]:.4f}; results "
+                  f"equal bit for bit", flush=True)
+    del backends, cache
+    torch.cuda.empty_cache()
+
+
 def phase_static_mode(torch, serve, L, ref, cfg, params, argv, counters):
     """(j+, dense) the entry point's lockstep static mode
     (``serve.run_static_mode``, the reference's ``run_static``) on
@@ -2442,6 +2567,139 @@ FLASH_BWD_SHAPES = (
     ("bwd whisper-tiny cross attention B=8 S=448 T=1500 H=KV=6 dh=64", 8, 6,
      6, 448, 1500, 64, False),
 )
+
+
+# --- the mesh slice: command-r-35b through launch.serve's --mesh host -------------
+
+MESH_ARGV = ["--mesh", "host", "--full", "--arch", "command-r-35b",
+             "--greedy"]
+
+
+def mesh_trace(rt, cfg):
+    """(n)'s seeded trace: 8 requests, prompts 128-512, generations
+    32-64."""
+    return rt.poisson_trace(8, mean_interarrival=4.0,
+                            prompt_lens=(128, 256, 384, 512),
+                            gen_lens=(32, 48, 64),
+                            vocab_size=cfg.vocab_size, seed=0)
+
+
+def param_leaves(tree) -> list:
+    return [x for v in tree.values()
+            for x in (param_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def step_bound(cfg, params, B: int, ctx: int):
+    """The bound of one decode step of ``B`` slots at ``ctx`` cached
+    tokens: every weight read once but an untied embedding, of which only
+    the B rows looked up (a tied one is read whole as the head), each
+    slot's K/V read and its new row written, the f32 logits written;
+    beside the products' operations (no lookup's). Returns ((ms, "bytes"
+    or "operations"), bytes)."""
+    weights = sum(t.numel() * t.element_size() for t in param_leaves(params))
+    products = cfg.param_count()
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        weights -= (emb.shape[0] - B) * emb.shape[1] * emb.element_size()
+        products -= emb.numel()
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    nbytes = weights + B * (ctx + 1) * kv + B * cfg.vocab_size * 4
+    flops = 2 * B * products + 4 * B * cfg.num_layers \
+        * cfg.num_heads * (ctx + 1) * cfg.head_dim
+    return bound(flops, nbytes), nbytes
+
+
+def phase_mesh(torch, serve, rt, ops, ref, L, T, get_config):
+    """(n) command-r-35b at full width and depth through launch.serve's
+    ``--mesh host`` (a real 1x1 DeviceMesh on nccl): the engine on (b)'s
+    settings and an 8-request trace, every launch counter zeroed just
+    before and read just after, the eager twin, three requests
+    teacher-forced, the peak memory; (n') its graphed step beside the
+    step's bytes bound. ``--mesh pod`` must raise on one card first.
+    Returns the launch counts of the engine run."""
+    from repro_torch.launch.mesh import installed
+    print("== (n) launch.serve --mesh, command-r-35b full width and depth",
+          flush=True)
+    try:
+        serve.main(["--mesh", "pod"])
+    except RuntimeError as e:
+        assert "256 ranks" in str(e), e
+        print(f"  --mesh pod on one card raises: {e}", flush=True)
+    else:
+        raise AssertionError("--mesh pod served on one card")
+    args = serve.parse_args(MESH_ARGV)
+    cfg = get_config(args.arch)
+    mesh = serve.make_serving_mesh(args)
+    try:
+        with installed(mesh):
+            print(f"  mesh {mesh.shape} backend {mesh.backend} (DeviceMesh "
+                  f"{mesh.device_mesh.device_type})", flush=True)
+            assert mesh.size == 1 and mesh.backend == (
+                "nccl" if DEV == "cuda" else "gloo")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            params = serve.init_params(cfg, args, mesh)
+            torch.cuda.synchronize()
+            print(f"  serve.init_params {cfg.name}: "
+                  f"{time.monotonic() - t0:.1f} s, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+                  flush=True)
+            counts = mesh_engine(torch, rt, ops, ref, L, T, cfg, params)
+            busy = phase_horizon(torch, rt, ops, cfg, params, "(n')", h=8)
+            (b_ms, by), nbytes = step_bound(cfg, params, 8, 404)
+            print("  graphed decode step: device busy "
+                  + (f"{busy['graphed']:.3f} ms" if busy["graphed"]
+                     else "not measured")
+                  + f" against a {by} bound of {b_ms:.3f} ms "
+                  f"({nbytes / 1e9:.2f} GB at {PEAK_BYTES_PER_S / 1e12:.2f}"
+                  f" TB/s; B 8, 404 cached tokens)", flush=True)
+            del params
+    finally:
+        mesh.close()
+    return counts
+
+
+def mesh_engine(torch, rt, ops, ref, L, T, cfg, params) -> dict:
+    """(n)'s engine run with the counters zeroed and read, its checks and
+    its eager twin. Returns the launch counts."""
+    ecfg = engine_config(rt)
+    trace = mesh_trace(rt, cfg)
+    counters = ops.launch_counters()
+    calls, restore = plain_calls(ref, L)
+    engine = rt.Engine(cfg, params, ecfg)
+    for c in counters:
+        c.launches = 0
+    try:
+        rep, rise = run_counted(torch, engine, trace)
+    finally:
+        restore()
+    counts = {c.__name__: c.launches for c in counters}
+    assert counts == rise
+    summary = rep.summary()
+    print(json.dumps(summary), flush=True)
+    want = {"paged_decode_attention": cfg.num_layers * rep.decode_steps,
+            "flash_attention": cfg.num_layers * rep.prefill_calls}
+    print(f"  launches {counts}; plain versions called {calls}", flush=True)
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert not any(calls.values()), calls
+    print_graph(engine.backend.graph, rep)
+    finish_check(rep, trace, cfg)
+    print_rates(rep, summary)
+    del engine
+    eager_twin(torch, rt, cfg, params, ecfg, trace, rep, rise)
+    worst, scale = 0.0, 0.0
+    for r in rep.completed[:3]:
+        worst = max(worst, greedy_gap(torch, T, cfg, params, r))
+        seq = torch.tensor([list(r.prompt)], device=DEV)
+        scale = max(scale, T.forward(cfg, params, {"tokens": seq})
+                    .abs().max().item())
+    print(f"  teacher-forced greedy gap {worst:.4e} (logit scale "
+          f"{scale:.3e}) over requests "
+          f"{[r.rid for r in rep.completed[:3]]}", flush=True)
+    assert worst <= 16 * 2.0 ** -8 * max(scale, 1.0), worst
+    print(f"  peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    return counts
 
 
 def phase_flash_bwd(torch, fa, ref, parent=None):
@@ -3204,6 +3462,9 @@ def main(argv=None) -> int:
     phase_static(torch, rt, cfg, params, trace,
                  attn=(dec.decode_attention, fa.flash_attention))
     lap("(c)")
+    if parent is not None:
+        phase_host_pair(torch, rt, T, cfg, params)
+        lap("(c+)")
     dense_static = phase_static_mode(
         torch, serve, Lyr, ref, cfg, params,
         ["--arch", cfg.name, "--full", "--mode", "static", "--batch", "8",
@@ -3349,6 +3610,12 @@ def main(argv=None) -> int:
     lap("(k')")
     del pooled
     free_card(torch)
+    mesh_counts = phase_mesh(torch, serve, rt, ops, ref, Lyr, T, get_config)
+    print(f"  launches in (n): paged_decode_attention "
+          f"{mesh_counts['paged_decode_attention']}, flash_attention "
+          f"{mesh_counts['flash_attention']}", flush=True)
+    free_card(torch)
+    lap("(n)")
 
     bwd = phase_flash_bwd(torch, fa, ref, parent)
     lap("(l0)")

@@ -6,7 +6,9 @@ sizes and ``reduced()`` of the dense and MoE families match the reference
 exactly, so a reduced config names the same shapes in both packages,
 the encoder tower of the ``encdec`` family (whisper), the patch stub of
 the ``vlm`` family (qwen2-vl), the recurrence of the ``ssm`` family
-(rwkv6) and the ``hybrid`` family (recurrentgemma) included.
+(rwkv6) and the ``hybrid`` family (recurrentgemma) included. So do
+``param_count`` (which sizes the serving cells' weights) and the input
+shapes ``SHAPES`` of the dry run's cells.
 """
 
 from __future__ import annotations
@@ -87,6 +89,43 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head): the
+        reference's formula, rwkv6's mixer approximation included."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        embed = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":           # rwkv6
+            att = D * D * 4 + D * 64 * 10   # r,k,v,o + lora mixers (approx)
+            ffn = D * F + F * D
+        elif self.mla is not None:
+            m = self.mla
+            att = (D * self.num_heads * (m.qk_nope_head_dim
+                                         + m.qk_rope_head_dim)
+                   + D * (m.kv_lora_rank + m.qk_rope_head_dim)
+                   + m.kv_lora_rank * self.num_heads
+                   * (m.qk_nope_head_dim + m.v_head_dim)
+                   + self.num_heads * m.v_head_dim * D)
+            ffn = 0  # counted via moe below
+        else:
+            att = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
+            ffn = 3 * D * F
+        if self.moe:
+            fe = self.moe.d_ff_expert
+            ffn = (self.moe.num_experts + self.moe.num_shared_experts) \
+                * 3 * D * fe + D * self.moe.num_experts
+        if self.family == "hybrid" and self.recurrent:
+            W = self.recurrent.lru_width or D
+            rec = D * W * 2 + W * D + W * self.recurrent.conv_width + 2 * W
+            natt = sum(1 for i in range(L)
+                       if self.recurrent.block_pattern[
+                           i % len(self.recurrent.block_pattern)] == "attn")
+            att = att * natt / L + rec * (1 - natt / L)  # averaged per block
+        blocks = L * (att + ffn + 2 * D)
+        if self.encoder and self.family == "encdec":
+            enc = self.encoder.num_layers * (4 * D * D + 2 * D * F + 2 * D)
+            blocks += enc + L * (4 * D * D)  # cross-attention
+        return int(embed + blocks + D)
+
     def reduced(self) -> ModelConfig:
         """Tiny same-family config for CPU tests: the reference's
         ``reduced()``, field for field (MoE, MLA, recurrence and encoder
@@ -114,3 +153,21 @@ class ModelConfig:
             num_layers=3 if self.family == "hybrid" else 2, d_model=64,
             num_heads=4, num_kv_heads=max(1, min(self.num_kv_heads, 2)),
             head_dim=16, d_ff=128, vocab_size=256, **kw)
+
+
+# --- the input shapes of the dry run's cells (the reference's task spec) -------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -8,6 +8,10 @@ dX / dW kernels; every other kernel raises when an input requires grad
 (it has no backward yet). ``impl="ref"``
 asks for the plain version on any device — the tests and
 ``chip_smoke.py``'s kernel-vs-plain comparisons use it.
+
+A ``meta`` tensor (a shapes-only trace) takes the attention kernels' and
+the grouped GEMM's shapes-only ops in ``meta``, whose FLOP formulas
+``FlopCounterMode`` reads.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from . import decode_attention as _dec
 from . import dequant as _dq
 from . import flash_attention as _fa
 from . import grouped_mvm as _gm
+from . import meta as _meta
 from . import packed_canvas as _pc
 from . import ref
 
@@ -60,6 +65,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     path: the plain version through autograd, the kernel through its
     backward kernels (``_FlashAttention``) when grad mode is on and an
     input requires grad; the backward kernels take no window."""
+    if q.device.type == "meta":
+        return _meta.flash_attention(q, k, causal, window)
     if _plain(impl, q):
         return ref.mha_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
@@ -83,6 +90,8 @@ def decode_attention(q, k, v, lengths, *, scale=None, impl: str = "kernel"):
     The kernel takes the cache as strided (B, KV, T, dh) views: no copy."""
     B, H, dh = q.shape
     KV = k.shape[2]
+    if q.device.type == "meta":
+        return _meta.decode_attention(q, k)
     if _plain(impl, q):
         return ref.decode_attention(q, k, v, lengths, scale=scale)
     out = _dec.decode_attention(
@@ -99,6 +108,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     (B,) int32 -> (B, H, dh)."""
     B, H, dh = q.shape
     KV = k_pages.shape[0]
+    if q.device.type == "meta":
+        return _meta.paged_decode_attention(q, k_pages, page_table)
     if _plain(impl, q):
         return ref.paged_decode_attention(
             q, k_pages.permute(1, 2, 0, 3), v_pages.permute(1, 2, 0, 3),
@@ -139,6 +150,8 @@ def grouped_mvm(x, w, rows=None, *, impl: str = "kernel"):
     Differentiable on either path: the plain version through autograd,
     the kernel through its dX / dW kernels (``_GroupedMVM``, bf16) when
     grad mode is on and x or w requires grad."""
+    if x.device.type == "meta":
+        return _meta.grouped_mvm(x, w)
     if _plain(impl, x):
         return ref.grouped_mvm(x, w, rows)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

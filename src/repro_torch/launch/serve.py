@@ -51,6 +51,20 @@ deterministic ``FaultSchedule``. With ``--full`` the zoo's weights must
 fit the card's free memory; the default five-family zoo needs 96.2 GB of
 bf16 weights and does not fit one H100, so name a smaller ``--zoo``.
 
+``--mesh host`` (the default) serves through a real 1x1 ``DeviceMesh``
+(``nccl`` on the card, ``gloo`` with ``--device cpu``; the pool and the
+fleet, one rank's zoo, without one); ``--mesh pod``
+builds the reference's (16, 16) data x model mesh, which needs a world of
+256 ranks (``torchrun``; a world of another size raises). Under a mesh of
+more than one rank the dense family serves tensor parallel
+(``--mode static|engine|auto``): every rank draws the params layer by
+layer from ``--seed`` and keeps only its slices (``param_pspecs``), runs
+the same host schedule and samples from logits gathered over the
+vocabulary's split, so every rank picks the same tokens; the static
+batch is split over the data axes, the engine needs data axes of one
+rank. Pool and fleet, and every other family, raise there. Rank 0
+prints.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -82,16 +96,20 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..models import get_model
+from ..models import layers as L
 from ..runtime import (Engine, EngineConfig, FaultSchedule, FleetConfig,
                        FleetEngine, ModelPool, PoolConfig, PoolEngineConfig,
                        PooledEngine, calibrated_reload_bytes_per_step,
                        diurnal_trace, encdec_extras_fn, engine_backend,
                        model_weight_bytes, multi_tenant_trace, poisson_trace,
                        shifting_mix_trace, vlm_extras_fn)
+from . import sharding as sh
 from .cli import add_streaming_args
+from .mesh import installed, make_host_mesh, make_production_mesh
 
 EXTRAS = {"encdec": encdec_extras_fn, "vlm": vlm_extras_fn}
 
@@ -117,21 +135,31 @@ def run_engine(cfg, params, args):
         max_pages_per_seq=pages_per_seq, prefill_bucket=page,
         greedy=args.greedy, temperature=args.temperature, seed=args.seed)
     rep = Engine(cfg, params, ecfg).run(_trace(cfg, args))
-    print(f"arch={cfg.name} mode=engine slots={args.batch} "
-          f"requests={args.requests}")
-    print(json.dumps(rep.summary(), indent=1))
     done = [r for r in rep.completed if not r.truncated]
-    for r in done[:2]:
-        print(f"  req{r.rid}: {r.generated}")
+    if _rank0():
+        print(f"arch={cfg.name} mode=engine slots={args.batch} "
+              f"requests={args.requests}")
+        print(json.dumps(rep.summary(), indent=1))
+        for r in done[:2]:
+            print(f"  req{r.rid}: {r.generated}")
     assert done, "no requests completed"
-    print("ok")
+    if _rank0():
+        print("ok")
     return 0
 
 
-def run_static_mode(cfg, params, args):
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def run_static_mode(cfg, params, args, mesh=None):
     """The reference's lockstep path: one prefill, ``--gen`` decode steps
     in unison. (``runtime.run_static`` is the engine's baseline on a
-    trace; this is the entry point's fixed batch.)"""
+    trace; this is the entry point's fixed batch.) Under a mesh every
+    rank draws the whole batch and keeps its rows (the batch spec's split
+    over the data axes); the sampler reads the logits gathered over the
+    vocabulary and the data axes and draws for the whole batch, so every
+    rank picks the tokens of one rank."""
     api = get_model(cfg)
     dev = params["embed"].device
     gen = torch.Generator(device=dev)
@@ -147,8 +175,11 @@ def run_static_mode(cfg, params, args):
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.randn((B, 4, cfg.d_model),
                                             generator=gen, device=dev)
+    rows = sh.P(sh.batch_dim_spec(B, mesh)) if mesh else sh.P(None)
+    batch = {k: sh.local_slice(v, rows, mesh) for k, v in batch.items()}
 
     def sample(logits):
+        logits = L.dp_all_gather(L.tp_all_gather(logits, -1), 0)
         if args.greedy:
             return logits.argmax(-1).to(torch.int32)
         probs = torch.softmax(logits / args.temperature, dim=-1)
@@ -170,20 +201,22 @@ def run_static_mode(cfg, params, args):
     t0 = time.monotonic()
     for _ in range(args.gen):
         toks.append(tok)
-        logits, state = api.decode_step(cfg, params, state, tok)
+        logits, state = api.decode_step(cfg, params, state,
+                                        sh.local_slice(tok, rows, mesh))
         tok = sample(logits)
     sync()
     t_decode = (time.monotonic() - t0) / args.gen
 
     out = torch.stack(toks, dim=1).cpu().numpy()
-    print(f"arch={cfg.name} mode=static batch={B} "
-          f"prompt={args.prompt_len} gen={args.gen}")
-    print(f"prefill: {t_prefill * 1e3:.1f} ms   "
-          f"decode: {t_decode * 1e3:.1f} ms/token")
-    for b in range(min(B, 2)):
-        print(f"  seq{b}: {out[b].tolist()}")
     assert torch.isfinite(logits).all()
-    print("ok")
+    if _rank0():
+        print(f"arch={cfg.name} mode=static batch={B} "
+              f"prompt={args.prompt_len} gen={args.gen}")
+        print(f"prefill: {t_prefill * 1e3:.1f} ms   "
+              f"decode: {t_decode * 1e3:.1f} ms/token")
+        for b in range(min(B, 2)):
+            print(f"  seq{b}: {out[b].tolist()}")
+        print("ok")
     return 0
 
 
@@ -341,8 +374,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--full", action="store_true",
                     help="published width (default: the reduced config)")
     ap.add_argument("--mesh", default="host", choices=("host", "pod"),
-                    help="host: one device; pod (the reference's "
-                         "production mesh) waits for the mesh slice")
+                    help="host: the 1x1 mesh on one device; pod: the "
+                         "reference's (16, 16) data x model mesh, 256 "
+                         "ranks under torchrun")
     ap.add_argument("--mode", default="auto",
                     choices=("auto", "engine", "static", "pool", "fleet"),
                     help="auto: the engine where the config has a backend, "
@@ -408,27 +442,61 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def init_params(cfg, args, mesh=None):
+    """Random weights from ``--seed`` on ``--device``; under a mesh of
+    more than one rank only this rank's slices of the dense family's
+    params (``param_pspecs``), drawn one matrix at a time: no rank holds
+    the whole model, and each slice equals the one-rank draw's."""
+    api = get_model(cfg)
+    if mesh is None or mesh.size == 1:
+        return api.init_params(cfg, args.seed, device=args.device)
+    L.single_rank_family(cfg)
+    specs = sh.param_pspecs(api.init_params(cfg, device="meta"), mesh)
+    return api.init_params(cfg, args.seed, device=args.device,
+                           local=sh.local_init(specs, mesh))
+
+
+def make_serving_mesh(args):
+    """``--mesh``: the 1x1 host mesh, or the reference's (16, 16) pod,
+    which raises in a world of another size than 256."""
+    if args.mesh == "host":
+        return make_host_mesh(args.device)
+    return make_production_mesh(device=args.device)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded meshes wait for the port's "
-            f"mesh/sharding/dryrun slice (ROADMAP, Queue 1); the port "
-            f"serves on one device")
-    if args.mode == "pool":
-        return run_pool(args)
-    if args.mode == "fleet":
-        return run_fleet(args)
+    if args.mode in ("pool", "fleet") and args.mesh == "host":
+        # a zoo is one rank's: it serves without a mesh, its bytes held
+        # against the card's free memory before anything is allocated
+        return run_pool(args) if args.mode == "pool" else run_fleet(args)
+    mesh = make_serving_mesh(args)
+    try:
+        with installed(mesh):
+            return serve(args, mesh)
+    finally:
+        mesh.close()
+
+
+def serve(args, mesh):
+    """Serve ``args`` on ``mesh`` (installed)."""
+    if args.mode in ("pool", "fleet"):
+        if mesh.size > 1:
+            raise NotImplementedError(
+                f"--mode {args.mode} under a mesh of {mesh.size} ranks: the "
+                f"pool and the fleet are sharded in a later slice of the "
+                f"mesh port (ROADMAP, Queue 1, item 4)")
+        return run_pool(args) if args.mode == "pool" else run_fleet(args)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     mode = args.mode
     if mode == "auto":
         mode = "engine" if engine_backend(cfg) else "static"
-    params = get_model(cfg).init_params(cfg, args.seed, device=args.device)
+    params = init_params(cfg, args, mesh)
     if mode == "engine":
         return run_engine(cfg, params, args)
-    return run_static_mode(cfg, params, args)
+    return run_static_mode(cfg, params, args, mesh)
 
 
 if __name__ == "__main__":

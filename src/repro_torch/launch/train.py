@@ -15,7 +15,7 @@ reference's does. The full MoE configs need more training state than
 one 80 GB card holds (olmoe-1b-7b's 16 layers about 111 GB);
 ``build_config`` builds a run from any config, such as one cut in depth.
 ``--mesh pod|multipod`` (the reference's sharded meshes) waits for the
-multi-GPU slice (ROADMAP, Queue 1). Resumes from the newest checkpoint
+training half of the mesh slice (ROADMAP, Queue 1, item 4). Resumes from the newest checkpoint
 in ``--ckpt-dir`` when it holds one. Returns 0 when the last loss is
 below the first.
 
@@ -110,8 +110,10 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded meshes wait for the port's "
-            f"mesh/sharding/dryrun slice (ROADMAP, Queue 1); the port "
+            f"--mesh {args.mesh}: sharded training waits for the training "
+            f"half of the mesh slice (data parallelism, FSDP, "
+            f"vocabulary-parallel cross-entropy, a global gradient norm, "
+            f"sharded checkpoints; ROADMAP, Queue 1, item 4); the port "
             f"trains on one device")
     cfg, params, opt, stream, jitted = build(
         args.arch, reduced=not args.full, seq_len=args.seq_len,

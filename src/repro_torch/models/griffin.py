@@ -65,8 +65,7 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     converter's dtypes (``lam``, ``ln``, ``ln_mlp`` and ``ln_f`` in f32,
     every other leaf in bf16)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     D, Fd, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     W = cfg.recurrent.lru_width or D
     cw = cfg.recurrent.conv_width
@@ -233,6 +232,8 @@ def _attn_block_decode(cfg, p, x, ck, cv, kpos, pos: int, rope):
     """
     win = cfg.recurrent.window
     q, k, v = _qkv(cfg, p, x, rope)
+    e = ck.shape[2] // cfg.num_kv_heads        # the cache's KV expansion
+    k, v = L.expand_kv(k, e), L.expand_kv(v, e)
     slot = pos % win
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
@@ -266,15 +267,17 @@ def _rec_state(cfg, batch_size: int, dtype, dev):
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
-                      dtype=L.COMPUTE_DTYPE, device="cuda") -> GriffinState:
+                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      kv_expand: int = 1) -> GriffinState:
     """Zero state for ``batch_size`` sequences (``cache_len`` is unused:
-    the ring holds ``window`` slots), on the card unless ``device`` says
-    otherwise."""
+    the ring holds ``window`` slots; each KV head stored ``kv_expand``
+    times), on the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
     _, n_attn = _state_counts(cfg)
     win = cfg.recurrent.window
     conv, h = _rec_state(cfg, batch_size, dtype, dev)
-    shape = (n_attn, batch_size, win, cfg.num_kv_heads, cfg.head_dim)
+    shape = (n_attn, batch_size, win, cfg.num_kv_heads * kv_expand,
+             cfg.head_dim)
     return GriffinState(
         conv=conv, h=h,
         k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -286,7 +289,8 @@ def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
 
 # --- forward / prefill ----------------------------------------------------------------
 
-def _embed(params, tokens):
+def _embed(cfg, params, tokens):
+    L.single_rank_family(cfg)
     return params["embed"][tokens.long()]
 
 
@@ -331,7 +335,7 @@ def forward(cfg, params, batch, *, remat=False):
     """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state."""
     tokens = batch["tokens"]
     conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
-    x, _ = _super_scan(cfg, params, _embed(params, tokens), conv, h,
+    x, _ = _super_scan(cfg, params, _embed(cfg, params, tokens), conv, h,
                        advance=False, remat=remat)
     return _head(params, x)
 
@@ -343,16 +347,21 @@ def loss_fn(cfg, params, batch, *, remat=True):
     return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
-def prefill(cfg, params, batch, cache_len: int = 0):
+def prefill(cfg, params, batch, cache_len: int = 0, kv_expand: int = 1):
     """The prompt from a zero state: the last position's logits (B, V)
     and the state after it, the last ``window`` keys/values in their ring
-    slots (position p at slot p % window; ``cache_len`` is unused)."""
+    slots (position p at slot p % window; ``cache_len`` is unused), each
+    KV head stored ``kv_expand`` times (MQA's one head replicated)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     win = cfg.recurrent.window
-    state = init_decode_state(cfg, B, device=tokens.device)
-    x, (k_all, v_all) = _super_scan(cfg, params, _embed(params, tokens),
-                                    state.conv, state.h)
+    state = init_decode_state(cfg, B, device=tokens.device,
+                              kv_expand=kv_expand)
+    x, (k_all, v_all) = _super_scan(
+        cfg, params, _embed(cfg, params, tokens), state.conv, state.h)
+    if kv_expand > 1:                     # expand on the head axis (3)
+        k_all = torch.repeat_interleave(k_all, kv_expand, dim=3)
+        v_all = torch.repeat_interleave(v_all, kv_expand, dim=3)
     n_attn = k_all.shape[0]
     dev = tokens.device
     if S >= win:
@@ -375,7 +384,7 @@ def decode_step(cfg, params, state: GriffinState, tokens):
     B = tokens.shape[0]
     pos = state.pos
     rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     for kind, p, i in _layers(cfg, params):
         if kind == "rec":
             x, c, hh = _rec_block(p, x, state.conv[i], state.h[i])
@@ -433,7 +442,7 @@ def paged_prefill(cfg, params, batch, length):
     KV is masked or overwritten by the paged reader."""
     tokens = batch["tokens"]
     conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
-    x, kv = _super_scan(cfg, params, _embed(params, tokens), conv, h,
+    x, kv = _super_scan(cfg, params, _embed(cfg, params, tokens), conv, h,
                         length=length)
     idx = (length.reshape(()).long() - 1).reshape(1)
     return _head(params, x.index_select(1, idx))[:, 0], kv, conv, h
@@ -508,7 +517,7 @@ def paged_decode_step(cfg, params, state: GriffinPagedState, tokens,
     pos = torch.where(active, lengths.to(torch.int32), 0)
     rope = _rope(cfg, pos[:, None])
     keep = active[:, None]
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     for kind, p, i in _layers(cfg, params):
         if kind == "rec":
             conv, h = state.conv[i], state.h[i]

@@ -1,7 +1,8 @@
 """Model building blocks of the port (``repro.models.layers`` without
-its sharding hints and the one-hot MoE oracle ``moe_router`` /
-``moe_ffn_dense``: dense, vlm, MoE, ssm and encoder-decoder serving, and
-training: the loss, the MoE load-balance loss, remat), in PyTorch.
+the one-hot MoE oracle ``moe_router`` / ``moe_ffn_dense``: dense, vlm,
+MoE, ssm and encoder-decoder serving, training: the loss, the MoE
+load-balance loss, remat; and the shard context with the collectives
+that tensor-parallel serving calls), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -11,6 +12,7 @@ it); nothing on a training forward writes in place.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 
@@ -24,6 +26,117 @@ from ..kernels import ops
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 NEG_INF = -1e30
+
+
+# --- the shard context ------------------------------------------------------------
+# The reference installs its mesh's axis names at trace time and lets XLA's
+# SPMD partitioner insert the collectives. The port runs rank-locally: the
+# launcher installs the mesh here, and the model code calls the
+# collectives below where the partitioner would have put them. Each is an
+# identity on an axis of size 1, and with no context installed, so one
+# device (and the 1x1 host mesh) runs exactly the code it ran before,
+# CUDA graphs included; on a larger axis it is the installed mesh's
+# (``launch.mesh``: a process group's, or a dry mesh's that only counts).
+
+_SHARD_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_shard_ctx", default=None)
+
+
+def set_shard_ctx(dp_axes, tp_axis: str | None, dp_size: int = 1,
+                  tp_size: int = 1, *, mesh=None):
+    """Install a mesh for the model code; returns a token for
+    ``reset_shard_ctx``. ``mesh`` (a ``launch.mesh`` mesh) gives this
+    rank's coordinates and runs the collectives."""
+    return _SHARD_CTX.set({"dp": dp_axes, "tp": tp_axis,
+                           "dp_size": dp_size, "tp_size": tp_size,
+                           "mesh": mesh})
+
+
+def reset_shard_ctx(token):
+    _SHARD_CTX.reset(token)
+
+
+def dp_group_count() -> int:
+    """Number of data-parallel groups for group-local MoE dispatch."""
+    ctx = _SHARD_CTX.get()
+    return int(ctx.get("dp_size", 1)) if ctx else 1
+
+
+def tp_size() -> int:
+    """Ranks on the tensor-parallel (model) axis; 1 without a mesh."""
+    ctx = _SHARD_CTX.get()
+    return int(ctx["tp_size"]) if ctx else 1
+
+
+def tp_rank() -> int:
+    """This rank's index on the model axis (0 in a dry run)."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx["mesh"] is None:
+        return 0
+    return int(ctx["mesh"].coords.get(ctx["tp"], 0))
+
+
+def single_rank_family(cfg) -> None:
+    """Only the dense family is sharded so far: any other family under a
+    mesh of more than one rank raises."""
+    ctx = _SHARD_CTX.get()
+    if ctx and ctx["tp_size"] * ctx["dp_size"] > 1 \
+            and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not sharded yet; its "
+            f"tensor parallelism comes with a later slice of the mesh port "
+            f"(ROADMAP, Queue 1, item 4)")
+
+
+def serve_kv_expand(cfg, tp: int) -> int:
+    """KV-head replication factor for serving under tensor parallelism.
+
+    Storing each KV head e times makes the cache head axis divide the
+    model axis, aligning every rank's q heads with exactly its resident
+    KV heads. Returns 1 when expansion can't align (then the reference's
+    cache shards over dh instead, which cuts a head)."""
+    kv, h = cfg.num_kv_heads, cfg.num_heads
+    if cfg.mla is not None or kv == 0:
+        return 1
+    e = tp // math.gcd(kv, tp)
+    if e > 1 and (kv * e) % tp == 0 and h % (kv * e) == 0 and e <= tp:
+        return e
+    return 1
+
+
+def expand_kv(k, e: int):
+    """(B, S, KV, dh) -> (B, S, KV*e, dh); q head h maps to expanded head
+    h // (G/e), preserving grouping (each head repeated in place)."""
+    return k if e == 1 else torch.repeat_interleave(k, e, dim=2)
+
+
+def tp_all_reduce(x):
+    """Sum ``x`` over the model axis, in x's dtype (the reference's
+    partitioner sums a row-parallel product's partial sums so). The
+    result is the same on every rank."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx["tp_size"] == 1:
+        return x
+    return ctx["mesh"].all_reduce(x, ctx["tp"])
+
+
+def tp_all_gather(x, dim: int = -1):
+    """Concatenate every model rank's ``x`` along ``dim``, in rank order."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx["tp_size"] == 1:
+        return x
+    return ctx["mesh"].all_gather(x, dim, (ctx["tp"],))
+
+
+def dp_all_gather(x, dim: int = 0):
+    """Concatenate every data-parallel rank's ``x`` along ``dim``, the
+    outermost axis (pod) major, as the batch specs split it."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx["dp_size"] == 1:
+        return x
+    mesh = ctx["mesh"]
+    return mesh.all_gather(x, dim, tuple(a for a in mesh.axis_names
+                                         if a in ("pod", "data")))
 
 
 # --- paged KV cache ---------------------------------------------------------------
@@ -60,6 +173,16 @@ def paged_cache_write_prompt(pages, kv, page_ids):
 
 
 # --- initializers -------------------------------------------------------------
+
+def seeded_generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    ``meta``, where an init draws nothing (shapes only)."""
+    if torch.device(device).type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
 
 def trunc_normal_(t, gen, std=0.02):
     """Fill ``t`` in place with std * N(0, 1) truncated to [-2, 2]."""

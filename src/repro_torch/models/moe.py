@@ -90,8 +90,7 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` one layer at a time into the stacked tensors."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     D, V, Lc = cfg.d_model, cfg.vocab_size, cfg.num_layers
     norm_init, _ = L.make_norm(cfg)
 
@@ -250,7 +249,7 @@ def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
     dims = L.moe_dims(cfg, B * S)
     if route_capacity is not None:
         dims = dataclasses.replace(dims, capacity=route_capacity)
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens)
     kvs, keeps, auxs = [], [], []
     for i, p in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         x, kv, keep, aux = L.checkpointed(
@@ -315,17 +314,20 @@ def _cache_shape(cfg, batch_size: int, cache_len: int) -> tuple:
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int,
-                      dtype=L.COMPUTE_DTYPE, device="cuda"
-                      ) -> MoEDecodeState:
+                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      kv_expand: int = 1) -> MoEDecodeState:
+    assert kv_expand == 1, "olmoe KV=16 divides tp; MLA caches latents"
     return MoEDecodeState(kv=torch.zeros(
         _cache_shape(cfg, batch_size, cache_len), dtype=dtype,
         device=resolve_device(device)), pos=0)
 
 
-def prefill(cfg, params, batch, cache_len: int):
+def prefill(cfg, params, batch, cache_len: int, kv_expand: int = 1):
     """Run the full prompt, keep its cache rows (latents, or GQA K/V) in a
     cache of ``cache_len`` positions, return the last position's logits
-    (B, V) and the state."""
+    (B, V) and the state (``kv_expand`` must be 1, as in the
+    reference)."""
+    assert kv_expand == 1, "olmoe KV=16 divides tp; MLA caches latents"
     B, S = batch["tokens"].shape
     x, kv, _, _ = _trunk(cfg, params, batch, return_kv=True)
     logits = _head(cfg, params, x[:, -1:])[:, 0]
@@ -352,7 +354,7 @@ def decode_step(cfg, params, state: MoEDecodeState, tokens):
     rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
     lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     dims = L.moe_dims_dropless(cfg, B)
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         if cfg.mla is None:
@@ -458,7 +460,7 @@ def paged_decode_step(cfg, params, state: MoEPagedState, tokens,
     page = state.kv_pages.shape[2]
     active = active.to(torch.bool)
     pos = torch.where(active, lengths.to(torch.int32), 0)
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     slot = (pos // page)[:, None].long()
     page_ids = torch.where(active, torch.gather(page_table, 1, slot)[:, 0], 0)
     offsets = torch.where(active, pos % page, 0)

@@ -50,8 +50,7 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     time, stored in the converter's dtypes (``transformer.F32_PARAMS`` in
     f32, every other leaf in bf16)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     D, Fd, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, dh = cfg.num_heads, cfg.head_dim
     assert H * dh == D
@@ -222,9 +221,11 @@ class RwkvState:
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
-                      dtype=L.COMPUTE_DTYPE, device="cuda") -> RwkvState:
-    """Zero state for ``batch_size`` sequences (``cache_len`` is unused: the
-    state does not grow), on the card unless ``device`` says otherwise."""
+                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      kv_expand: int = 1) -> RwkvState:
+    """Zero state for ``batch_size`` sequences (``cache_len`` and
+    ``kv_expand`` are unused: the state does not grow and holds no KV
+    heads), on the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
     Lr, D = cfg.num_layers, cfg.d_model
     H, dh = cfg.num_heads, cfg.head_dim
@@ -241,6 +242,7 @@ def _logits(cfg, params, tokens, state: RwkvState, remat=False):
     """tokens (B, S) through every block from ``state``, which is only
     read: returns logits (B, S, V) f32 and each layer's new (att_prev,
     ffn_prev, wkv). ``remat`` recomputes each block in the backward."""
+    L.single_rank_family(cfg)
     cd = L.COMPUTE_DTYPE
     x = params["embed"].to(cd)[tokens.long()]
     x = L.layernorm(x, params["ln_in"].to(cd), params["ln_inb"].to(cd))
@@ -280,9 +282,10 @@ def loss_fn(cfg, params, batch, *, remat=True):
     return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 
-def prefill(cfg, params, batch, cache_len: int = 0):
+def prefill(cfg, params, batch, cache_len: int = 0, kv_expand: int = 1):
     """The prompt from a zero state: the last position's logits (B, V)
-    and the state after it (``cache_len`` is unused)."""
+    and the state after it (``cache_len`` and ``kv_expand`` are
+    unused)."""
     tokens = batch["tokens"]
     state = init_decode_state(cfg, tokens.shape[0], device=tokens.device)
     return _run(cfg, params, tokens, state)[:, -1], state

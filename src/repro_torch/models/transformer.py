@@ -28,6 +28,28 @@ static decode's one query over its dense cache through
 ``ops.paged_decode_attention``. The prefix-shared prefill keeps the
 plain masked attention, as the reference does: its mask (ragged prefix |
 causal suffix) is not the flash kernel's.
+
+KV expansion (``kv_expand`` e): the serving caches may store each KV
+head e times (``layers.serve_kv_expand``), so that their head axis
+divides the model axis of a mesh; q head h then reads expanded head
+h // (G/e). ``prefill`` and ``init_decode_state`` take e, and every
+decode reads it back from its cache's head count.
+
+Tensor parallelism (the dense family, under a mesh installed by
+``layers.set_shard_ctx``): each rank holds its slices of the params
+(``launch.sharding.param_pspecs``) and runs Megatron style. The
+column-parallel wq/wk/wv/w_gate/w_up give the rank's heads and FFN
+columns, the row-parallel wo/w_down give partial sums that
+``layers.tp_all_reduce`` sums over the model axis, the vocabulary-parallel
+embedding looks up its own rows (zeros elsewhere) and sums them, and the
+head yields the logits of the rank's vocabulary columns: ``prefill`` and
+``decode_step`` return them so (the reference's ``_logits_spec``), the
+paged functions, whose logits the engine samples, gather them. Every local size comes from the local weights (and the
+cache's head count), never from the config unchanged; a split that cuts
+a head raises. Where wk/wv are cut within a head (fewer KV heads than
+model ranks), the rank gathers them and keeps its expanded heads. At
+one rank every collective is the identity and the code is the one
+device's.
 """
 
 from __future__ import annotations
@@ -52,44 +74,60 @@ F32_PARAMS = frozenset({"ln1", "ln2", "ln_f", "kv_ln", "ln1b", "ln2b",
 
 # --- params ----------------------------------------------------------------------
 
-def init_params(cfg, seed: int = 0, device="cuda"):
+def init_params(cfg, seed: int = 0, device="cuda", local=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     the reference's distributions (truncated normal, std 1/sqrt(d_in)
-    for matrices, 0.02 for the embedding), drawn on ``device``."""
+    for matrices, 0.02 for the embedding), drawn on ``device``
+    (``"meta"``: shapes only, no draw).
+
+    ``local(path, t)`` (``launch.sharding.local_init``) keeps a rank's
+    slice of each drawn tensor, ``t`` the whole leaf at ``path`` or one
+    layer of a stacked leaf: every rank draws the same stream, one f32
+    matrix at a time, and holds only its slices, which equal the slices
+    of the one-rank draw bit for bit."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     D, F, V, Lc = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
     Q, KV = cfg.q_dim, cfg.kv_dim
     norm_init, _ = L.make_norm(cfg)
     cd = L.COMPUTE_DTYPE
+    keep = local or (lambda path, t: t)
 
-    def matrix(d_in, d_out, std=None):
+    def matrix(path, d_in, d_out, std=None):
         w = torch.empty((d_in, d_out), dtype=L.PARAM_DTYPE, device=dev)
-        return L.trunc_normal_(w, gen, std or 1.0 / math.sqrt(d_in)).to(cd)
+        L.trunc_normal_(w, gen, std or 1.0 / math.sqrt(d_in))
+        return keep(path, w.to(cd))
 
-    def stacked(d_in, d_out):
-        out = torch.empty((Lc, d_in, d_out), dtype=cd, device=dev)
-        for i in range(Lc):             # one f32 layer at a time
-            out[i] = matrix(d_in, d_out)
+    def stacked(name, d_in, d_out):
+        path = ("blocks", name)
+        first = matrix(path, d_in, d_out)   # one f32 layer at a time
+        out = torch.empty((Lc, *first.shape), dtype=cd, device=dev)
+        out[0] = first
+        for i in range(1, Lc):
+            out[i] = matrix(path, d_in, d_out)
         return out
 
+    def const(name, t):
+        return keep(("blocks", name), t)
+
     blocks = {
-        "ln1": torch.stack([norm_init(D, dev)] * Lc),
-        "ln2": torch.stack([norm_init(D, dev)] * Lc),
-        "wq": stacked(D, Q), "wk": stacked(D, KV), "wv": stacked(D, KV),
-        "wo": stacked(Q, D), "w_gate": stacked(D, F), "w_up": stacked(D, F),
-        "w_down": stacked(F, D),
+        "ln1": const("ln1", torch.stack([norm_init(D, dev)] * Lc)),
+        "ln2": const("ln2", torch.stack([norm_init(D, dev)] * Lc)),
+        "wq": stacked("wq", D, Q), "wk": stacked("wk", D, KV),
+        "wv": stacked("wv", D, KV), "wo": stacked("wo", Q, D),
+        "w_gate": stacked("w_gate", D, F), "w_up": stacked("w_up", D, F),
+        "w_down": stacked("w_down", F, D),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", Q), ("bk", KV), ("bv", KV)):
-            blocks[name] = torch.zeros((Lc, n), dtype=cd, device=dev)
-    params = {"embed": matrix(V, D, std=0.02), "blocks": blocks,
-              "ln_f": norm_init(D, dev)}
+            blocks[name] = const(name, torch.zeros((Lc, n), dtype=cd,
+                                                   device=dev))
+    params = {"embed": matrix(("embed",), V, D, std=0.02), "blocks": blocks,
+              "ln_f": keep(("ln_f",), norm_init(D, dev))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = matrix(D, V)
+        params["lm_head"] = matrix(("lm_head",), D, V)
     if cfg.family == "vlm":
-        params["patch_proj"] = matrix(D, D)
+        params["patch_proj"] = matrix(("patch_proj",), D, D)
     return params
 
 
@@ -99,40 +137,116 @@ def _layer(params, i: int) -> dict:
 
 # --- block -----------------------------------------------------------------------
 
-def _qkv(cfg, p, x, rope):
-    """Pre-norm, projections, bias and RoPE: (q, k, v) in (B, S, heads, dh).
-    ``rope`` is the forward's (cos, sin) from ``layers.rope_cos_sin``."""
+def _heads(cfg, p, e: int) -> tuple[int, int]:
+    """This rank's (q heads, cache heads) from its wq slice and the KV
+    expansion ``e``; raises where the split cuts a head or leaves the
+    rank's q heads without their whole KV heads."""
+    tp, dh = L.tp_size(), cfg.head_dim
+    q_cols = p["wq"].shape[-1]
+    kve = cfg.num_kv_heads * e
+    if q_cols % dh or kve % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {tp}-way tensor parallelism cuts a head (wq "
+            f"{q_cols} columns a rank, dh {dh}; {kve} cache heads); such "
+            f"cells wait for a later slice of the mesh port")
+    if tp > 1 and q_cols * tp != cfg.q_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: wq is not split over the {tp} model ranks; the "
+            f"rank-local executor runs split heads only")
+    hl, ce = q_cols // dh, kve // tp
+    if hl % ce:
+        raise NotImplementedError(
+            f"{cfg.name}: {hl} q heads a rank do not group over {ce} "
+            f"cache heads")
+    return hl, ce
+
+
+def _cache_heads(cfg, t, e: int, ce: int):
+    """(B, S, columns) from this rank's wk or wv slice -> the rank's
+    ``ce`` cache heads (B, S, ce, dh): its own heads where the slice holds
+    whole heads and nothing is expanded, else the whole KV projection
+    (gathered over the model axis where the slice cuts a head), expanded
+    e times and cut to the rank's heads."""
+    B, S, cols = t.shape
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    if e == 1 and cols == ce * dh:
+        return t.view(B, S, ce, dh)
+    if cols != kv * dh:
+        t = L.tp_all_gather(t, -1)
+    full = L.expand_kv(t.view(B, S, kv, dh), e)
+    if full.shape[2] == ce:
+        return full
+    r = L.tp_rank()
+    return full[:, :, r * ce:(r + 1) * ce].contiguous()
+
+
+def _qkv(cfg, p, x, rope, e: int = 1):
+    """Pre-norm, projections, bias and RoPE: q (B, S, heads, dh) and k, v
+    in the cache's (B, S, cache heads, dh), each KV head expanded ``e``
+    times; under a mesh the rank's heads (``_heads``). ``rope`` is the
+    forward's (cos, sin) from ``layers.rope_cos_sin``."""
     _, norm = L.make_norm(cfg)
     B, S, _ = x.shape
+    one = e == 1 and L.tp_size() == 1
+    hl, ce = (cfg.num_heads, cfg.num_kv_heads) if one else _heads(cfg, p, e)
     h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.rotate(q.view(B, S, cfg.num_heads, cfg.head_dim), *rope)
-    k = L.rotate(k.view(B, S, cfg.num_kv_heads, cfg.head_dim), *rope)
-    return q, k, v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if one:                             # one rank, no expansion: as stored
+        dh = cfg.head_dim
+        return (L.rotate(q.view(B, S, hl, dh), *rope),
+                L.rotate(k.view(B, S, ce, dh), *rope), v.view(B, S, ce, dh))
+    q = L.rotate(q.view(B, S, hl, cfg.head_dim), *rope)
+    k = L.rotate(_cache_heads(cfg, k, e, ce), *rope)
+    return q, k, _cache_heads(cfg, v, e, ce)
+
+
+def _row_parallel(t, w, full: int):
+    """A product through a row-parallel weight: its partial sums are
+    summed over the model axis where ``w`` holds a slice of its ``full``
+    input rows."""
+    return L.tp_all_reduce(t) if w.shape[0] != full else t
 
 
 def _finish(cfg, p, x, attn):
     """Output projection, residual, pre-norm SwiGLU FFN, residual."""
     _, norm = L.make_norm(cfg)
     B, S, _ = x.shape
-    y = x + (attn.reshape(B, S, cfg.q_dim) @ p["wo"]).to(x.dtype)
+    sharded = L.tp_size() > 1
+    o = attn.reshape(B, S, -1) @ p["wo"]
+    if sharded:
+        o = _row_parallel(o, p["wo"], cfg.q_dim)
+    y = x + o.to(x.dtype)
     h2 = norm(y, p["ln2"]).to(L.COMPUTE_DTYPE)
-    return y + L.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]).to(x.dtype)
+    f = L.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+    if sharded:
+        f = _row_parallel(f, p["w_down"], cfg.d_ff)
+    return y + f.to(x.dtype)
 
 
 # --- embedding / head ---------------------------------------------------------------
 
-def _embed(params, tokens):
-    return params["embed"][tokens.long()]
+def _embed(cfg, params, tokens):
+    """The embedding rows of ``tokens``. Where this rank holds a slice of
+    the vocabulary's rows, it looks up the tokens in its slice, zeros the
+    others and sums over the model axis (exact: one nonzero a token)."""
+    L.single_rank_family(cfg)
+    w = params["embed"]
+    rows = w.shape[0]
+    if rows == cfg.vocab_size:
+        return w[tokens.long()]
+    idx = tokens.long() - L.tp_rank() * rows
+    hit = (idx >= 0) & (idx < rows)
+    x = w[idx.clamp(0, rows - 1)] * hit[..., None].to(w.dtype)
+    return L.tp_all_reduce(x)
 
 
 def _embed_batch(cfg, params, batch):
     """Embeddings of batch["tokens"]; for the vlm family the first P rows
     become batch["patch_embeds"] (B, P, D) projected through
     ``patch_proj`` in bf16, where the batch carries them."""
-    x = _embed(params, batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"])
     pe = batch.get("patch_embeds")
     if cfg.family == "vlm" and pe is not None:
         pe = pe.to(L.COMPUTE_DTYPE) @ params["patch_proj"]
@@ -141,6 +255,8 @@ def _embed_batch(cfg, params, batch):
 
 
 def _head(cfg, params, x):
+    """Final norm and the head: f32 logits of this rank's vocabulary
+    columns (all of them at one rank)."""
     _, norm = L.make_norm(cfg)
     h = norm(x, params["ln_f"]).to(L.COMPUTE_DTYPE)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -158,20 +274,21 @@ def _rope(cfg, positions, pos3=None):
     return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _block(cfg, p, x, rope):
+def _block(cfg, p, x, rope, e: int = 1):
     """One decoder block over the whole sequence, causal flash attention:
-    (y, k, v)."""
-    q, k, v = _qkv(cfg, p, x, rope)
+    (y, k, v), k and v in the cache's heads."""
+    q, k, v = _qkv(cfg, p, x, rope, e)
     return _finish(cfg, p, x, ops.flash_attention(q, k, v, causal=True)), \
         k, v
 
 
-def _trunk(cfg, params, batch, return_kv: bool, remat: bool = False):
+def _trunk(cfg, params, batch, return_kv: bool, remat: bool = False,
+           e: int = 1):
     """The blocks over the whole sequence with causal flash attention.
     ``batch`` may carry "positions" (B, S), "pos3" (3, B, S) and, for the
     vlm family, "patch_embeds". ``remat`` recomputes each block in the
-    backward. Returns (hidden (B, S, D), (k, v) each (L, B, S, KV, dh) or
-    None)."""
+    backward. Returns (hidden (B, S, D), (k, v) each (L, B, S, cache
+    heads, dh), KV heads expanded ``e`` times, or None)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     rope = _rope(cfg, batch.get("positions", torch.arange(
@@ -179,7 +296,7 @@ def _trunk(cfg, params, batch, return_kv: bool, remat: bool = False):
     x = _embed_batch(cfg, params, batch)
     ks, vs = [], []
     for p in L.layer_views(params["blocks"], cfg.num_layers):
-        x, k, v = L.checkpointed(_block, cfg, p, x, rope, remat=remat)
+        x, k, v = L.checkpointed(_block, cfg, p, x, rope, e, remat=remat)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -217,21 +334,31 @@ class DecodeState:
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int,
-                      dtype=L.COMPUTE_DTYPE, device="cuda") -> DecodeState:
-    """An empty dense cache of ``cache_len`` positions, on the card unless
-    ``device`` says otherwise."""
+                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      kv_expand: int = 1) -> DecodeState:
+    """An empty dense cache of ``cache_len`` positions, each KV head
+    stored ``kv_expand`` times, on the card unless ``device`` says
+    otherwise: the whole (one-rank) cache, whose slices
+    ``launch.sharding.state_pspecs`` names."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.num_layers, batch_size, cache_len,
+             cfg.num_kv_heads * kv_expand, cfg.head_dim)
     return DecodeState(k=torch.zeros(shape, dtype=dtype, device=dev),
                        v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
 
 
-def prefill(cfg, params, batch, cache_len: int):
-    """Run the full prompt, materialize the dense KV cache, return the
-    last position's logits (B, V) and the DecodeState."""
+def _expansion(cfg, cache_heads: int) -> int:
+    """The KV expansion of a cache (or page pool) holding ``cache_heads``
+    heads on each of the model axis' ranks."""
+    return cache_heads * L.tp_size() // cfg.num_kv_heads
+
+
+def prefill(cfg, params, batch, cache_len: int, kv_expand: int = 1):
+    """Run the full prompt, materialize the dense KV cache (each KV head
+    stored ``kv_expand`` times), return the last position's logits (B, V)
+    and the DecodeState."""
     B, S = batch["tokens"].shape
-    x, (k, v) = _trunk(cfg, params, batch, return_kv=True)
+    x, (k, v) = _trunk(cfg, params, batch, return_kv=True, e=kv_expand)
     logits = _head(cfg, params, x[:, -1:])[:, 0]
     pad = (0, 0, 0, 0, 0, cache_len - S)        # pad the position axis
     return logits, DecodeState(k=torch.nn.functional.pad(k, pad),
@@ -247,12 +374,13 @@ def decode_step(cfg, params, state: DecodeState, tokens):
     B = tokens.shape[0]
     pos = state.pos
     dev = tokens.device
+    e = _expansion(cfg, state.k.shape[3])
     rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
     lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
-        q, k, v = _qkv(cfg, p, x, rope)
+        q, k, v = _qkv(cfg, p, x, rope, e)
         state.k[i, :, pos] = k[:, 0]
         state.v[i, :, pos] = v[:, 0]
         attn = ops.decode_attention(q[:, 0], state.k[i], state.v[i], lengths)
@@ -271,20 +399,31 @@ class PagedDecodeState:
 
 
 def init_paged_decode_state(cfg, num_pages: int, page_size: int,
-                            dtype=L.COMPUTE_DTYPE, device="cuda"
+                            dtype=L.COMPUTE_DTYPE, device="cuda",
+                            kv_heads: int | None = None
                             ) -> PagedDecodeState:
+    """Page pools of ``kv_heads`` heads (default the config's KV heads;
+    a rank's cache heads under a mesh)."""
     k, v = L.paged_cache_init(cfg.num_layers, num_pages, page_size,
-                              cfg.num_kv_heads, cfg.head_dim, dtype, device)
+                              kv_heads or cfg.num_kv_heads, cfg.head_dim,
+                              dtype, device)
     return PagedDecodeState(k_pages=k, v_pages=v)
 
 
-def paged_prefill(cfg, params, batch, lengths):
+def _sampled_logits(cfg, params, x):
+    """The head's logits of x for a sampler: the whole vocabulary on
+    every rank (gathered over its split under a mesh)."""
+    return L.tp_all_gather(_head(cfg, params, x), -1)
+
+
+def paged_prefill(cfg, params, batch, lengths, kv_expand: int = 1):
     """Forward the (padded) prompts; return each sequence's last-live-
-    token logits (B, V) plus the per-layer KV (L, B, S, KV, dh) for the
-    page scatter. Causality keeps pad positions past ``lengths`` from
-    touching live ones; the head runs on the last live rows only."""
-    x, kv = _trunk(cfg, params, batch, return_kv=True)
-    return _head(cfg, params, _last(x, lengths))[:, 0], kv
+    token logits (B, V) plus the per-layer KV (L, B, S, cache heads, dh)
+    for the page scatter. Causality keeps pad positions past ``lengths``
+    from touching live ones; the head runs on the last live rows only.
+    The engine samples the logits: they are the whole vocabulary's."""
+    x, kv = _trunk(cfg, params, batch, return_kv=True, e=kv_expand)
+    return _sampled_logits(cfg, params, _last(x, lengths))[:, 0], kv
 
 
 def write_prefill_pages(cfg, state: PagedDecodeState, kv, page_ids) -> None:
@@ -321,11 +460,12 @@ def paged_prefill_shared(cfg, params, state: PagedDecodeState, batch,
     page = state.k_pages.shape[3]
     Mp = prefix_pages.shape[1]
     Tp = Mp * page
-    KV, dh = cfg.num_kv_heads, cfg.head_dim
+    KV, dh = state.k_pages.shape[1], cfg.head_dim     # the pool's heads
+    e = _expansion(cfg, KV)
     dev = tokens.device
     prefix_len = prefix_len.long()
     rope = _rope(cfg, prefix_len[:, None] + torch.arange(S, device=dev))
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens)
 
     # keys per layer: [gathered prefix (Tp) | suffix (S)]; prefix entries
     # valid below prefix_len, suffix causal
@@ -341,22 +481,22 @@ def paged_prefill_shared(cfg, params, state: PagedDecodeState, batch,
     ks, vs = [], []
     for i in range(cfg.num_layers):
         p = _layer(params, i)
-        q, k, v = _qkv(cfg, p, x, rope)
+        q, k, v = _qkv(cfg, p, x, rope, e)
         ck = torch.cat([gather(state.k_pages[i]), k], dim=1)
         cv = torch.cat([gather(state.v_pages[i]), v], dim=1)
         x = _finish(cfg, p, x, L.gqa_attention(q, ck, cv, mask=mask))
         ks.append(k)
         vs.append(v)
-    last = _head(cfg, params, _last(x, lengths))[:, 0]
+    last = _sampled_logits(cfg, params, _last(x, lengths))[:, 0]
     return last, (torch.stack(ks), torch.stack(vs))
 
 
 def _paged_block(cfg, p, x, rope, k_pages, v_pages, page_table,
-                 page_ids, offsets, attn_lengths):
+                 page_ids, offsets, attn_lengths, e: int = 1):
     """One decoder block over a paged cache, S == 1. k/v_pages (KV, P,
     page, dh) are this layer's pool views; the new token is appended at
     (page_ids, offsets) in place before attention reads it."""
-    q, k, v = _qkv(cfg, p, x, rope)
+    q, k, v = _qkv(cfg, p, x, rope, e)
     L.paged_cache_append(k_pages, k[:, 0], page_ids, offsets)
     L.paged_cache_append(v_pages, v[:, 0], page_ids, offsets)
     attn = ops.paged_decode_attention(q[:, 0], k_pages, v_pages, page_table,
@@ -367,16 +507,18 @@ def _paged_block(cfg, p, x, rope, k_pages, v_pages, page_table,
 def paged_decode_step(cfg, params, state: PagedDecodeState, tokens,
                       page_table, lengths, active):
     """One token per slot against the paged cache; returns logits (B, V)
-    and appends each active slot's K/V to the pool in place.
+    (the whole vocabulary's: the engine samples them) and appends each
+    active slot's K/V to the pool in place.
 
     tokens (B,) int; page_table (B, M) int32; lengths (B,) int32 live
     context per slot; active (B,) bool — inactive slots write to the
     trash page and read zero-length caches. The caller advances lengths.
     """
     page = state.k_pages.shape[3]
+    e = _expansion(cfg, state.k_pages.shape[1])
     lengths = lengths.to(torch.int32)
     active = active.to(torch.bool)
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     slot = (lengths // page)[:, None].long()
     page_ids = torch.gather(page_table, 1, slot)[:, 0]
     page_ids = torch.where(active, page_ids, 0)              # trash page
@@ -386,8 +528,8 @@ def paged_decode_step(cfg, params, state: PagedDecodeState, tokens,
     for i in range(cfg.num_layers):
         x = _paged_block(cfg, _layer(params, i), x, rope,
                          state.k_pages[i], state.v_pages[i], page_table,
-                         page_ids, offsets, attn_lengths)
-    return _head(cfg, params, x)[:, 0]
+                         page_ids, offsets, attn_lengths, e)
+    return _sampled_logits(cfg, params, x)[:, 0]
 
 
 def paged_decode_multi(cfg, params, state: PagedDecodeState, pending,

@@ -43,8 +43,7 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     1/sqrt(d_in) for matrices, 0.02 for the embedding, 0.01 for the
     position tables; zero biases, unit layernorm scales), on ``device``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     Q, KV = cfg.q_dim, cfg.kv_dim
 
@@ -180,6 +179,7 @@ def _head(params, x):
 def _decoder(cfg, params, tokens, enc_out, return_kv: bool, remat=False):
     """The decoder over whole sequences: (hidden (B, S, D), (k, v) each
     (L, B, S, KV, dh) or None)."""
+    L.single_rank_family(cfg)
     S = tokens.shape[1]
     pos_ids = torch.arange(S, device=tokens.device) % DEC_POS_ROWS
     x = params["embed"][tokens.long()] + params["dec_pos"][pos_ids][None]
@@ -220,7 +220,11 @@ class WhisperState:
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int,
-                      dtype=L.COMPUTE_DTYPE, device="cuda") -> WhisperState:
+                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      kv_expand: int = 1) -> WhisperState:
+    """An empty cache of ``cache_len`` positions and a zero encoder
+    output; ``kv_expand`` is accepted and unused, as in the
+    reference."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
              cfg.head_dim)
@@ -231,10 +235,11 @@ def init_decode_state(cfg, batch_size: int, cache_len: int,
                             dtype=dtype, device=dev), pos=0)
 
 
-def prefill(cfg, params, batch, cache_len: int):
+def prefill(cfg, params, batch, cache_len: int, kv_expand: int = 1):
     """Encode the frames, run the full prompt, keep its self-attention
     K/V in a cache of ``cache_len`` positions; return the last position's
-    logits (B, V) and the state (which keeps the encoder output)."""
+    logits (B, V) and the state (which keeps the encoder output).
+    ``kv_expand`` is accepted and unused, as in the reference."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     enc_out = encode(cfg, params, batch["frames"])
@@ -252,6 +257,7 @@ def decode_step(cfg, params, state: WhisperState, tokens):
     ``ops.decode_attention`` with lengths filled on the device. Writes
     the new K/V in place and advances ``state.pos``; returns (logits
     (B, V), state)."""
+    L.single_rank_family(cfg)
     B = tokens.shape[0]
     pos = state.pos
     dev = tokens.device

@@ -339,6 +339,11 @@ class _Backend:
     prefix_sharing = False             # maps shared prompt pages
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
+        if L.dp_group_count() > 1:
+            raise NotImplementedError(
+                "the engine under a data axis of more than one rank: its "
+                "slots are one replica's; data-parallel serving comes with "
+                "a later slice of the mesh port (ROADMAP, Queue 1, item 4)")
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = params["embed"].device
         self.graph: DecodeGraph | None = None   # the card's fused horizon
@@ -426,15 +431,27 @@ class PagedTransformerBackend(_PagedBackend):
     """Dense and vlm families: a paged KV cache read by the paged-decode
     kernel, prompts prefilled through the flash kernel (a vlm request's
     patch embeddings ride along as extras), prefix sharing with
-    copy-on-write for the dense family only."""
+    copy-on-write for the dense family only.
+
+    Under a mesh (the dense family, tensor parallel) every rank runs the
+    engine's same host schedule: its pools hold its own cache heads (the
+    KV heads expanded by ``layers.serve_kv_expand`` and split over the
+    model axis), ``page_bytes`` counts those, and the model's paged
+    functions return the whole vocabulary's logits, so every rank
+    samples the same token."""
 
     model = T
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
         super().__init__(cfg, params, ecfg)
-        self.page_bytes = ecfg.pager.page_bytes(cfg)
+        tp = L.tp_size()
+        self.kv_expand = L.serve_kv_expand(cfg, tp)
+        heads = cfg.num_kv_heads * self.kv_expand // tp
+        self.page_bytes = ecfg.pager.page_bytes(cfg) * heads \
+            // cfg.num_kv_heads
         self.state = T.init_paged_decode_state(
-            cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+            cfg, ecfg.num_pages, ecfg.page_size, device=self.device,
+            kv_heads=heads)
         # vlm stays out: M-RoPE position triples and per-request patch
         # embeds make "same token ids" insufficient for "same KV"
         self.prefix_sharing = cfg.family == "dense"
@@ -451,7 +468,8 @@ class PagedTransformerBackend(_PagedBackend):
                  **{k: torch.as_tensor(v[None], device=self.device)
                     for k, v in (extras or {}).items()}}
         last, (k, v) = T.paged_prefill(self.cfg, self.params, batch,
-                                       self._tensor([len(ctx)]))
+                                       self._tensor([len(ctx)]),
+                                       kv_expand=self.kv_expand)
         T.write_prefill_pages(self.cfg, self.state, (k[:, 0], v[:, 0]),
                               self._tensor(pids))
         return _host(last[0])
@@ -1989,7 +2007,7 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
             for k in extra_keys})
         t0 = time.monotonic()
         logits, state = api.prefill(cfg, params, batch, cache_len)
-        toks0 = sample_batch(_host(logits))
+        toks0 = sample_batch(_host(L.tp_all_gather(logits, -1)))
         rep.prefill_wall_s += time.monotonic() - t0
         for b, r in enumerate(group):
             r.admitted_step = step
@@ -2003,7 +2021,7 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
                                   dtype=torch.int32, device=dev)
             t0 = time.monotonic()
             logits, state = api.decode_step(cfg, params, state, tok)
-            logits = _host(logits)
+            logits = _host(L.tp_all_gather(logits, -1))
             _charge_wall(rep, dispatched, ("static", cache_len, len(group)),
                          time.monotonic() - t0)
             rep.decode_steps += 1

@@ -18,7 +18,7 @@ RUN_WITHOUT_JAX = """
 import sys
 from repro_torch import convert, core, kernels, planner  # noqa: F401
 from repro_torch.configs import get_config
-from repro_torch.kernels import dequant, grouped_mvm, ops, packed_canvas  # noqa: F401,E501
+from repro_torch.kernels import dequant, grouped_mvm, meta, ops, packed_canvas  # noqa: F401,E501
 from repro_torch.models import get_model, moe, rwkv6, whisper  # noqa: F401
 from repro_torch.launch import pack, serve  # noqa: F401
 from repro_torch.models import transformer as T
@@ -105,6 +105,18 @@ with tempfile.TemporaryDirectory() as d:
     checkpoint.CheckpointManager(d).save(1, (params, opt))
     (_, opt2), n = checkpoint.CheckpointManager(d).restore((params, opt))
     assert n == 1 and torch.equal(opt2.m["embed"], opt.m["embed"])
+from repro_torch.launch import dryrun, mesh, sharding  # noqa: F401
+assert dryrun.run_cell("command-r-35b", "decode_32k", False)["ok"]
+with mesh.make_host_mesh("cpu") as host:
+    assert host.shape == {"data": 1, "model": 1} and host.backend == "gloo"
+    with mesh.installed(host):
+        cfg = get_config("command-r-35b").reduced()
+        specs = sharding.param_pspecs(T.init_params(cfg, device="meta"), host)
+        params = T.init_params(cfg, 0, device="cpu",
+                               local=sharding.local_init(specs, host))
+        assert len(run_static(cfg, params, poisson_trace(
+            2, mean_interarrival=0.5, prompt_lens=(6,), gen_lens=(3,),
+            vocab_size=cfg.vocab_size, seed=0), num_slots=2).completed) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -309,12 +309,13 @@ def test_serve_parses_the_reference_mesh_flag(monkeypatch, argv):
 
 def test_serve_runs_on_the_host_mesh_and_refuses_pod(capsys):
     """``--mesh host`` (the reference's default spelled out) serves as
-    without the flag; ``--mesh pod`` raises, naming the mesh slice."""
+    without the flag, through the 1x1 mesh; ``--mesh pod`` raises in a
+    world of one rank, naming the 256 ranks its mesh needs."""
     argv = ["--mode", "static", "--device", "cpu", "--batch", "2",
             "--prompt-len", "5", "--gen", "3", "--greedy"]
     assert serve.main(["--mesh", "host", *argv]) == 0
     header, rows = _parse(capsys.readouterr().out,
                           get_config("codeqwen1.5-7b").vocab_size)
     assert header.startswith("arch=codeqwen1.5-7b") and len(rows) == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="256 ranks"):
         serve.main(["--mesh", "pod", *argv])
