@@ -194,7 +194,9 @@ into build/repro_torch/), then:
       the SDPA backward (its forward and backward less its forward);
   (l) trains olmo-1b at full width and depth (1.18 B parameters, f32
       masters and AdamW state, remat) through the entry point
-      ``repro_torch.launch.train.main`` for 20 steps of B 8 x 512 tokens
+      ``repro_torch.launch.train.main --mesh host`` (a real 1x1
+      DeviceMesh on nccl, its shape and backend printed, after ``--mesh
+      pod`` has raised on one card) for 20 steps of B 8 x 512 tokens
       with a checkpoint at step 12: the loss must fall and every step's
       gradient norm be finite; every kernel counter zeroed just before and
       read just after (32 flash forward launches a step, the recomputed
@@ -2882,8 +2884,9 @@ def phase_flash_bwd(torch, fa, ref, parent=None):
 # olmo-1b at full width and depth, B 8 x 512 tokens; the checkpoint of
 # step 12 is the one the resume starts from
 TRAIN_STEPS, TRAIN_CKPT = 20, 12
-TRAIN_ARGV = ["--arch", "olmo-1b", "--full", "--seq-len", "512", "--batch",
-              "8", "--ckpt-every", str(TRAIN_CKPT), "--log-every", "1"]
+TRAIN_ARGV = ["--mesh", "host", "--arch", "olmo-1b", "--full", "--seq-len",
+              "512", "--batch", "8", "--ckpt-every", str(TRAIN_CKPT),
+              "--log-every", "1"]
 
 
 def recording_build(build, record):
@@ -2942,8 +2945,19 @@ def timed_checkpoints(ckpt, leaves):
     return times, samples, undo
 
 
+def recording_mesh(make, meshes):
+    """``make`` (``train.make_training_mesh``) appending each mesh it
+    makes to ``meshes``."""
+    def wrapped(args):
+        meshes.append(make(args))
+        return meshes[-1]
+    return wrapped
+
+
 def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
-    """(l) ``repro_torch.launch.train.main`` on the card: olmo-1b at full
+    """(l) ``repro_torch.launch.train.main`` on the card through ``--mesh
+    host`` (a real 1x1 DeviceMesh on nccl, whose shape and backend it
+    prints; ``--mesh pod`` must raise on one card first): olmo-1b at full
     width and depth (1.18 B parameters, f32 masters and AdamW state,
     remat), 20 steps of B 8 x 512 tokens, a checkpoint at step 12 in a
     temporary directory under build/. Every kernel counter is zeroed just
@@ -2976,14 +2990,22 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
     cfg = get_config(args.arch) if args.full else \
         get_config(args.arch).reduced()
     print(f"== (l) launch.train {' '.join(argv)}", flush=True)
+    try:
+        train.main(["--mesh", "pod"])
+    except RuntimeError as e:
+        assert "256 ranks" in str(e), e
+        print(f"  --mesh pod on one card raises: {e}", flush=True)
+    else:
+        raise AssertionError("--mesh pod trained on one card")
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
-    first, again = [], []
+    first, again, meshes = [], [], []
     times, samples, undo_times = timed_checkpoints(ckpt, leaves)
     counters = ops.launch_counters()
-    build = train.build
+    build, make_mesh = train.build, train.make_training_mesh
     try:
         train.build = recording_build(build, first)
+        train.make_training_mesh = recording_mesh(make_mesh, meshes)
         for c in counters:
             c.launches = 0
         calls, restore = plain_calls(ref, L)
@@ -3004,9 +3026,15 @@ def phase_train(torch, train, ckpt, ops, ref, L, kernels, bwd_kernels):
             [*TRAIN_ARGV, "--steps", "1", "--ckpt-dir", ckdir, "--device",
              DEV]), rc_want=1)
     finally:
-        train.build = build
+        train.build, train.make_training_mesh = build, make_mesh
         undo_times()
         shutil.rmtree(ckdir, ignore_errors=True)
+    for mesh in meshes:
+        print(f"  mesh {mesh.shape} backend {mesh.backend} (DeviceMesh "
+              f"{mesh.device_mesh.device_type})", flush=True)
+    assert len(meshes) == 2 and all(
+        m.size == 1 and m.backend == ("nccl" if DEV == "cuda" else "gloo")
+        for m in meshes), meshes
     for line in out:
         print(f"  {line}")
     for line in resumed:

@@ -66,14 +66,21 @@ def master_params(params):
             for k, v in params.items()}
 
 
-def compute_view(params):
+def compute_view(params, fsdp=frozenset()):
     """The forward's view of f32 master params: ``F32_PARAMS`` leaves as
     they are, every other floating leaf cast to bf16 — the serving
     dtypes, so the forward is the serving code. The casts are
-    differentiable: gradients of the view land in the master leaves."""
-    return {k: compute_view(v) if isinstance(v, dict)
-            else v.to(_dtype(k)) if v.is_floating_point() else v
-            for k, v in params.items()}
+    differentiable: gradients of the view land in the master leaves.
+
+    ``fsdp`` (under an installed mesh): the paths of the leaves FSDP
+    splits over the data axis. Each stays this rank's f32 slice, which
+    the model gathers whole, in bf16, where it uses it
+    (``layers.fsdp_leaf``)."""
+    def view(tree, prefix):
+        return {k: view(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else v if not v.is_floating_point() or prefix + k in fsdp
+                else v.to(_dtype(k)) for k, v in tree.items()}
+    return view(params, "")
 
 
 def opt_state_from_jax(opt, device="cuda") -> OptState:

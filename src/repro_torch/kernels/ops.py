@@ -11,7 +11,8 @@ asks for the plain version on any device — the tests and
 
 A ``meta`` tensor (a shapes-only trace) takes the attention kernels' and
 the grouped GEMM's shapes-only ops in ``meta``, whose FLOP formulas
-``FlopCounterMode`` reads.
+``FlopCounterMode`` reads; under autograd, their backward kernels'
+shapes-only ops too (``_MetaFlash``, ``_MetaGrouped``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,47 @@ class _FlashAttention(torch.autograd.Function):
                 None, None)
 
 
+class _MetaFlash(torch.autograd.Function):
+    """``_FlashAttention`` on ``meta``: the forward's shapes-only op (and
+    an empty log-sum-exp), the three backward ops'."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _meta.flash_attention(q, k, causal, window)
+        lse = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = _meta.flash_bwd_rowdot(out, dout)
+        dk, dv = _meta.flash_bwd_dkdv(q, k, v, dout, lse, delta, *ctx.kw)
+        return (_meta.flash_bwd_dq(q, k, v, dout, lse, delta, *ctx.kw), dk,
+                dv, None, None)
+
+
+class _MetaGrouped(torch.autograd.Function):
+    """``_GroupedMVM`` on ``meta``: the shapes-only forward, dX and dW."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _meta.grouped_mvm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return (_meta.grouped_mvm_bwd_dx(dy, w),
+                _meta.grouped_mvm_bwd_dw(x, dy))
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     impl: str = "kernel"):
     """GQA attention: q (B, S, H, dh), k/v (B, T, KV, dh) -> (B, S, H, dh).
@@ -66,21 +108,28 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     backward kernels (``_FlashAttention``) when grad mode is on and an
     input requires grad; the backward kernels take no window."""
     if q.device.type == "meta":
+        if _needs_grad(q, k, v):
+            _refuse_window(window)
+            return _MetaFlash.apply(q, k, v, causal, window)
         return _meta.flash_attention(q, k, causal, window)
     if _plain(impl, q):
         return ref.mha_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if window:
-            raise ValueError(f"flash_attention: the backward kernels take "
-                             f"no window (window={window}); call it under "
-                             f"torch.no_grad()")
+    if _needs_grad(q, k, v):
+        _refuse_window(window)
         return _FlashAttention.apply(q, k, v, causal, scale)
     # the kernel takes strided (B, head, position, dh) views: no copies
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, scale=scale)
     return out.transpose(1, 2)
+
+
+def _refuse_window(window: int) -> None:
+    if window:
+        raise ValueError(f"flash_attention: the backward kernels take no "
+                         f"window (window={window}); call it under "
+                         f"torch.no_grad()")
 
 
 def decode_attention(q, k, v, lengths, *, scale=None, impl: str = "kernel"):
@@ -151,10 +200,12 @@ def grouped_mvm(x, w, rows=None, *, impl: str = "kernel"):
     the kernel through its dX / dW kernels (``_GroupedMVM``, bf16) when
     grad mode is on and x or w requires grad."""
     if x.device.type == "meta":
+        if _needs_grad(x, w):
+            return _MetaGrouped.apply(x, w)
         return _meta.grouped_mvm(x, w)
     if _plain(impl, x):
         return ref.grouped_mvm(x, w, rows)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if _needs_grad(x, w):
         return _GroupedMVM.apply(x, w, rows)
     return _gm.grouped_mvm(x, w, rows)
 

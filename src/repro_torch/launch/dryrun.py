@@ -21,15 +21,25 @@ shapes and the executor's collectives coherent at full size on a CPU. Per cell i
     collectives as the ``DryMesh`` counts them (the reference's
     convention).
 
-A cell the slice does not run is written with ``ok: false`` and the
-reason, as the reference writes a failing cell: ``train_*`` cells (the
-training half of the mesh slice), the families not sharded yet, and the
-cells whose split cuts a head.
+A train cell (``kind`` "train": forward, backward and AdamW on the
+rank's shards of the f32 params, AdamW's m and v and the batch, FSDP
+over the data axis for the planner's streamed groups) also splits its
+argument bytes into params, m, v and batch; its collectives are the
+tensor-parallel ones of the forward (twice under remat: the recomputed
+blocks run theirs again) and the backward, the FSDP gathers and
+reduce-scatters, and the gradients' and scalars' all-reduces over the
+data axes. A cell the slice does not run is written with ``ok: false``
+and the reason, as the reference writes a failing cell: the families not
+sharded yet (train cells included), and the cells whose split cuts a
+head.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       --arch command-r-35b,codeqwen1.5-7b,olmo-1b \\
       --shape prefill_32k,decode_32k --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch olmo-1b,codeqwen1.5-7b,command-r-35b,command-r-plus-104b \\
+      --shape train_4k
 """
 
 from __future__ import annotations
@@ -49,21 +59,36 @@ from .steps import abstract_cell, lower_cell
 
 
 def _bytes(tree) -> int:
+    """The bytes of a tree's tensors on the chip (``meta``: AdamW's step
+    count lives on the host)."""
     return sum(t.numel() * t.element_size() for _, t in sh.flatten(tree)
-               if isinstance(t, torch.Tensor))
+               if isinstance(t, torch.Tensor) and t.is_meta)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
+    """The record of one cell of ``arch``'s published config."""
+    return trace_cell(get_config(arch), shape_name, multi_pod)[1]
+
+
+def trace_cell(cfg, shape_name: str, multi_pod: bool, **cell_kw):
+    """(the cell, its record) of ``cfg`` (any config, such as one cut in
+    depth) on the production mesh; ``cell_kw`` go to
+    ``steps.abstract_cell``."""
     mesh = production_abstract_mesh(multi_pod=multi_pod)
-    cfg = get_config(arch)
     t0 = time.monotonic()
-    cell = abstract_cell(cfg, shape_name, mesh)
+    cell = abstract_cell(cfg, shape_name, mesh, **cell_kw)
     t1 = time.monotonic()
     low = lower_cell(cell, mesh)
     t2 = time.monotonic()
     arg = _bytes(low.args)
-    return {
-        "arch": arch, "shape": shape_name,
+    memory = {}
+    if cell.kind == "train":
+        params, opt, batch = low.args
+        memory["argument_parts_bytes"] = {
+            "params": _bytes(params), "m": _bytes(opt.m), "v": _bytes(opt.v),
+            "batch": _bytes(batch)}
+    return cell, {
+        "arch": cfg.name, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "kind": cell.kind,
         "abstract_s": round(t1 - t0, 2), "trace_s": round(t2 - t1, 2),
@@ -71,6 +96,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
                    "output_bytes": _bytes(low.out),
                    "peak_live_bytes": low.peak_live_bytes,
                    "peak_with_arguments_bytes": arg + low.peak_live_bytes,
+                   **memory,
                    "measure": "port LiveBytes dispatch mode (meta trace)"},
         "cost": {"flops": low.flops, "kernel_flops": low.kernel_flops},
         "collective_bytes_per_chip": low.collective_bytes,

@@ -9,9 +9,11 @@ default process group (``nccl`` on the card, ``gloo`` for
 ``jax.sharding.Mesh`` does: ``.shape`` (axis name -> size) and
 ``.axis_names``. The spec functions of ``sharding`` read only those two,
 so they take this mesh, an ``AbstractMesh`` or any object with the same
-attributes. A mesh runs the collectives the model code calls
-(``all_reduce``, ``all_gather``): ``Mesh`` over its process groups,
-``DryMesh`` (the dry run's) by counting their bytes alone.
+attributes. A mesh runs the collectives the model code and the train
+step call (``all_reduce`` with a sum or a max, ``all_gather``,
+``reduce_scatter``), each over one axis or several, axes of size 1
+skipped: ``Mesh`` over its process groups (and ``barrier``), ``DryMesh``
+(the dry run's) by counting their bytes alone.
 
 A mesh of one rank starts its own one-rank process group on an in-memory
 ``HashStore`` when none exists (no network) and destroys it on
@@ -48,12 +50,20 @@ class AbstractMesh:
         self.size = math.prod(shape)
 
 
+def _axes(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 class DryMesh(AbstractMesh):
     """An ``AbstractMesh`` whose collectives compute nothing: each returns
     an empty result of its shape and adds its per-chip result bytes to
     ``collective_bytes`` by kind, the reference's convention
     (``dryrun.collective_bytes``: the gathered tensor of an all-gather,
-    the reduced one of an all-reduce). The dry run's mesh."""
+    the reduced one of an all-reduce, the scattered shard of a
+    reduce-scatter), once a call whatever the number of axes (one
+    collective over their joint group, as XLA emits it). A call over axes
+    of size 1 alone counts nothing, as ``Mesh`` runs nothing. The dry
+    run's mesh."""
 
     KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute")
@@ -62,17 +72,23 @@ class DryMesh(AbstractMesh):
         super().__init__(shape, axes)
         self.collective_bytes = dict.fromkeys(self.KINDS, 0)
 
-    def _count(self, kind: str, out):
-        self.collective_bytes[kind] += out.numel() * out.element_size()
+    def _count(self, kind: str, out, axes):
+        if math.prod(self.shape[a] for a in _axes(axes)) > 1:
+            self.collective_bytes[kind] += out.numel() * out.element_size()
         return out
 
-    def all_reduce(self, x, axis: str):
-        return self._count("all-reduce", x)
+    def all_reduce(self, x, axes, op: str = "sum"):
+        return self._count("all-reduce", x, axes)
 
-    def all_gather(self, x, dim: int, axes: tuple[str, ...]):
+    def all_gather(self, x, dim: int, axes):
         shape = list(x.shape)
-        shape[dim] *= math.prod(self.shape[a] for a in axes)
-        return self._count("all-gather", x.new_empty(shape))
+        shape[dim] *= math.prod(self.shape[a] for a in _axes(axes))
+        return self._count("all-gather", x.new_empty(shape), axes)
+
+    def reduce_scatter(self, x, dim: int, axes):
+        shape = list(x.shape)
+        shape[dim] //= math.prod(self.shape[a] for a in _axes(axes))
+        return self._count("reduce-scatter", x.new_empty(shape), axes)
 
 
 class Mesh(AbstractMesh):
@@ -94,15 +110,20 @@ class Mesh(AbstractMesh):
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
-    def all_reduce(self, x, axis: str):
-        """Sum ``x`` in place over ``axis``, in x's dtype."""
-        dist.all_reduce(x, group=self.group(axis))
+    _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+    def all_reduce(self, x, axes, op: str = "sum"):
+        """Reduce ``x`` in place over ``axes`` (an axis name or several),
+        in x's dtype: ``op`` "sum" or "max"."""
+        for axis in _axes(axes):
+            if self.shape[axis] > 1:
+                dist.all_reduce(x, op=self._OPS[op], group=self.group(axis))
         return x
 
-    def all_gather(self, x, dim: int, axes: tuple[str, ...]):
+    def all_gather(self, x, dim: int, axes):
         """Concatenate ``x`` along ``dim`` over ``axes``, the first named
         the major one (as a spec entry splits a dim)."""
-        for axis in reversed(axes):
+        for axis in reversed(_axes(axes)):
             n = self.shape[axis]
             if n > 1:
                 parts = [torch.empty_like(x) for _ in range(n)]
@@ -110,6 +131,24 @@ class Mesh(AbstractMesh):
                                 group=self.group(axis))
                 x = torch.cat(parts, dim=dim)
         return x
+
+    def reduce_scatter(self, x, dim: int, axes):
+        """Sum ``x`` over ``axes`` and keep this rank's slice of the sum
+        along ``dim``: the slice ``all_gather`` over the same axes puts
+        at this rank's place (the first axis the major one)."""
+        for axis in _axes(axes):
+            n = self.shape[axis]
+            if n > 1:
+                parts = [c.contiguous() for c in x.chunk(n, dim)]
+                out = torch.empty_like(parts[0])
+                dist.reduce_scatter(out, parts, group=self.group(axis))
+                x = out
+        return x
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits for the others (none at one)."""
+        if self.size > 1:
+            dist.barrier()
 
     def close(self) -> None:
         if self._owns_group and dist.is_initialized():

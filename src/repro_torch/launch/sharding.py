@@ -22,12 +22,16 @@ Where the reference hands its specs to XLA's partitioner, the port runs
 rank-locally: ``shard_tree`` keeps a rank's slice of each leaf (the
 param trees have the reference's names and layouts, so the specs apply
 leaf for leaf), and ``local_init`` lets a model's ``init_params`` keep
-only that slice of each drawn matrix.
+only that slice of each drawn matrix. ``gather_leaf`` puts one leaf's
+slices back together, for a checkpoint; ``fsdp_dim`` and
+``replication`` tell the train step which leaves FSDP splits and how
+many ranks hold each element of a leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 from .mesh import dp_axes
@@ -328,7 +332,7 @@ def to_shardings(pspec_tree, mesh):
     return tree_map(placements, pspec_tree)
 
 
-def _shards(entry, mesh) -> tuple[int, int]:
+def shard_index(entry, mesh) -> tuple[int, int]:
     """(number of shards, this rank's shard index) of one spec entry: the
     first axis named is the major one, as in the reference."""
     n, idx = 1, 0
@@ -342,7 +346,7 @@ def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     """The shape of one rank's slice of a tensor of ``shape``."""
     out = list(shape)
     for d, entry in enumerate(spec):
-        n, _ = _shards(entry, mesh)
+        n, _ = shard_index(entry, mesh)
         if out[d] % n:
             raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
                              f"into {n} shards ({spec})")
@@ -354,11 +358,46 @@ def local_slice(t, spec, mesh):
     """This rank's slice of ``t`` under ``spec`` (a view; ``t`` itself
     when nothing is split)."""
     for d, entry in enumerate(spec):
-        n, idx = _shards(entry, mesh)
+        n, idx = shard_index(entry, mesh)
         if n > 1:
             size = t.shape[d] // n
             t = t.narrow(d, idx * size, size)
     return t
+
+
+def split_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a leaf is split on, in its dims' order."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def fsdp_dim(spec) -> int | None:
+    """The dim FSDP splits over the data axis (``_spec_for``'s
+    ``fsdp_axis``), or None."""
+    for d, entry in enumerate(spec):
+        if entry == "data":
+            return d
+    return None
+
+
+def replication(spec, mesh) -> int:
+    """How many ranks of ``mesh`` hold each element of a leaf under
+    ``spec``: the product of the axes it is not split on."""
+    return math.prod(mesh.shape.values()) // math.prod(
+        mesh.shape[a] for a in split_axes(spec))
+
+
+def gather_leaf(leaf, spec, mesh, *, keep: bool = True):
+    """A host copy of the whole tensor of ``leaf``, this rank's slice
+    under ``spec``: gathered over the axes the spec splits (every rank of
+    ``mesh`` must call it), copied to the host where ``keep``, else
+    dropped (None). A non-tensor leaf comes back as it is."""
+    if not hasattr(leaf, "narrow"):
+        return leaf
+    t = leaf.detach()
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            t = mesh.all_gather(t, d, _axes(entry))
+    return t.to("cpu", copy=True) if keep else None
 
 
 def shard_tree(tree, specs, mesh):

@@ -6,25 +6,33 @@ the f32 master params are cast once a step (``convert.compute_view``)
 and the gradients land in the f32 leaves; with ``microbatches`` > 1 the
 batch rows are cut into that many slices whose gradients are summed in
 f32 and averaged, as the reference's scan does. AdamW updates the params
-and its state in place (the reference donates them).
+and its state in place (the reference donates them). Under an installed
+mesh of more than one rank the step is rank-local: this rank's slices of
+the params and its rows of the batch, the model's tensor-parallel
+collectives, FSDP gathers for the leaves split over the data axis, the
+gradients averaged over the data-parallel ranks and clipped by the
+norm of the whole tree (``make_train_step``).
 
 ``make_prefill_step`` / ``make_serve_step`` are the models' ``prefill``
 (with the serving KV expansion) and ``decode_step`` under
 ``torch.no_grad``. ``abstract_cell(cfg, shape, mesh)`` builds a cell from
 shapes alone, as the reference's ``jax.eval_shape`` does: params, state
-and batch as ``meta`` tensors (bf16 for inference), with their specs
-(``launch.sharding``). ``lower_cell`` is the port's counterpart of
-lowering: it traces the cell's step on one rank's local ``meta`` shards
-with a ``DryMesh`` installed (collectives counted, not run), and returns
-what the dry run records (local argument and output bytes, FLOPs, a peak
-of live tensor bytes, collective bytes by kind). The prefill and decode cells of
-the dense family run; ``train_*`` cells wait for the training half of
-the mesh slice, and other families' cells raise in their models.
+and batch as ``meta`` tensors (bf16 for inference, f32 masters, AdamW's
+state and labels for training), with their specs (``launch.sharding``;
+a train cell's FSDP groups from the residency planner). ``lower_cell``
+is the port's counterpart of lowering: it traces the cell's step on one
+rank's local ``meta`` shards with a ``DryMesh`` installed (collectives
+counted, not run), and returns what the dry run records (local argument
+and output bytes, FLOPs, a peak of live tensor bytes, collective bytes
+by kind). A train cell's trace runs the forward, the backward (each
+remat block's forward again, its collectives with it) and AdamW. The
+dense family's cells run; other families' cells raise in their models.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 from collections.abc import Callable
 from typing import Any
@@ -35,14 +43,15 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import SHAPES, ModelConfig
-from ..convert import compute_view
+from ..convert import compute_view, master_params
 from ..kernels import meta
 from ..models import get_model
 from ..models import layers as L
-from ..optim import OptState, adamw_update, cosine_schedule
+from ..optim import OptState, adamw_init, adamw_update, cosine_schedule
 from ..optim.adamw import leaves
+from ..planner import plan_residency
 from . import sharding as sh
-from .mesh import DryMesh, installed
+from .mesh import DryMesh, dp_axes, installed
 
 
 # --- abstract inputs -----------------------------------------------------------------
@@ -84,27 +93,49 @@ class Cell:
 
 def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
                     total: int = 10000, remat: bool = True,
-                    microbatches: int = 1):
+                    microbatches: int = 1, specs=None):
     """``train_step(params, opt, batch) -> (params, opt, metrics)``:
     params a tree of f32 master tensors, batch a dict of tensors on their
     device with a leading batch axis divisible by ``microbatches``;
     metrics {"loss", "grad_norm", "lr"} (0-d tensors on the device and a
-    float)."""
+    float).
+
+    Under an installed mesh of more than one rank (``mesh.installed``)
+    params, opt and batch are this rank's slices: the params by
+    ``specs`` (``sharding.param_pspecs``, which the step needs there), the
+    batch its rows (``sharding.batch_pspecs``), cut into its
+    microbatches. The model calls its tensor-parallel collectives and
+    gathers the leaves FSDP splits over the data axis where it uses
+    them (``layers.fsdp_split``), their gradients reduce-scattered over
+    data. Then the gradients are averaged over the data-parallel ranks
+    (the others all-reduced over (pod, data), the FSDP ones over pod),
+    the loss too, and AdamW clips by the norm of the whole tree and
+    updates the local slices. At one rank (or a 1x1 mesh) every
+    collective is the identity and the step is the one device's."""
     api = get_model(cfg)
     lr_fn = cosine_schedule(lr, warmup, total)
 
-    def grads_of(params, flat, batch):
-        loss = api.loss_fn(cfg, compute_view(params), batch, remat=remat)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    def grads_of(params, flat, batch, fsdp):
+        with L.fsdp_split(fsdp):
+            loss = api.loss_fn(cfg, compute_view(params, fsdp), batch,
+                               remat=remat)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(flat, grads)]
 
     def train_step(params, opt: OptState, batch):
+        mesh = L.shard_mesh()
+        sharded = mesh is not None and mesh.size > 1
+        if sharded and specs is None:
+            raise ValueError(f"a train step under a mesh of {mesh.size} "
+                             f"ranks needs the params' specs")
+        fsdp = {"/".join(path): d for path, spec in sh.flatten(specs)
+                if (d := sh.fsdp_dim(spec)) is not None} if sharded else {}
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
         if microbatches == 1:
-            loss, grads = grads_of(params, flat, batch)
+            loss, grads = grads_of(params, flat, batch, fsdp)
         else:
             parts = {k: v.chunk(microbatches) for k, v in batch.items()}
             if any(len(v) != microbatches or v[0].shape[0] * microbatches
@@ -114,7 +145,8 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
             loss, grads = 0.0, None
             for i in range(microbatches):
                 li, gi = grads_of(params, flat,
-                                  {k: v[i] for k, v in parts.items()})
+                                  {k: v[i] for k, v in parts.items()},
+                                  fsdp)
                 loss = loss + li
                 if grads is None:
                     grads = [g.float() for g in gi]
@@ -122,11 +154,42 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
                     torch._foreach_add_(grads, gi)
             torch._foreach_div_(grads, float(microbatches))
             loss = loss / microbatches
-        params, opt, metrics = adamw_update(params, grads, opt, lr_fn=lr_fn)
+        kw = {}
+        if sharded:
+            spec_list = leaves(specs)
+            loss = _average_over_data(mesh, grads, loss, spec_list)
+            kw = dict(replication=[sh.replication(s, mesh)
+                                   for s in spec_list], mesh=mesh)
+        params, opt, metrics = adamw_update(params, grads, opt, lr_fn=lr_fn,
+                                            **kw)
         metrics["loss"] = loss
         return params, opt, metrics
 
     return train_step
+
+
+def _average_over_data(mesh, grads, loss, spec_list):
+    """Average this rank's gradients (in place) and its loss over the
+    data-parallel ranks: a sum over (pod, data), or over pod alone for a
+    leaf FSDP splits over data (its backward summed over data already),
+    then a division by their number. Every rank holds an equal share of
+    the global batch's rows and each microbatch's loss is a mean over its
+    rows, so for the dense family the averaged loss and gradients are the
+    reference's mean over the global batch, whichever rows form a
+    microbatch (MoE's load-balance statistic, taken per microbatch, will
+    not be)."""
+    dp = dp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in dp)
+    for g, spec in zip(grads, spec_list):
+        if g.numel():                   # olmo's norms are empty leaves
+            fsdp = sh.fsdp_dim(spec) is not None
+            mesh.all_reduce(g, tuple(a for a in dp
+                                     if not (fsdp and a == "data")))
+    loss = mesh.all_reduce(torch.as_tensor(loss).clone(), dp)
+    if n > 1:
+        torch._foreach_div_(grads, float(n))
+        loss = loss / n
+    return loss
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, kv_expand: int = 1):
@@ -194,10 +257,7 @@ def abstract_cell(cfg: ModelConfig, shape_name: str, mesh, *,
     the reference; prefill keeps classic TP."""
     shape = SHAPES[shape_name]
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{shape_name}: train cells come with the training half of the "
-            f"mesh slice (data parallelism, FSDP, vocabulary-parallel "
-            f"cross-entropy; ROADMAP, Queue 1, item 4)")
+        return _train_cell(cfg, shape_name, mesh, train_fsdp, microbatches)
     api = get_model(cfg)
     params_s = _bf16(api.init_params(cfg, device="meta"))
     param_gb = 2 * cfg.param_count() / mesh.shape["model"] / 2**30
@@ -226,6 +286,36 @@ def abstract_cell(cfg: ModelConfig, shape_name: str, mesh, *,
                  sh.P(sh.batch_dim_spec(B, mesh))),
                 (_logits_spec(out[0].shape, mesh, wide_tp=wide_tp),
                  sh.state_pspecs(out[1], mesh)), out, wide_tp=wide_tp)
+
+
+def _train_cell(cfg, shape_name, mesh, train_fsdp, microbatches) -> Cell:
+    """The reference's train branch: f32 master params with FSDP over the
+    data axis for the residency planner's streamed groups
+    (``plan_residency(train=True)``; none without ``train_fsdp``),
+    AdamW's state sharded as the params (its step count on the host,
+    where ``adamw_update`` reads it), the batch with labels over the data
+    axes, ``default_microbatches``. The step's outputs keep the inputs'
+    specs (the reference lets XLA propagate them so)."""
+    shape = SHAPES[shape_name]
+    api = get_model(cfg)
+    params_s = master_params(api.init_params(cfg, device="meta"))
+    plan = plan_residency(cfg, tp=mesh.shape["model"],
+                          dp=mesh.shape.get("data", 1), train=True)
+    streamed = plan.streamed if train_fsdp else frozenset()
+    p_spec = sh.param_pspecs(params_s, mesh, streamed_groups=streamed)
+    opt_s = adamw_init(params_s)
+    o_spec = sh.opt_pspecs(p_spec, mesh)
+    batch_s = batch_struct(cfg, shape.global_batch, shape.seq_len,
+                           labels=True)
+    b_spec = sh.batch_pspecs(batch_s, mesh)
+    if microbatches is None:
+        microbatches = default_microbatches(cfg, shape, mesh)
+    step = make_train_step(cfg, microbatches=microbatches, specs=p_spec)
+    scalar = torch.empty((), device="meta")
+    return Cell(cfg, shape_name, "train", step, (params_s, opt_s, batch_s),
+                (p_spec, o_spec, b_spec),
+                (p_spec, o_spec, {"grad_norm": sh.P(), "loss": sh.P()}),
+                (params_s, opt_s, {"grad_norm": scalar, "loss": scalar}))
 
 
 # --- lowering -------------------------------------------------------------------------
@@ -301,7 +391,7 @@ def lower_cell(cell: Cell, mesh) -> Lowered:
         return sh.tree_map(lambda path, t: torch.empty(
             sh.local_shape(t.shape, sh.leaf_at(specs, path), mesh),
             dtype=t.dtype, device="meta")
-            if isinstance(t, torch.Tensor) else t, tree)
+            if isinstance(t, torch.Tensor) and t.is_meta else t, tree)
 
     args = tuple(local(a, s) for a, s in zip(cell.args, cell.in_pspecs))
     dry = DryMesh(tuple(mesh.shape.values()), mesh.axis_names)
@@ -311,7 +401,7 @@ def lower_cell(cell: Cell, mesh) -> Lowered:
                 LiveBytes(_tensors(args)) as live:
             out = cell.step_fn(*args)
     for path, t in sh.flatten(out):
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, torch.Tensor) and t.is_meta:
             want = sh.local_shape(sh.leaf_at(cell.out_shapes, path).shape,
                                   sh.leaf_at(cell.out_pspecs, path), mesh)
             assert tuple(t.shape) == want, (path, tuple(t.shape), want)

@@ -2,7 +2,8 @@
 the one-hot MoE oracle ``moe_router`` / ``moe_ffn_dense``: dense, vlm,
 MoE, ssm and encoder-decoder serving, training: the loss, the MoE
 load-balance loss, remat; and the shard context with the collectives
-that tensor-parallel serving calls), in PyTorch.
+that tensor-parallel serving and training call, the vocabulary-parallel
+loss among them), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -12,6 +13,7 @@ it); nothing on a training forward writes in place.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import math
@@ -111,9 +113,10 @@ def expand_kv(k, e: int):
 
 
 def tp_all_reduce(x):
-    """Sum ``x`` over the model axis, in x's dtype (the reference's
-    partitioner sums a row-parallel product's partial sums so). The
-    result is the same on every rank."""
+    """Sum ``x`` over the model axis, in x's dtype and in place (the
+    reference's partitioner sums a row-parallel product's partial sums
+    so). The result is the same on every rank. Serving's collective:
+    training's forward takes ``reduce_from_tp``."""
     ctx = _SHARD_CTX.get()
     if ctx is None or ctx["tp_size"] == 1:
         return x
@@ -137,6 +140,206 @@ def dp_all_gather(x, dim: int = 0):
     mesh = ctx["mesh"]
     return mesh.all_gather(x, dim, tuple(a for a in mesh.axis_names
                                          if a in ("pod", "data")))
+
+
+def shard_mesh():
+    """The installed mesh, or None."""
+    ctx = _SHARD_CTX.get()
+    return None if ctx is None else ctx["mesh"]
+
+
+# --- differentiable collectives ----------------------------------------------------
+# Megatron's pair and the gather, for the training forward under tensor
+# parallelism. A replicated activation enters a column-parallel product
+# through ``copy_to_tp`` (its gradient, partial on each rank, is summed in
+# the backward); a row-parallel product's partial sums leave through
+# ``reduce_from_tp`` (summed in the forward, the replicated gradient
+# passed to each rank's part); ``gather_from_tp`` concatenates the model
+# ranks' slices of a tensor each rank then uses in part (its gradient,
+# partial on each rank, is summed and cut back to the rank's slice: a
+# reduce-scatter). Each is the identity on a model axis of size 1, or with
+# no mesh installed; with grad mode off each is serving's collective
+# (``tp_all_reduce``, ``tp_all_gather``), so the serving path and its
+# CUDA graphs are unchanged. The mesh's reductions run in place, so each
+# function reduces a copy: the tensors autograd saved, which a remat
+# recompute reads, never change under it.
+
+def _tp_ctx():
+    ctx = _SHARD_CTX.get()
+    return None if ctx is None or ctx["tp_size"] == 1 else ctx
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return mesh.all_gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g.contiguous(), ctx.dim, ctx.axes), \
+            None, None, None
+
+
+def copy_to_tp(x):
+    """Forward the identity, backward an all-reduce over the model axis:
+    the replicated input of a column-parallel product."""
+    ctx = _tp_ctx()
+    if ctx is None or not torch.is_grad_enabled():
+        return x
+    return _CopyToTP.apply(x, ctx["mesh"], ctx["tp"])
+
+
+def reduce_from_tp(x):
+    """Forward an all-reduce over the model axis, backward the identity:
+    a row-parallel product's partial sums."""
+    ctx = _tp_ctx()
+    if ctx is None or not torch.is_grad_enabled():
+        return tp_all_reduce(x)
+    return _ReduceFromTP.apply(x, ctx["mesh"], ctx["tp"])
+
+
+def gather_from_tp(x, dim: int = -1):
+    """Forward an all-gather over the model axis along ``dim``, backward
+    a reduce-scatter of the gradient back to this rank's slice."""
+    ctx = _tp_ctx()
+    if ctx is None or not torch.is_grad_enabled():
+        return tp_all_gather(x, dim)
+    return _GatherFromTP.apply(x, dim % x.dim(), ctx["mesh"], (ctx["tp"],))
+
+
+# --- FSDP ---------------------------------------------------------------------------
+# A train step under a mesh keeps the leaves of the residency planner's
+# streamed groups split over the data axis on their FSDP dim
+# (``launch.sharding``), f32 like every master. ``fsdp_split`` names them
+# for the model code, which gathers each whole where it uses it
+# (``fsdp_leaf``): a block's leaves inside its remat function, so the
+# backward's recompute gathers them again and only the running block's
+# whole weights are live, as the reference's partitioner gathers a
+# scanned layer's.
+
+_FSDP: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_fsdp", default=None)
+
+
+@contextlib.contextmanager
+def fsdp_split(dims: dict):
+    """For the duration of the block, the leaves ``dims`` names (param
+    path -> the dim the data axis splits) are this rank's slices, and
+    ``fsdp_leaf`` gathers them; nothing is split where ``dims`` is
+    empty."""
+    token = _FSDP.set(dims or None)
+    try:
+        yield
+    finally:
+        _FSDP.reset(token)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, dtype, mesh):
+        ctx.dim, ctx.mesh, ctx.master = dim, mesh, x.dtype
+        return mesh.all_gather(x.to(dtype), dim, ("data",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g.to(ctx.master).contiguous(),
+                                       ctx.dim, ("data",)), None, None, None
+
+
+def fsdp_leaf(t, path: str, *, layer: bool = False):
+    """``t``, the compute view's leaf at ``path``, whole. Where
+    ``fsdp_split`` names it, this rank's f32 slice is cast to the compute
+    dtype and all-gathered over data (the cast first: it is elementwise,
+    so the bits are the cast of the gathered master, and half the bytes
+    move), and its gradient comes back reduce-scattered over data in f32.
+    ``layer``: ``t`` is one layer's view of a leaf stacked on a leading
+    layer axis. ``t`` itself where nothing is split."""
+    dims = _FSDP.get()
+    d = None if dims is None else dims.get(path)
+    if d is None:
+        return t
+    return _FsdpGather.apply(t, d - layer, COMPUTE_DTYPE, shard_mesh())
+
+
+def fsdp_whole(tree: dict, prefix: str, *, layer: bool = False) -> dict:
+    """``fsdp_leaf`` of each leaf of the dict ``tree``, the params'
+    subtree at ``prefix`` (such as "blocks/")."""
+    if _FSDP.get() is None:
+        return tree
+    return {k: fsdp_leaf(v, prefix + k, layer=layer)
+            for k, v in tree.items()}
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """``softmax_xent`` over logits whose vocabulary is split across the
+    model axis: the row's max and its sum of exponentials all-reduced
+    (max, then sum), the label's logit contributed by the rank that owns
+    it (summed with the exponentials); the backward is local: the
+    softmax times (1 + 2 z lse), minus the label's one-hot within this
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, z_loss, mesh, axis, rank):
+        V = logits.shape[-1]
+        m = mesh.all_reduce(logits.amax(-1), axis, op="max")
+        e = torch.exp(logits - m[..., None])
+        idx = labels.long() - rank * V
+        hit = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+        own = torch.gather(logits, -1, idx[..., None])[..., 0] \
+            * hit.to(logits.dtype)
+        sums = mesh.all_reduce(torch.stack([e.sum(-1), own]), axis)
+        lse = m + torch.log(sums[0])
+        loss = lse - sums[1]
+        if z_loss:
+            loss = loss + z_loss * torch.square(lse)
+        e.div_(sums[0][..., None])                     # the softmax
+        ctx.save_for_backward(e, lse, idx, hit)
+        ctx.z_loss = z_loss
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        p, lse, idx, hit = ctx.saved_tensors
+        scale = g if not ctx.z_loss else g * (1 + 2 * ctx.z_loss * lse)
+        d = p * scale[..., None]
+        d.scatter_add_(-1, idx[..., None],
+                       (-g * hit.to(g.dtype))[..., None])
+        return d, None, None, None, None, None
+
+
+def vocab_parallel_xent(logits_local, labels, *, z_loss=1e-4):
+    """``softmax_xent`` of logits (..., V / tp) f32 holding this rank's
+    slice of the vocabulary (rank r: columns r V/tp .. (r+1) V/tp), the
+    same on every rank; ``softmax_xent`` itself on a model axis of size
+    1."""
+    ctx = _tp_ctx()
+    if ctx is None:
+        return softmax_xent(logits_local, labels, z_loss=z_loss)
+    return _VocabParallelXent.apply(logits_local.float(), labels, z_loss,
+                                    ctx["mesh"], ctx["tp"], tp_rank())
 
 
 # --- paged KV cache ---------------------------------------------------------------
@@ -670,8 +873,11 @@ def checkpointed(fn, *args, remat: bool):
     reference's ``jax.checkpoint(body, policy=nothing_saveable)`` around
     each scanned block."""
     if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+        # the recompute may run on autograd's device thread, which has no
+        # context of its own: it runs in a copy of this one, so the shard
+        # context and the FSDP split hold there as in the forward
+        return torch.utils.checkpoint.checkpoint(
+            contextvars.copy_context().run, fn, *args, use_reentrant=False)
     return fn(*args)
 
 

@@ -40,16 +40,23 @@ Tensor parallelism (the dense family, under a mesh installed by
 (``launch.sharding.param_pspecs``) and runs Megatron style. The
 column-parallel wq/wk/wv/w_gate/w_up give the rank's heads and FFN
 columns, the row-parallel wo/w_down give partial sums that
-``layers.tp_all_reduce`` sums over the model axis, the vocabulary-parallel
+``layers.reduce_from_tp`` sums over the model axis, the vocabulary-parallel
 embedding looks up its own rows (zeros elsewhere) and sums them, and the
 head yields the logits of the rank's vocabulary columns: ``prefill`` and
 ``decode_step`` return them so (the reference's ``_logits_spec``), the
 paged functions, whose logits the engine samples, gather them. Every local size comes from the local weights (and the
 cache's head count), never from the config unchanged; a split that cuts
 a head raises. Where wk/wv are cut within a head (fewer KV heads than
-model ranks), the rank gathers them and keeps its expanded heads. At
-one rank every collective is the identity and the code is the one
-device's.
+model ranks), the rank gathers them and keeps its expanded heads. The
+collectives are ``layers``' differentiable ones (the replicated input of
+every column-parallel product through ``copy_to_tp``, the gather through
+``gather_from_tp``), so training differentiates through them; with grad
+mode off they are serving's. Training expands the KV heads as serving
+does and takes the vocabulary-parallel loss. A leaf FSDP splits over
+the data axis (a train step's streamed groups) is gathered where it is
+used (``layers.fsdp_leaf``): a block's inside the block, so a remat
+recompute gathers it again. At one rank every collective is the identity
+and the code is the one device's.
 """
 
 from __future__ import annotations
@@ -172,7 +179,7 @@ def _cache_heads(cfg, t, e: int, ce: int):
     if e == 1 and cols == ce * dh:
         return t.view(B, S, ce, dh)
     if cols != kv * dh:
-        t = L.tp_all_gather(t, -1)
+        t = L.gather_from_tp(t, -1)
     full = L.expand_kv(t.view(B, S, kv, dh), e)
     if full.shape[2] == ce:
         return full
@@ -189,7 +196,7 @@ def _qkv(cfg, p, x, rope, e: int = 1):
     B, S, _ = x.shape
     one = e == 1 and L.tp_size() == 1
     hl, ce = (cfg.num_heads, cfg.num_kv_heads) if one else _heads(cfg, p, e)
-    h = norm(x, p["ln1"]).to(L.COMPUTE_DTYPE)
+    h = L.copy_to_tp(norm(x, p["ln1"]).to(L.COMPUTE_DTYPE))
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -206,7 +213,7 @@ def _row_parallel(t, w, full: int):
     """A product through a row-parallel weight: its partial sums are
     summed over the model axis where ``w`` holds a slice of its ``full``
     input rows."""
-    return L.tp_all_reduce(t) if w.shape[0] != full else t
+    return L.reduce_from_tp(t) if w.shape[0] != full else t
 
 
 def _finish(cfg, p, x, attn):
@@ -218,7 +225,7 @@ def _finish(cfg, p, x, attn):
     if sharded:
         o = _row_parallel(o, p["wo"], cfg.q_dim)
     y = x + o.to(x.dtype)
-    h2 = norm(y, p["ln2"]).to(L.COMPUTE_DTYPE)
+    h2 = L.copy_to_tp(norm(y, p["ln2"]).to(L.COMPUTE_DTYPE))
     f = L.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
     if sharded:
         f = _row_parallel(f, p["w_down"], cfg.d_ff)
@@ -232,14 +239,14 @@ def _embed(cfg, params, tokens):
     the vocabulary's rows, it looks up the tokens in its slice, zeros the
     others and sums over the model axis (exact: one nonzero a token)."""
     L.single_rank_family(cfg)
-    w = params["embed"]
+    w = L.fsdp_leaf(params["embed"], "embed")
     rows = w.shape[0]
     if rows == cfg.vocab_size:
         return w[tokens.long()]
     idx = tokens.long() - L.tp_rank() * rows
     hit = (idx >= 0) & (idx < rows)
     x = w[idx.clamp(0, rows - 1)] * hit[..., None].to(w.dtype)
-    return L.tp_all_reduce(x)
+    return L.reduce_from_tp(x)
 
 
 def _embed_batch(cfg, params, batch):
@@ -259,7 +266,10 @@ def _head(cfg, params, x):
     columns (all of them at one rank)."""
     _, norm = L.make_norm(cfg)
     h = norm(x, params["ln_f"]).to(L.COMPUTE_DTYPE)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = L.fsdp_leaf(params["embed"], "embed").T if cfg.tie_embeddings \
+        else L.fsdp_leaf(params["lm_head"], "lm_head")
+    if w.shape[-1] != cfg.vocab_size:        # column-parallel: a V slice
+        h = L.copy_to_tp(h)
     return (h @ w).float()
 
 
@@ -277,6 +287,7 @@ def _rope(cfg, positions, pos3=None):
 def _block(cfg, p, x, rope, e: int = 1):
     """One decoder block over the whole sequence, causal flash attention:
     (y, k, v), k and v in the cache's heads."""
+    p = L.fsdp_whole(p, "blocks/", layer=True)
     q, k, v = _qkv(cfg, p, x, rope, e)
     return _finish(cfg, p, x, ops.flash_attention(q, k, v, causal=True)), \
         k, v
@@ -312,15 +323,24 @@ def _last(x, lengths):
 # --- full-sequence forward ---------------------------------------------------------
 
 def forward(cfg, params, batch, *, remat=False):
-    """Logits (B, S, V) f32 for batch["tokens"] (B, S)."""
-    x, _ = _trunk(cfg, params, batch, return_kv=False, remat=remat)
+    """Logits (B, S, V) f32 for batch["tokens"] (B, S); under tensor
+    parallelism (B, S, V / tp), this rank's vocabulary columns, with the
+    KV heads expanded as serving expands them (``serve_kv_expand``), so
+    that every rank's q heads find their whole KV heads."""
+    x, _ = _trunk(cfg, params, batch, return_kv=False, remat=remat,
+                  e=L.serve_kv_expand(cfg, L.tp_size()))
     return _head(cfg, params, x)
 
 
 def loss_fn(cfg, params, batch, *, remat=True):
     """Mean next-token cross-entropy (with the z-loss) of batch["tokens"]
-    against batch["labels"] (B, S): the reference's training loss."""
+    against batch["labels"] (B, S): the reference's training loss. Where
+    the head holds a slice of the vocabulary (tensor parallelism: the
+    tied ``embed.T`` as well as ``lm_head``), the vocabulary-parallel
+    cross-entropy computes the same loss on every rank."""
     logits = forward(cfg, params, batch, remat=remat)
+    if logits.shape[-1] != cfg.vocab_size:
+        return torch.mean(L.vocab_parallel_xent(logits, batch["labels"]))
     return torch.mean(L.softmax_xent(logits, batch["labels"]))
 
 

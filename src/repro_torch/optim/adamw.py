@@ -62,12 +62,25 @@ def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int):
     return lr
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
+def clip_by_global_norm(grads: list, max_norm: float, *,
+                        replication: list | None = None, mesh=None):
     """Scale the tensors of ``grads`` in place so their global L2 norm is
     at most ``max_norm``; returns (grads, the norm before clipping as a
-    0-d f32 tensor on their device)."""
-    gn = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    0-d f32 tensor on their device).
+
+    Under a ``mesh`` of more than one rank each tensor is this rank's
+    slice of a leaf that ``replication[i]`` ranks hold alike
+    (``launch.sharding.replication``): the squared norms of the slices,
+    each divided by its replication, are summed over every axis of the
+    mesh, so each element of the whole tree counts once and every rank
+    gets the same norm. At one rank it is the reference's formula."""
+    if mesh is None or mesh.size == 1:
+        gn = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        sq = torch.stack([torch.square(torch.linalg.vector_norm(g.float()))
+                          / r for g, r in zip(grads, replication)]).sum()
+        gn = torch.sqrt(mesh.all_reduce(sq, mesh.axis_names))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads, gn
@@ -76,14 +89,18 @@ def clip_by_global_norm(grads: list, max_norm: float):
 @torch.no_grad()
 def adamw_update(params, grads, state: OptState, *, lr_fn,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 replication: list | None = None, mesh=None):
     """One AdamW step over ``params`` (a tree) with ``grads`` (the
     tensors of ``leaves(params)``, in that order; clipped in place).
     Updates params, m and v in place; returns (params, the new state,
-    metrics {"grad_norm", "lr"})."""
+    metrics {"grad_norm", "lr"}). Under a ``mesh`` the params, grads and
+    moments are this rank's slices, and the clip's norm is taken over the
+    whole tree (``clip_by_global_norm``'s ``replication``)."""
     flat_p = leaves(params)
     grads = [g.float() for g in grads]
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm,
+                                       replication=replication, mesh=mesh)
     step = int(state.step) + 1
     lr = lr_fn(step)
     t = np.float32(step)

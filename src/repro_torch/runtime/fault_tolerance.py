@@ -22,7 +22,8 @@ retried from the last checkpoint until the elastic shrink engages after
 re-raises on recurrence; straggler detection against the rolling median
 (optionally restarting); and the ``on_shrink`` hook that rebuilds the
 step for fewer replicas (the data pipeline is step-indexed, so no sample
-is lost or repeated).
+is lost or repeated). Under a mesh every rank runs the supervisor and
+takes the same decisions (``TrainingSupervisor``'s ``mesh``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import statistics
 import time
 from collections.abc import Callable
 from typing import Any
+
+import torch
 
 from ..checkpoint import CheckpointManager
 from .dma import DmaChannel
@@ -280,7 +283,15 @@ class TrainingSupervisor:
                  on_shrink: Callable[[int], Any] | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  faults: FaultSchedule | None = None,
-                 dma: DmaChannel | None = None):
+                 dma: DmaChannel | None = None, mesh=None):
+        """``mesh`` (``launch.mesh``): every rank of a mesh of more than
+        one rank runs this loop, and all must take the same decisions,
+        or one waits forever in a collective. The injected faults are the
+        same on every rank (one schedule); a step's duration is the
+        slowest rank's (an all-reduce of the max), so the straggler
+        verdict agrees; restores load the step rank 0 sees and saves
+        gather the slices (the manager's ``specs``/``mesh``)."""
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.mgr = manager
         self.cfg = cfg or ElasticConfig()
         self.on_shrink = on_shrink
@@ -328,6 +339,10 @@ class TrainingSupervisor:
                 state, metrics = step_fn(state, batch_fn(step))
                 dt = (self.clock() - t0) \
                     * self.faults.factor("straggle", "train", step)
+                if self.mesh is not None:        # the slowest rank's
+                    dt = float(self.mesh.all_reduce(torch.tensor(
+                        [dt], dtype=torch.float64, device=self.mesh.device),
+                        self.mesh.axis_names, op="max"))
                 if self._detector.observe(dt):
                     report.stragglers.append(step)
                     if self.cfg.straggler_restart:

@@ -1,12 +1,13 @@
-"""One rank of a multi-rank test of the port's mesh (``test_torch_mesh``),
-on the CPU over ``gloo``.
+"""One rank of a multi-rank test of the port's mesh (``test_torch_mesh``,
+``test_torch_mesh_train``), on the CPU over ``gloo``.
 
   python tests/_torch_mesh_worker.py RANK WORLD STORE JOB OUT
 
 Joins the process group through the file store STORE (a 60 s timeout),
-builds the (data, model) mesh the job names, runs each arch's tasks (on
-its reduced config) with the mesh installed and writes its results by
-arch to OUT.RANK (``torch.save``). Tasks:
+builds the mesh the job names (its shape over ``axes``, by default
+(data, model)), runs each arch's tasks (on its reduced config) with the
+mesh installed and writes its results by arch to OUT.RANK
+(``torch.save``). Serving tasks run without grad:
   ("draw", seed)   this rank's slices of ``transformer.init_params``;
   ("static", params, tokens, teacher, cache_len)
                    the whole params sharded by ``param_pspecs``, the
@@ -19,14 +20,44 @@ arch to OUT.RANK (``torch.save``). Tasks:
   ("refuse", argvs)
                    ``launch.serve.serve`` of each argv on the mesh: the
                    message of the NotImplementedError it raises, or None.
+Training tasks (``run_train``), each with a case dict (its results
+stored under its "name"): the reference's
+master params (numpy), the batches (numpy, global), "f32" (both
+``COMPUTE_DTYPE``s of the port set to f32 for the task, then restored:
+this process's own state), "steps", "microbatches", "fsdp" (every
+residency group streamed) and "solo" (rank 0 alone, without a mesh:
+the one-rank port; the others wait at a barrier):
+  ("train", case)  ``make_train_step`` (lr 1e-3, warmup 2, total 10,
+                   remat) on this rank's slices and rows: each step's
+                   loss and gradient norm, the first moment after step 1
+                   and the params after the last step, gathered whole;
+                   with "save" (dir, step) a checkpoint of that step,
+                   and with "watch" too the whole leaves that save held
+                   (``_watched_save``);
+  ("ckpt", case)   the same resumed from the newest checkpoint in
+                   case["dir"] (restored sliced to this mesh), run to
+                   "steps";
+  ("fault", case)  the steps through ``TrainingSupervisor`` with a
+                   checkpoint every step in case["dir"] and the
+                   ``FaultSchedule`` case["faults"]: the params, the
+                   report's restores and every step restored;
+  ("entry", case)  ``launch.train.train`` of case["argv"] on the mesh,
+                   twice (the second resumes from the first's
+                   checkpoint): each call's losses and the steps saved
+                   in case["dir"];
+  ("refuse_train", {"argvs": argvs})
+                   ``launch.train.train`` of each argv on the mesh: the
+                   message of the NotImplementedError it raises, or None.
 """
 
 from __future__ import annotations
 
 import copy
 import sys
+import weakref
 from datetime import timedelta
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -40,11 +71,17 @@ def main(rank: int, world: int, store: str, job_path: str, out: str):
     from repro_torch.launch.mesh import installed, make_mesh
 
     job = torch.load(job_path, weights_only=False)
-    mesh = make_mesh(job["mesh"], ("data", "model"), device="cpu")
+    mesh = make_mesh(job["mesh"], job.get("axes", ("data", "model")),
+                     device="cpu")
     out_all = {"coords": dict(mesh.coords)}
     for arch, tasks in job["archs"].items():
+        cfg = get_config(arch).reduced()
+        serving = [t for t in tasks if t[0] not in TRAIN_TASKS]
         with installed(mesh), torch.no_grad():
-            out_all[arch] = run(get_config(arch).reduced(), tasks, mesh)
+            out_all[arch] = run(cfg, serving, mesh)
+        for task in tasks:
+            if task[0] in TRAIN_TASKS:
+                out_all[arch][task[1]["name"]] = run_train(cfg, task, mesh)
     torch.save(out_all, f"{out}.{rank}")
     dist.barrier()
     mesh.close()
@@ -101,6 +138,183 @@ def run(cfg, tasks, mesh) -> dict:
                 except NotImplementedError as e:
                     results["refuse"].append(str(e))
     return results
+
+
+TRAIN_TASKS = ("train", "ckpt", "fault", "entry", "refuse_train")
+
+
+def run_train(cfg, task, mesh):
+    """One training task (see the module's docstring)."""
+    from repro_torch.launch.mesh import installed
+    kind, case = task
+    if kind == "refuse_train":
+        from repro_torch.launch import train
+        out = []
+        with installed(mesh):
+            for argv in case["argvs"]:
+                try:
+                    train.train(train.parse_args(argv), mesh)
+                    out.append(None)
+                except NotImplementedError as e:
+                    out.append(str(e))
+        return out
+    if kind == "entry":
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.launch import train
+
+        def twice():
+            with installed(mesh):
+                return [train.train(train.parse_args(case["argv"]), mesh)
+                        for _ in range(2)]
+        losses = _with_dtype(case, twice)
+        return {"losses": losses,
+                "steps": CheckpointManager(case["dir"]).steps()}
+    if case.get("solo"):
+        out = None
+        if mesh.coords == dict.fromkeys(mesh.coords, 0):
+            out = _with_dtype(case, lambda: _train(cfg, kind, case, None))
+        dist.barrier()
+        return out
+    with installed(mesh):
+        return _with_dtype(case, lambda: _train(cfg, kind, case, mesh))
+
+
+def _with_dtype(case, fn):
+    """``fn()`` with the port's compute dtype f32 where case["f32"]."""
+    import repro_torch.convert as CV
+    import repro_torch.models.layers as TL
+    saved = TL.COMPUTE_DTYPE, CV.COMPUTE_DTYPE
+    if case.get("f32"):
+        TL.COMPUTE_DTYPE = CV.COMPUTE_DTYPE = torch.float32
+    try:
+        return fn()
+    finally:
+        TL.COMPUTE_DTYPE, CV.COMPUTE_DTYPE = saved
+
+
+def _train(cfg, kind, case, mesh):
+    """``kind``'s steps of ``case`` on ``mesh`` (None: one rank)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import (ElasticConfig, FaultSchedule,
+                                     TrainingSupervisor)
+
+    full = params_from_jax(case["params"], device="cpu", master=True)
+    specs = groups = None
+    if mesh is not None:
+        groups = frozenset(sh._GROUP_PATTERNS) if case.get("fsdp") \
+            else frozenset()
+        specs = sh.param_pspecs(full, mesh, streamed_groups=groups)
+        params = sh.shard_tree(full, specs, mesh)
+    else:
+        params = full
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr=1e-3, warmup=2, total=10, remat=True,
+                              microbatches=case.get("microbatches", 1),
+                              specs=specs)
+    tree_specs = None if mesh is None else (specs, sh.opt_pspecs(specs,
+                                                                 mesh))
+
+    def rows(step):
+        batch = {k: torch.as_tensor(v) for k, v in
+                 case["batches"][step].items()}
+        if mesh is None:
+            return batch
+        spec = sh.P(sh.batch_dim_spec(batch["tokens"].shape[0], mesh), None)
+        return {k: sh.local_slice(v, spec, mesh) for k, v in batch.items()}
+
+    def whole(tree):
+        if mesh is None:
+            return sh.tree_map(lambda _, t: t.detach().clone(), tree)
+        return sh.tree_map(lambda path, leaf: sh.gather_leaf(
+            leaf, sh.leaf_at(specs, path), mesh), tree)
+
+    out = {"loss": [], "grad_norm": [], "restored": []}
+    if kind == "fault":
+        mgr = CheckpointManager(case["dir"], keep=2, specs=tree_specs,
+                                mesh=mesh)
+        restore = mgr.restore
+
+        def recorded(*a, **kw):
+            tree, step = restore(*a, **kw)
+            out["restored"].append(step)
+            return tree, step
+        mgr.restore = recorded
+        sup = TrainingSupervisor(mgr, ElasticConfig(checkpoint_every=1),
+                                 faults=FaultSchedule.parse(case["faults"]),
+                                 mesh=mesh)
+
+        def one(state, batch):
+            p, o, m = step_fn(*state, batch)
+            out["loss"].append(float(m["loss"]))
+            return (p, o), m
+        (params, opt), report = sup.run((params, opt), one, rows,
+                                        start_step=0,
+                                        num_steps=case["steps"])
+        out.update(restores=report.restores, retries=report.retries,
+                   params=whole(params))
+        return out
+    start = 0
+    if kind == "ckpt":
+        mgr = CheckpointManager(case["dir"], specs=tree_specs, mesh=mesh)
+        (params, opt), start = mgr.restore((params, opt))
+        out["restored"].append(start)
+    for i in range(start, case["steps"]):
+        params, opt, m = step_fn(params, opt, rows(i))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            out["m1"] = whole(opt.m)
+        if case.get("save") and case["save"][1] == i + 1:
+            mgr = CheckpointManager(case["save"][0], specs=tree_specs,
+                                    mesh=mesh)
+            if case.get("watch"):
+                out["save_watch"] = _watched_save(mgr, i + 1,
+                                                  (params, opt))
+            else:
+                mgr.save(i + 1, (params, opt))
+    out["params"] = whole(params)
+    return out
+
+
+def _watched_save(mgr, step, tree) -> dict:
+    """``mgr.save(step, tree)`` with the whole leaves it handles watched:
+    the tensors ``sharding.gather_leaf`` returns and the arrays the
+    manager writes (``manager._to_numpy``). Returns {"leaves": the
+    tensor leaves gathered, "kept": those this rank kept a host copy of,
+    "live": the most whole leaves of earlier gathers still alive when a
+    gather began}."""
+    import repro_torch.checkpoint.manager as M
+    from repro_torch.launch import sharding as sh
+    seen = {"leaves": 0, "kept": 0, "live": 0}
+    refs = []
+    gather, to_numpy = sh.gather_leaf, M._to_numpy
+
+    def watched_gather(leaf, spec, mesh, *, keep=True):
+        seen["live"] = max(seen["live"],
+                           sum(r() is not None for r in refs))
+        out = gather(leaf, spec, mesh, keep=keep)
+        if isinstance(leaf, torch.Tensor):
+            seen["leaves"] += 1
+            if out is not None:
+                seen["kept"] += 1
+                refs.append(weakref.ref(out))
+        return out
+
+    def watched_numpy(leaf):
+        arr, dt = to_numpy(leaf)
+        if isinstance(arr, np.ndarray) and arr.ndim:
+            refs.append(weakref.ref(arr))
+        return arr, dt
+    sh.gather_leaf, M._to_numpy = watched_gather, watched_numpy
+    try:
+        mgr.save(step, tree)
+    finally:
+        sh.gather_leaf, M._to_numpy = gather, to_numpy
+    return seen
 
 
 if __name__ == "__main__":

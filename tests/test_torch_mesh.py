@@ -22,6 +22,7 @@ timeout, one torch thread a rank, and is killed and failed at its
 deadline: a dead rank cannot hang the suite.
 """
 
+import dataclasses
 import functools
 import json
 import math
@@ -349,19 +350,204 @@ def test_dryrun_decode_cell_bytes_and_collectives():
 
 def test_dryrun_records_refused_cells(tmp_path):
     """The wide-TP decode cell of command-r-plus-104b (96 heads over 256
-    ranks) and a train cell are written ``ok: false`` with the reason;
-    the dense prefill cell runs."""
+    ranks) and a MoE model's train cell are written ``ok: false`` with
+    the reason; the dense prefill cell runs."""
     rc = dryrun.main(["--arch", "command-r-plus-104b", "--shape",
-                      "train_4k,prefill_32k,decode_32k", "--mesh", "single",
+                      "prefill_32k,decode_32k", "--mesh", "single",
                       "--out", str(tmp_path)])
     assert rc == 1
+    assert dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "train_4k",
+                        "--mesh", "single", "--out", str(tmp_path)]) == 1
     recs = {p.name.split("__")[1]: json.loads(p.read_text())
             for p in tmp_path.glob("*.json")}
     assert recs["prefill_32k"]["ok"]
     assert not recs["decode_32k"]["ok"]
     assert "cuts a head" in recs["decode_32k"]["error"]
     assert not recs["train_4k"]["ok"]
-    assert "training half" in recs["train_4k"]["error"]
+    assert recs["train_4k"]["error"].startswith("NotImplementedError")
+    assert "moe family" in recs["train_4k"]["error"]
+
+
+# --- the dry run's train cells -----------------------------------------------------
+
+DENSE = ["olmo-1b", "codeqwen1.5-7b", "command-r-35b", "command-r-plus-104b"]
+
+
+def _local_bytes(tree, specs, mesh, *, fsdp: bool = False,
+                 gathered: bool = False) -> int:
+    """The bytes of a tree's ``meta`` leaves sliced as ``specs`` say;
+    with ``fsdp``, of the FSDP leaves alone, and with ``gathered`` too,
+    of those whole over data."""
+    total = 0
+    for path, t in sh.flatten(tree):
+        if not (isinstance(t, torch.Tensor) and t.is_meta):
+            continue
+        spec = sh.leaf_at(specs, path)
+        d = sh.fsdp_dim(spec)
+        if (fsdp or gathered) and d is None:
+            continue
+        shape = list(sh.local_shape(t.shape, spec, mesh))
+        if gathered:
+            shape[d] *= mesh.shape["data"]
+        total += math.prod(shape) * t.element_size()
+    return total
+
+
+def _fsdp_leaves(params, specs):
+    return {"/".join(p): sh.leaf_at(specs, p) for p, _ in sh.flatten(params)
+            if sh.fsdp_dim(sh.leaf_at(specs, p)) is not None}
+
+
+def _fsdp_uses(cfg, path: str) -> tuple[int, int]:
+    """(gathers, reduce-scatters) of one FSDP leaf a microbatch: a
+    block's leaf is gathered inside its remat block, in the forward and
+    again in the backward's recompute, and its gradient reduce-scattered
+    once (the recompute's graph is not differentiated); the tied embed
+    at its two uses (the lookup and the head), each differentiated."""
+    if path.startswith("blocks/"):
+        return 2, 1
+    return (2, 2) if path == "embed" and cfg.tie_embeddings else (1, 1)
+
+
+def _fsdp_bytes(cfg, params, specs, mesh) -> tuple[int, int]:
+    """(all-gather, reduce-scatter) bytes of the FSDP leaves a
+    microbatch: each gathered whole over data in bf16 at each use, its
+    f32 gradient reduce-scattered to the rank's slice."""
+    gathers = scatters = 0
+    for name, spec in _fsdp_leaves(params, specs).items():
+        t = sh.leaf_at(params, name.split("/"))
+        local = math.prod(sh.local_shape(t.shape, spec, mesh))
+        g, r = _fsdp_uses(cfg, name)
+        gathers += g * local * mesh.shape["data"] * 2
+        scatters += r * local * 4
+    return gathers, scatters
+
+
+def _train_cell_cut(arch, multi, monkeypatch, layers: int):
+    """(cell, record) of ``arch``'s train_4k cell cut to ``layers``
+    layers, with the full config's FSDP groups and microbatches."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import steps
+    full = get_config(arch)
+    plan = steps.plan_residency
+    monkeypatch.setattr(steps, "plan_residency",
+                        lambda cfg, **kw: plan(full, **kw))
+    mesh = production_abstract_mesh(multi_pod=multi)
+    return dryrun.trace_cell(
+        dataclasses.replace(full, num_layers=layers), "train_4k", multi,
+        microbatches=steps.default_microbatches(full, SHAPES["train_4k"],
+                                                mesh))
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["pod", "multipod"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dryrun_train_cells_trace(arch, multi, monkeypatch):
+    """Every dense arch's train_4k cell traces on the (16, 16) and the
+    (2, 16, 16) mesh: forward, backward and AdamW on rank 0's shards.
+    command-r-plus-104b's pod cell at full depth, as the dry run writes
+    it (``run_cell``), and its record the 2-layer cut's plus 62 times a
+    layer's (the 2-layer less the 1-layer cut: every layer is the same
+    work); the others cut to 2 layers with the full config's FSDP groups
+    and microbatches. Its argument bytes are the local f32 params, m, v
+    and the batch; its FLOPs at least the block products' 8 a parameter
+    a token (forward, remat forward, backward) but w_down's 6 (the
+    non-reentrant checkpoint stops its recompute once every tensor the
+    backward saves is back, before the block's last product); the
+    gradients' all-reduce at least their bytes; the planner's FSDP
+    groups (command-r-plus-104b's embed and ffn) gathered in bf16 at
+    each use and reduce-scattered in f32 (``_fsdp_uses``)."""
+    full = arch == "command-r-plus-104b" and not multi
+    if full:
+        mesh = production_abstract_mesh()
+        cfg = get_config(arch)
+        one, two = (_train_cell_cut(arch, multi, monkeypatch, n)[1]
+                    for n in (1, 2))
+        cell, rec = dryrun.trace_cell(cfg, "train_4k", multi)
+        grow = cfg.num_layers - 2
+        assert rec["cost"]["flops"] == two["cost"]["flops"] + grow * (
+            two["cost"]["flops"] - one["cost"]["flops"])
+        for kind, n in rec["collective_bytes_per_chip"].items():
+            per = two["collective_bytes_per_chip"][kind] - \
+                one["collective_bytes_per_chip"][kind]
+            assert n == two["collective_bytes_per_chip"][kind] + grow * per
+    else:
+        cell, rec = _train_cell_cut(arch, multi, monkeypatch, 2)
+        cfg, mesh = cell.cfg, production_abstract_mesh(multi_pod=multi)
+    assert rec["ok"] and rec["kind"] == "train", rec
+    params, opt, batch = cell.args
+    p_spec, o_spec, b_spec = cell.in_pspecs
+    p_bytes = _local_bytes(params, p_spec, mesh)
+    parts = rec["memory"]["argument_parts_bytes"]
+    assert parts == {"params": p_bytes, "m": p_bytes, "v": p_bytes,
+                     "batch": _local_bytes(batch, b_spec, mesh)}
+    assert rec["memory"]["argument_bytes"] == sum(parts.values())
+    tp, dp = mesh.shape["model"], mesh.size // mesh.shape["model"]
+    tokens = 256 // dp * 4096
+    blocks = cfg.param_count() - 2 * cfg.vocab_size * cfg.d_model
+    w_down = cfg.num_layers * cfg.d_ff * cfg.d_model
+    assert rec["cost"]["flops"] >= (8 * blocks - 2 * w_down) / tp * tokens
+    coll = rec["collective_bytes_per_chip"]
+    fsdp = _fsdp_leaves(params, p_spec)
+    grads = p_bytes - _local_bytes(params, p_spec, mesh, fsdp=True)
+    assert coll["all-reduce"] >= grads
+    if arch == "command-r-plus-104b":
+        assert {k.split("/")[-1] for k in fsdp} == \
+            {"embed", "w_gate", "w_up", "w_down"}
+    mb = 8 if get_config(arch).param_count() > 3e10 else 4
+    gathers, scatters = _fsdp_bytes(cfg, params, p_spec, mesh)
+    assert coll["all-gather"] >= mb * gathers
+    assert coll["reduce-scatter"] >= mb * scatters
+    if not fsdp and cfg.num_kv_heads % tp == 0:
+        assert coll["all-gather"] == coll["reduce-scatter"] == 0
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "codeqwen1.5-7b"])
+def test_dryrun_train_all_reduce_is_the_gradients_and_two_scalars(arch):
+    """A reduced config's train_4k cell at (data, model) = (2, 1): no
+    tensor parallelism, no FSDP (the planner streams nothing), so the
+    step's collectives are one all-reduce of each f32 gradient over data
+    and two of a f32 scalar (the clip's squared norm and the loss)."""
+    from repro_torch.launch.steps import abstract_cell, lower_cell
+    cfg = get_config(arch).reduced()
+    mesh = AbstractMesh((2, 1), ("data", "model"))
+    cell = abstract_cell(cfg, "train_4k", mesh)
+    params, p_spec = cell.args[0], cell.in_pspecs[0]
+    assert not _fsdp_leaves(params, p_spec)
+    low = lower_cell(cell, mesh)
+    grads = sum(t.numel() * 4 for _, t in sh.flatten(params))
+    assert low.collective_bytes == {
+        "all-gather": 0, "all-reduce": grads + 2 * 4, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "codeqwen1.5-7b"])
+def test_dryrun_train_fsdp_gathers_once_a_microbatch(arch, monkeypatch):
+    """A reduced config's train_4k cell at (2, 2) with every residency
+    group streamed (the planner made to stream them): each microbatch,
+    each FSDP leaf's f32 slice is cast to bf16 and gathered whole over
+    data at each of its uses (``layers.fsdp_leaf``: a block's leaves
+    once in the forward and once more in the remat recompute, the tied
+    embed at the lookup and the head), and each differentiated use
+    reduce-scatters its f32 gradient back; at tp 2 the reduced configs'
+    KV heads split whole, so no tensor-parallel gather adds to either."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import _GROUP_PATTERNS
+    cfg = get_config(arch).reduced()
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    monkeypatch.setattr(steps, "plan_residency", lambda *a, **kw:
+                        SimpleNamespace(streamed=frozenset(_GROUP_PATTERNS)))
+    cell = steps.abstract_cell(cfg, "train_4k", mesh)
+    params, p_spec = cell.args[0], cell.in_pspecs[0]
+    fsdp = _fsdp_leaves(params, p_spec)
+    assert {"blocks/wq", "blocks/w_down", "embed"} <= set(fsdp)
+    mb = steps.default_microbatches(cfg, SHAPES["train_4k"], mesh)
+    gathers, scatters = _fsdp_bytes(cfg, params, p_spec, mesh)
+    low = steps.lower_cell(cell, mesh)
+    assert low.collective_bytes["all-gather"] == mb * gathers
+    assert low.collective_bytes["reduce-scatter"] == mb * scatters
 
 
 def _meta_case(name, device):

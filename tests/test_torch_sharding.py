@@ -23,6 +23,7 @@ from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jget
 from repro.configs import shapes_for as jshapes_for
 from repro.launch import sharding as jsh
+from repro.launch import steps as jsteps
 from repro.launch.steps import default_microbatches as jmicrobatches
 from repro.models import get_model as jget_model
 from repro.models.layers import serve_kv_expand as jserve_kv_expand
@@ -30,7 +31,7 @@ from repro.planner import plan_residency as jplan_residency
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shapes_for
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.launch.steps import default_microbatches
+from repro_torch.launch.steps import abstract_cell, default_microbatches
 from repro_torch.models import get_model
 from repro_torch.models.layers import serve_kv_expand
 
@@ -94,15 +95,26 @@ def test_config_rules_equal_the_reference(arch):
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("mode", ["plain", "planned", "all_groups",
-                                  "wide_tp"])
+                                  "wide_tp", "train_cell"])
 @pytest.mark.parametrize("arch", J_ARCH_IDS)
 def test_param_pspecs_equal_the_reference(arch, mode, mesh):
     """Plain; with the streamed groups of the reference's own training
     plan (``plan_residency(train=True)`` at 16 x 16: embed and ffn for
     command-r-plus-104b, none for the others); with every residency
-    group streamed (each FSDP pattern exercised); and wide TP."""
+    group streamed (each FSDP pattern exercised); wide TP; and the
+    train_4k cell's (``abstract_cell``: the params' specs with the
+    planner's streamed groups, AdamW's and the batch's)."""
     mesh = MESHES[mesh]
     params, jparams = _params(arch)
+    if mode == "train_cell":
+        got = abstract_cell(get_config(arch), "train_4k", mesh).in_pspecs
+        want = jsteps.abstract_cell(jget(arch), "train_4k", mesh).in_pspecs
+        assert _flat(got[0]) == _jflat(want[0])
+        assert tuple(got[1].step) == tuple(want[1].step) == ()
+        assert _flat(got[1].m) == _flat(got[1].v) == _jflat(want[1].m) \
+            == _jflat(want[1].v)
+        assert _flat(got[2]) == _jflat(want[2])
+        return
     kw = {}
     if mode == "planned":
         kw["streamed_groups"] = jplan_residency(

@@ -541,7 +541,7 @@ def test_train_entry_point_resumes_across_packages(tmp_path, capsys):
 
 
 def test_train_entry_point_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="256 ranks"):
         train.main(["--mesh", "pod", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
