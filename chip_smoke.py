@@ -106,7 +106,8 @@ into build/repro_torch/), then:
   (h'') the eager-vs-graphed horizons of (b'') on qwen2-vl-7b;
   (h+) serves the same 16 requests through the static path, counting one
       dense decode launch a layer a step and flash at prefill only;
-  (i) serves rwkv6-7b (ssm) at full width and depth through the engine's
+  (i) serves rwkv6-7b (ssm) at full width cut to 12 layers (``SSM_LAYERS``;
+      (o) serves it at full depth) through the engine's
       recurrent backend (no pages; a constant state per slot, written in
       place at admission; fused horizons replayed from the one-step graph
       over a dummy one-row table) on (b)'s settings and trace: every
@@ -120,7 +121,8 @@ into build/repro_torch/), then:
       steps each;
   (j) serves recurrentgemma-9b (hybrid: RG-LRU recurrence and local
       attention over a 2,048-token window, MQA at head dim 256) at full
-      width and depth through the engine's hybrid backend on (b)'s
+      width cut to 14 layers (``HYBRID_LAYERS``; (o) serves it at full
+      depth) through the engine's hybrid backend on (b)'s
       settings with 129-row tables (the window ring) and (b)'s trace plus
       a 2,560-token prompt and a 1,984-token one that generates past the
       window: every kernel counter zeroed just before and read just after
@@ -183,6 +185,22 @@ into build/repro_torch/), then:
       full forward, the peak card memory; then (n') the eager-vs-graphed
       horizons of (b'') at 8 steps and the graphed step's device time
       beside its bytes bound, computed from this run's weights and cache;
+  (o) the mesh slice of the other families: ``launch.serve.main --mesh
+      host --full --greedy --batch 4 --requests 4`` (the 1x1 nccl mesh)
+      serves qwen2-vl-7b, rwkv6-7b and recurrentgemma-9b through the
+      engine (prompts 256-512, recurrentgemma's 1,024-2,048 for its
+      window ring, generations 32-128) and whisper-tiny static (B 4 x
+      512 + 128), each at full width and depth from the seed, every
+      kernel counter zeroed just before and read just after (qwen2-vl's
+      28 paged-decode launches a decode step and 28 flash a prefill,
+      whisper's 8 dense decode a step and 12 flash at its prefill, none
+      for rwkv6 and recurrentgemma); the same params and prompts through
+      the unsharded path (no mesh installed) must give the same tokens
+      bit for bit; each run's wall and tokens/s or ms a step printed
+      beside the card's name and power limit; (o') ``launch.train.main
+      --mesh host`` trains rwkv6-7b at full width cut to 2 layers for 3
+      steps of B 8 x 512, and its step-1 loss must equal the same cut
+      run's without a mesh (``build_config``) bit for bit;
   (l0) holds the flash backward (the row-dot pre-pass, the dK/dV kernel
       and the dQ kernel) against its plain versions on the card, each
       launch on the same inputs and the whole against autograd through
@@ -1621,8 +1639,8 @@ def phase_ssm_engine(torch, rt, ops, R, cfg, params, trace):
     report counts the state as slot_state_bytes in kv_bytes_peak; the
     eager twin as in (b); and the same requests served one at a time (each
     arriving after the previous one finished) give the same tokens."""
-    print("== (i) engine, rwkv6-7b full width and depth (recurrent)",
-          flush=True)
+    print(f"== (i) engine, rwkv6-7b full width, {cfg.num_layers} layers "
+          f"(recurrent)", flush=True)
     ecfg = engine_config(rt)
     engine = rt.Engine(cfg, params, ecfg)
     assert type(engine.backend).__name__ == "RecurrentBackend"
@@ -1711,6 +1729,12 @@ def phase_ssm_breakdown(torch, R, cfg, params):
 
 # --- the hybrid family (recurrentgemma-9b) -------------------------------------------
 
+# the depths of (i)-(i'') and (j)-(j''): rwkv6-7b and recurrentgemma-9b
+# (4 periods and 2 rec layers) at full width cut in depth, so that the
+# script keeps within its time with (o), which serves both at full depth;
+# neither engine launches a kernel
+SSM_LAYERS, HYBRID_LAYERS = 12, 14
+
 
 def hybrid_trace(rt, cfg):
     """(b)'s 16 requests plus two that reach the window (2,048): request
@@ -1738,8 +1762,8 @@ def phase_hybrid_engine(torch, rt, ops, api, cfg, params, trace):
     than 129 pages; pages are freed on ring wraps; the eager twin as in
     (b); each request's tokens teacher-forced through the static path at
     B = 1."""
-    print("== (j) engine, recurrentgemma-9b full width and depth (hybrid "
-          "ring)", flush=True)
+    print(f"== (j) engine, recurrentgemma-9b full width, {cfg.num_layers} "
+          f"layers (hybrid ring)", flush=True)
     from repro_torch.runtime import engine as eng
     R = -(-cfg.recurrent.window // 16) + 1
     ecfg = engine_config(rt, max_pages_per_seq=R, num_pages=1 + 8 * R)
@@ -2704,6 +2728,203 @@ def mesh_engine(torch, rt, ops, ref, L, T, cfg, params) -> dict:
     return counts
 
 
+# --- the mesh slice of the other families: launch.serve / launch.train --mesh host --
+
+# (arch, mode, prompt length, generation length) of (o): (b)'s prompt and
+# generation lengths (the entry point's trace: prompts of half to all of
+# --prompt-len, generations of a quarter to all of --gen); the engine
+# sizes its tables from prompt + gen, as the reference does, so
+# recurrentgemma's 2,048-token window ring fits only beside 2,048-token
+# prompts (pages of 512, a ring of 5 rows)
+FAMILY_MESH = [("qwen2-vl-7b", "engine", 512, 128),
+               ("rwkv6-7b", "engine", 512, 128),
+               ("recurrentgemma-9b", "engine", 2048, 128),
+               ("whisper-tiny", "static", 512, 128)]
+FAMILY_TRAIN = ("rwkv6-7b", 2, 3)          # (arch, layers, steps) of (o')
+
+
+def family_argv(arch, mode, prompt, gen) -> list[str]:
+    return ["--mesh", "host", "--full", "--arch", arch, "--mode", mode,
+            "--greedy", "--batch", "4", "--requests", "4", "--prompt-len",
+            str(prompt), "--gen", str(gen)]
+
+
+class _Recorded:
+    """What the entry point ran, for (o)'s unsharded twin: the engine's
+    params, config and report, or the static mode's params and the
+    tokens it fed each decode step."""
+
+    def __init__(self):
+        self.params = self.ecfg = self.rep = None
+        self.fed = []
+
+
+def recording(serve, api, rec: _Recorded):
+    """Patch ``serve.Engine`` and the model module's ``decode_step`` (the
+    one ``api``, ``get_model``'s, reads) to record into ``rec``; returns
+    the undo."""
+    model = sys.modules[api.decode_step.__module__]
+    engine, step = serve.Engine, model.decode_step
+
+    class Engine(engine):
+        def run(self, requests):
+            rec.params, rec.ecfg = self.backend.params, self.ecfg
+            rec.rep = super().run(requests)
+            return rec.rep
+
+    def decode_step(cfg, params, state, tokens):
+        rec.params = params
+        rec.fed.append(tokens.clone())
+        return step(cfg, params, state, tokens)
+
+    serve.Engine, model.decode_step = Engine, decode_step
+
+    def undo():
+        serve.Engine, model.decode_step = engine, step
+    return undo
+
+
+def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
+                      smi: str) -> dict:
+    """(o) the mesh slice of the vlm, ssm, hybrid and encoder-decoder
+    families on one card: ``launch.serve.main --mesh host --full`` (a
+    1x1 DeviceMesh on nccl) serves qwen2-vl-7b, rwkv6-7b and
+    recurrentgemma-9b through the engine and whisper-tiny static, 4
+    greedy requests each, every kernel counter zeroed just before and
+    read just after (the families' own launches: qwen2-vl's paged decode
+    a layer a step and flash a layer a prefill, whisper's dense decode
+    twice a layer a step and flash at its prefill, none for rwkv6 and
+    recurrentgemma); the same params and prompts through the unsharded
+    path (no mesh installed) must give the same tokens bit for bit, as
+    every collective at 1x1 is the identity. (o') ``launch.train.main
+    --mesh host`` on rwkv6-7b at full width cut to 2 layers, 3 steps:
+    its step-1 loss must equal the cut run's without a mesh
+    (``build_config``) bit for bit. Returns the launch counts by
+    kernel."""
+    print("== (o) launch.serve --mesh host, the vlm, ssm, hybrid and "
+          "encdec families at full width", flush=True)
+    counters = ops.launch_counters()
+    launches = {c.__name__: 0 for c in counters}
+    for arch, mode, prompt, gen in FAMILY_MESH:
+        argv = family_argv(arch, mode, prompt, gen)
+        args = serve.parse_args(argv)
+        cfg = get_config(arch)
+        api = get_model(cfg)
+        rec = _Recorded()
+        undo = recording(serve, api, rec)
+        for c in counters:
+            c.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = run_captured(torch, lambda: serve.main(argv))
+            wall = time.monotonic() - t0
+        finally:
+            undo()
+        counts = {c.__name__: c.launches for c in counters}
+        assert out[-1] == "ok", out
+        if mode == "engine":
+            rep = rec.rep
+            summary = rep.summary()
+            print(f"  {arch} {' '.join(argv)}: wall {wall:.1f} s (init "
+                  f"included), {summary['new_tokens']} tokens in "
+                  f"{summary['decode_steps']} decode steps, decode "
+                  f"tokens/s {summary['tokens_per_s']}; {smi}", flush=True)
+            want = {}
+            if cfg.family == "vlm":
+                want = {"paged_decode_attention":
+                        cfg.num_layers * rep.decode_steps,
+                        "flash_attention": cfg.num_layers * rep.prefill_calls}
+            ecfg, trace = serve.engine_setup(cfg, args)
+            twin = rt.Engine(cfg, rec.params, rec.ecfg).run(trace)
+            got = {r.rid: r.generated for r in rep.completed}
+            ref = {r.rid: r.generated for r in twin.completed}
+            assert len(got) == len(trace) and got == ref, (got, ref)
+            print(f"  unsharded twin: the same {len(got)} requests' tokens "
+                  f"bit for bit ({sum(map(len, got.values()))} tokens)",
+                  flush=True)
+        else:
+            fed = torch.stack(rec.fed, 1)
+            steps = fed.shape[1]
+            dt = wall / max(steps, 1) * 1e3
+            print(f"  {arch} {' '.join(argv)}: wall {wall:.1f} s (init "
+                  f"included), {steps} decode steps of B {args.batch}, "
+                  f"{dt:.1f} ms a step with init and prefill; {smi}",
+                  flush=True)
+            for line in out:
+                if line.startswith("prefill:"):
+                    print(f"  {line}", flush=True)
+            want = {"decode_attention": 2 * cfg.num_layers * steps,
+                    "flash_attention": cfg.encoder.num_layers
+                    + 2 * cfg.num_layers}
+            twin = _Recorded()
+            undo = recording(serve, api, twin)
+            try:
+                run_captured(torch, lambda: serve.run_static_mode(
+                    cfg, rec.params, args))
+            finally:
+                undo()
+            assert torch.equal(torch.stack(twin.fed, 1), fed)
+            print(f"  unsharded twin: the same {fed.numel()} tokens bit for "
+                  f"bit", flush=True)
+        print(f"  launches {counts}", flush=True)
+        assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+        for k, n in counts.items():
+            launches[k] += n
+        del rec, twin
+        free_card(torch)
+    family_train(torch, train, get_config, smi)
+    return launches
+
+
+def family_train(torch, train, get_config, smi: str) -> None:
+    """(o') rwkv6-7b at full width cut in depth through
+    ``launch.train.main --mesh host`` against the same cut run without a
+    mesh: step-1 loss bit for bit, every loss finite."""
+    import shutil
+    import tempfile
+    arch, layers, n_steps = FAMILY_TRAIN
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    print(f"== (o') launch.train --mesh host, {arch} full width cut to "
+          f"{layers} layers, {n_steps} steps", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_o_", dir=ROOT / "build")
+    argv = ["--mesh", "host", "--arch", arch, "--full", "--steps",
+            str(n_steps), "--seq-len", "512", "--batch", "8",
+            "--ckpt-every", "1000", "--log-every", "1", "--ckpt-dir", tmp]
+    seen = []
+    get, run = train.get_config, train.train
+
+    def recorded(args, mesh):
+        seen.append(run(args, mesh))
+        return seen[-1]
+    train.get_config, train.train = (lambda a: cfg), recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        train.get_config, train.train = get, run
+        shutil.rmtree(tmp, ignore_errors=True)
+    (losses,) = seen
+    print(f"  train.main {' '.join(argv[:-2])}: rc {rc}, losses {losses}, "
+          f"wall {wall:.1f} s ({wall / n_steps * 1e3:.0f} ms a step with "
+          f"init); {smi}", flush=True)
+    assert len(losses) == n_steps and all(map(math.isfinite, losses))
+    free_card(torch)
+    _, params, opt, stream, step_fn = train.build_config(
+        cfg, seq_len=512, batch=8, lr=3e-4, steps=n_steps, microbatches=1,
+        device=DEV)
+    _, _, metrics = step_fn(params, opt, stream.batch(0))
+    one = float(metrics["loss"])
+    print(f"  the cut run without a mesh: step-1 loss {one!r} (the mesh "
+          f"run's {losses[0]!r})", flush=True)
+    assert one == losses[0], (one, losses[0])
+    del params, opt
+    free_card(torch)
+
+
 def phase_flash_bwd(torch, fa, ref, parent=None):
     """(l0) the flash backward against its plain versions at the training
     paths' shapes: the kernel forward's log-sum-exp against
@@ -3596,7 +3817,7 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    cfg = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=SSM_LAYERS)
     params = init(torch, get_model(cfg), cfg)
     trace = engine_trace(rt, cfg)
     phase_ssm_engine(torch, rt, ops, R, cfg, params, trace)
@@ -3610,7 +3831,8 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    cfg = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              num_layers=HYBRID_LAYERS)
     api = get_model(cfg)
     params = init(torch, api, cfg)
     hyb = phase_hybrid_engine(torch, rt, ops, api, cfg, params,
@@ -3644,6 +3866,10 @@ def main(argv=None) -> int:
           f"{mesh_counts['flash_attention']}", flush=True)
     free_card(torch)
     lap("(n)")
+    family_counts = phase_family_mesh(torch, serve, train, rt, ops,
+                                      get_config, get_model, smi)
+    print(f"  launches in (o): {family_counts}", flush=True)
+    lap("(o)")
 
     bwd = phase_flash_bwd(torch, fa, ref, parent)
     lap("(l0)")

@@ -119,7 +119,8 @@ class ModelConfig:
             natt = sum(1 for i in range(L)
                        if self.recurrent.block_pattern[
                            i % len(self.recurrent.block_pattern)] == "attn")
-            att = att * natt / L + rec * (1 - natt / L)  # averaged per block
+            if L:                                  # averaged per block
+                att = att * natt / L + rec * (1 - natt / L)
         blocks = L * (att + ffn + 2 * D)
         if self.encoder and self.family == "encdec":
             enc = self.encoder.num_layers * (4 * D * D + 2 * D * F + 2 * D)

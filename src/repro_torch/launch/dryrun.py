@@ -29,9 +29,9 @@ tensor-parallel ones of the forward (twice under remat: the recomputed
 blocks run theirs again) and the backward, the FSDP gathers and
 reduce-scatters, and the gradients' and scalars' all-reduces over the
 data axes. A cell the slice does not run is written with ``ok: false``
-and the reason, as the reference writes a failing cell: the families not
-sharded yet (train cells included), and the cells whose split cuts a
-head.
+and the reason, as the reference writes a failing cell: the MoE family's
+(train cells included), and the cells whose split cuts a head
+(qwen2-vl-7b's 28 heads and whisper-tiny's 6 over 16 model ranks).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -40,6 +40,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       --arch olmo-1b,codeqwen1.5-7b,command-r-35b,command-r-plus-104b \\
       --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch qwen2-vl-7b,rwkv6-7b,recurrentgemma-9b,whisper-tiny \\
+      --shape all --mesh single
 """
 
 from __future__ import annotations

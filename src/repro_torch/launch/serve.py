@@ -56,14 +56,14 @@ bf16 weights and does not fit one H100, so name a smaller ``--zoo``.
 fleet, one rank's zoo, without one); ``--mesh pod``
 builds the reference's (16, 16) data x model mesh, which needs a world of
 256 ranks (``torchrun``; a world of another size raises). Under a mesh of
-more than one rank the dense family serves tensor parallel
-(``--mode static|engine|auto``): every rank draws the params layer by
-layer from ``--seed`` and keeps only its slices (``param_pspecs``), runs
-the same host schedule and samples from logits gathered over the
-vocabulary's split, so every rank picks the same tokens; the static
-batch is split over the data axes, the engine needs data axes of one
-rank. Pool and fleet, and every other family, raise there. Rank 0
-prints.
+more than one rank the dense, vlm, ssm, hybrid and encoder-decoder
+families serve tensor parallel (``--mode static|engine|auto``): every
+rank draws the params layer by layer from ``--seed`` and keeps only its
+slices (``param_pspecs``), runs the same host schedule and samples from
+logits gathered over the vocabulary's split, so every rank picks the
+same tokens; the static batch is split over the data axes, the engine
+needs data axes of one rank. Pool and fleet, the MoE family and a split
+that cuts a head raise there. Rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full
@@ -124,8 +124,8 @@ def _trace(cfg, args):
         extras_fn=extras_fn(cfg) if extras_fn else None)
 
 
-def run_engine(cfg, params, args):
-    """Continuous batching against a Poisson arrival trace."""
+def engine_setup(cfg, args):
+    """(EngineConfig, trace) of the engine mode for the flags ``args``."""
     page = max(8, args.prompt_len // 4)
     max_len = args.prompt_len + args.gen
     pages_per_seq = -(-max_len // page) + 1
@@ -134,7 +134,13 @@ def run_engine(cfg, params, args):
         num_pages=1 + pages_per_seq * args.batch * 2,
         max_pages_per_seq=pages_per_seq, prefill_bucket=page,
         greedy=args.greedy, temperature=args.temperature, seed=args.seed)
-    rep = Engine(cfg, params, ecfg).run(_trace(cfg, args))
+    return ecfg, _trace(cfg, args)
+
+
+def run_engine(cfg, params, args):
+    """Continuous batching against a Poisson arrival trace."""
+    ecfg, trace = engine_setup(cfg, args)
+    rep = Engine(cfg, params, ecfg).run(trace)
     done = [r for r in rep.completed if not r.truncated]
     if _rank0():
         print(f"arch={cfg.name} mode=engine slots={args.batch} "
@@ -154,12 +160,28 @@ def _rank0() -> bool:
 
 def run_static_mode(cfg, params, args, mesh=None):
     """The reference's lockstep path: one prefill, ``--gen`` decode steps
-    in unison. (``runtime.run_static`` is the engine's baseline on a
-    trace; this is the entry point's fixed batch.) Under a mesh every
-    rank draws the whole batch and keeps its rows (the batch spec's split
-    over the data axes); the sampler reads the logits gathered over the
-    vocabulary and the data axes and draws for the whole batch, so every
-    rank picks the tokens of one rank."""
+    in unison (``static_decode``), its times and tokens printed.
+    (``runtime.run_static`` is the engine's baseline on a trace; this is
+    the entry point's fixed batch.)"""
+    out, t_prefill, t_decode = static_decode(cfg, params, args, mesh)
+    if _rank0():
+        print(f"arch={cfg.name} mode=static batch={args.batch} "
+              f"prompt={args.prompt_len} gen={args.gen}")
+        print(f"prefill: {t_prefill * 1e3:.1f} ms   "
+              f"decode: {t_decode * 1e3:.1f} ms/token")
+        for b in range(min(args.batch, 2)):
+            print(f"  seq{b}: {out[b].tolist()}")
+        print("ok")
+    return 0
+
+
+def static_decode(cfg, params, args, mesh=None):
+    """The static mode's tokens (batch, ``--gen``) as numpy, the prefill's
+    seconds and the seconds a decode step. Under a mesh every rank draws
+    the whole batch and keeps its rows (the batch spec's split over the
+    data axes); the sampler reads the logits over the whole vocabulary
+    (``layers.whole_vocab``), gathered over the data axes, and draws for
+    the whole batch, so every rank picks the tokens of one rank."""
     api = get_model(cfg)
     dev = params["embed"].device
     gen = torch.Generator(device=dev)
@@ -179,7 +201,7 @@ def run_static_mode(cfg, params, args, mesh=None):
     batch = {k: sh.local_slice(v, rows, mesh) for k, v in batch.items()}
 
     def sample(logits):
-        logits = L.dp_all_gather(L.tp_all_gather(logits, -1), 0)
+        logits = L.dp_all_gather(L.whole_vocab(logits, cfg.vocab_size), 0)
         if args.greedy:
             return logits.argmax(-1).to(torch.int32)
         probs = torch.softmax(logits / args.temperature, dim=-1)
@@ -207,17 +229,8 @@ def run_static_mode(cfg, params, args, mesh=None):
     sync()
     t_decode = (time.monotonic() - t0) / args.gen
 
-    out = torch.stack(toks, dim=1).cpu().numpy()
     assert torch.isfinite(logits).all()
-    if _rank0():
-        print(f"arch={cfg.name} mode=static batch={B} "
-              f"prompt={args.prompt_len} gen={args.gen}")
-        print(f"prefill: {t_prefill * 1e3:.1f} ms   "
-              f"decode: {t_decode * 1e3:.1f} ms/token")
-        for b in range(min(B, 2)):
-            print(f"  seq{b}: {out[b].tolist()}")
-        print("ok")
-    return 0
+    return torch.stack(toks, dim=1).cpu().numpy(), t_prefill, t_decode
 
 
 def parse_zoo(spec: str) -> list[tuple[str, float]]:
@@ -444,9 +457,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def init_params(cfg, args, mesh=None):
     """Random weights from ``--seed`` on ``--device``; under a mesh of
-    more than one rank only this rank's slices of the dense family's
-    params (``param_pspecs``), drawn one matrix at a time: no rank holds
-    the whole model, and each slice equals the one-rank draw's."""
+    more than one rank only this rank's slices of the params
+    (``param_pspecs``; every family but MoE), drawn one matrix or layer at
+    a time: no rank holds the whole model, and each slice equals the
+    one-rank draw's."""
     api = get_model(cfg)
     if mesh is None or mesh.size == 1:
         return api.init_params(cfg, args.seed, device=args.device)
@@ -485,7 +499,7 @@ def serve(args, mesh):
             raise NotImplementedError(
                 f"--mode {args.mode} under a mesh of {mesh.size} ranks: the "
                 f"pool and the fleet are sharded in a later slice of the "
-                f"mesh port (ROADMAP, Queue 1, item 4)")
+                f"mesh port (ROADMAP, Queue 1, item 2)")
         return run_pool(args) if args.mode == "pool" else run_fleet(args)
     cfg = get_config(args.arch)
     if not args.full:

@@ -25,8 +25,9 @@ rank's local ``meta`` shards with a ``DryMesh`` installed (collectives
 counted, not run), and returns what the dry run records (local argument
 and output bytes, FLOPs, a peak of live tensor bytes, collective bytes
 by kind). A train cell's trace runs the forward, the backward (each
-remat block's forward again, its collectives with it) and AdamW. The
-dense family's cells run; other families' cells raise in their models.
+remat block's forward again, its collectives with it) and AdamW. Every
+family's cells run but the MoE family's and those whose split cuts a
+head, which raise.
 """
 
 from __future__ import annotations

@@ -21,13 +21,13 @@ the card, gloo with ``--device cpu``), where every collective is the
 identity and the step is the one device's; ``pod`` and ``multipod`` are
 the reference's (16, 16) and (2, 16, 16) meshes, which need a world of
 256 or 512 ranks (``torchrun``) and raise in any other. Under a mesh of
-more than one rank the dense family trains sharded: each rank draws only
+more than one rank every family but MoE trains sharded: each rank draws only
 its slices of the params (``sharding.param_pspecs``, no FSDP groups, as
 the reference's ``build``), takes its rows of each global batch
 (``TokenStream.host_batch`` of its shard of the batch dim), and the step runs tensor parallelism,
 data parallelism and the sharded norm (``steps.make_train_step``);
 checkpoints hold the whole tensors, written by rank 0
-(``CheckpointManager``). Other families raise there. Rank 0 prints.
+(``CheckpointManager``). The MoE family raises there. Rank 0 prints.
 Resumes from the newest checkpoint in ``--ckpt-dir`` when it holds one.
 Returns 0 when the last loss is below the first.
 

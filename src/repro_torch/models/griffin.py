@@ -25,6 +25,24 @@ between calls and the conv register bf16; ``length`` gates padded
 prompts (pad positions leave conv and h untouched); prefill above
 ``ATTN_CHUNK_THRESHOLD`` tokens takes the chunked windowed attention; an
 inactive serving slot freezes its recurrent state.
+
+Tensor parallelism (under a mesh installed by ``layers.set_shard_ctx``;
+each rank holds its slices of the params by the reference's rules,
+``launch.sharding.param_pspecs``): ``w_x`` and ``w_branch`` are
+column-parallel, so the branch, the causal conv (``conv_w``, ``conv_b``)
+and the RG-LRU (``lam``, ``b_i``, ``b_r``, its hidden) run on the rank's
+channels; the gates read the whole conv output (gathered), through the
+column-parallel ``w_i`` and the rank's columns of the replicated ``w_r``,
+and the row-parallel ``w_out`` sums over the model axis. The MLP is
+Megatron's. The local-attention blocks are MQA with one KV head: its
+cache stores the head ``e`` times (``layers.serve_kv_expand``) so that
+every rank keeps whole heads, and the rank gathers the wk/wv columns
+that cut the head (``layers.cache_heads``). The embedding and the
+head are vocabulary-parallel: ``prefill`` and ``decode_step`` return the
+rank's vocabulary columns, the engine's paged functions the whole
+vocabulary. The state is the rank's: its channels of conv and h, its
+cache heads. At one rank every collective is the identity and the code
+is the one device's.
 """
 
 from __future__ import annotations
@@ -57,14 +75,17 @@ def _state_counts(cfg) -> tuple[int, int]:
     return 2 * n_super + n_tail, n_super       # (n_rec, n_attn)
 
 
-def init_params(cfg, seed: int = 0, device="cuda"):
+def init_params(cfg, seed: int = 0, device="cuda", local=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``: the
     reference's tree (``super.{rec1,rec2,attn}`` stacked over the
     super-blocks, ``tail`` over the trailing rec layers) and
     distributions, drawn on ``device`` one layer at a time, stored in the
     converter's dtypes (``lam``, ``ln``, ``ln_mlp`` and ``ln_f`` in f32,
-    every other leaf in bf16)."""
+    every other leaf in bf16). ``local(path, t)``
+    (``launch.sharding.local_init``) keeps a rank's slice of each drawn
+    leaf, equal to the one-rank draw's bit for bit."""
     dev = resolve_device(device)
+    keep = local or (lambda path, t: t)
     gen = L.seeded_generator(dev, seed)
     D, Fd, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     W = cfg.recurrent.lru_width or D
@@ -102,28 +123,34 @@ def init_params(cfg, seed: int = 0, device="cuda"):
                 "wk": matrix(D, cfg.kv_dim), "wv": matrix(D, cfg.kv_dim),
                 "wo": matrix(cfg.q_dim, D), **mlp()}
 
-    params = {"embed": normal((V, D), 0.02),
-              "super": L.stack_layers(lambda: {"rec1": rec(), "rec2": rec(),
-                                               "attn": attn()}, n_super, dev),
-              "ln_f": ones(D), "lm_head": matrix(D, V)}
+    def kept(prefix, tree):
+        return {k: keep((*prefix, k), t) for k, t in tree.items()}
+
+    params = {"embed": keep(("embed",), normal((V, D), 0.02)),
+              "super": L.stack_layers(lambda: {
+                  "rec1": kept(("super", "rec1"), rec()),
+                  "rec2": kept(("super", "rec2"), rec()),
+                  "attn": kept(("super", "attn"), attn())}, n_super, dev),
+              "ln_f": ones(D), "lm_head": keep(("lm_head",), matrix(D, V))}
     if n_tail:
-        params["tail"] = L.stack_layers(rec, n_tail, dev)
+        params["tail"] = L.stack_layers(lambda: kept(("tail",), rec()),
+                                        n_tail, dev)
     return params
 
 
 def _layers(cfg, params):
-    """(kind, params, rec index or attn index) of every layer in order:
-    super-block i is rec 2i, rec 2i + 1, attn i; tail layer j is rec
-    2 * n_super + j. Each stacked leaf is unbound once
-    (``layers.layer_views``)."""
+    """(kind, params, rec index or attn index, the FSDP path prefix of its
+    leaves) of every layer in order: super-block i is rec 2i, rec 2i + 1,
+    attn i; tail layer j is rec 2 * n_super + j. Each stacked leaf is
+    unbound once (``layers.layer_views``)."""
     n_super, n_tail = _counts(cfg)
     for i, p in enumerate(L.layer_views(params["super"], n_super)):
-        yield "rec", p["rec1"], 2 * i
-        yield "rec", p["rec2"], 2 * i + 1
-        yield "attn", p["attn"], i
+        yield "rec", p["rec1"], 2 * i, "super/rec1/"
+        yield "rec", p["rec2"], 2 * i + 1, "super/rec2/"
+        yield "attn", p["attn"], i, "super/attn/"
     if n_tail:
         for j, p in enumerate(L.layer_views(params["tail"], n_tail)):
-            yield "rec", p, 2 * n_super + j
+            yield "rec", p, 2 * n_super + j, "tail/"
 
 
 # --- RG-LRU recurrent block ----------------------------------------------------------
@@ -173,50 +200,64 @@ def _rglru(x, r_gate, i_gate, lam, h0, length=None):
     return torch.stack(hs, 1).to(x.dtype), h
 
 
-def _mlp(p, x):
-    h = L.rmsnorm(x, p["ln_mlp"]).to(L.COMPUTE_DTYPE)
-    return L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+def _mlp(cfg, p, x):
+    h = L.copy_to_tp(L.rmsnorm(x, p["ln_mlp"]).to(L.COMPUTE_DTYPE))
+    return L.reduce_rows(L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]),
+                         p["w_down"], cfg.d_ff)
 
 
-def _rec_block(p, x, conv, h, length=None):
-    """One recurrent layer from its state (conv (B, cw - 1, W), h (B, W)):
-    returns (y, new conv in conv's dtype, new h f32)."""
-    h_in = L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE)
+def _rec_block(cfg, p, prefix, x, conv, h, length=None):
+    """One recurrent layer from its state (conv (B, cw - 1, W), h (B, W);
+    the rank's channels under tensor parallelism): returns (y, new conv
+    in conv's dtype, new h f32). ``prefix``: its leaves' path, where FSDP
+    splits them (``layers.fsdp_whole``)."""
+    p = L.fsdp_whole(p, prefix, layer=True)
+    h_in = L.copy_to_tp(L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE))
     branch = F.gelu(h_in @ p["w_branch"], approximate="tanh")
     xr = h_in @ p["w_x"]
     xr, conv_new = _causal_conv(xr, p["conv_w"], p["conv_b"], conv,
                                 length=length)
-    r_gate = xr @ p["w_r"] + p["b_r"]
-    i_gate = xr @ p["w_i"] + p["b_i"]
+    W = cfg.recurrent.lru_width or cfg.d_model
+    xw = L.gather_from_tp(xr, -1) if xr.shape[-1] != W else xr
+    r_gate = xw @ L.tp_part(L.copy_to_tp(p["w_r"])) + p["b_r"]
+    i_gate = xw @ p["w_i"] + p["b_i"]
     hseq, h_last = _rglru(xr, r_gate, i_gate, p["lam"], h, length=length)
-    y = x + ((branch * hseq) @ p["w_out"]).to(x.dtype)
-    y = y + _mlp(p, y).to(y.dtype)
+    y = x + L.reduce_rows((branch * hseq) @ p["w_out"], p["w_out"],
+                          W).to(x.dtype)
+    y = y + _mlp(cfg, p, y).to(y.dtype)
     return y, conv_new.to(conv.dtype), h_last
 
 
 # --- local attention blocks ----------------------------------------------------------
 
-def _qkv(cfg, p, x, rope):
-    """Pre-norm, projections and RoPE: (q, k, v) in (B, S, heads, dh)."""
+def _qkv(cfg, p, x, rope, e: int = 1):
+    """Pre-norm, projections and RoPE: q (B, S, heads, dh) and k, v in the
+    cache's (B, S, cache heads, dh), the KV head stored ``e`` times; under
+    tensor parallelism the rank's heads (``layers.rank_heads``)."""
     B, S, _ = x.shape
     dh = cfg.head_dim
-    h = L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE)
-    q = L.rotate((h @ p["wq"]).view(B, S, cfg.num_heads, dh), *rope)
-    k = L.rotate((h @ p["wk"]).view(B, S, cfg.num_kv_heads, dh), *rope)
-    return q, k, (h @ p["wv"]).view(B, S, cfg.num_kv_heads, dh)
+    h = L.copy_to_tp(L.rmsnorm(x, p["ln"]).to(L.COMPUTE_DTYPE))
+    hl, ce = L.rank_heads(cfg, p["wq"].shape[-1], e)
+    q = L.rotate((h @ p["wq"]).view(B, S, hl, dh), *rope)
+    k = L.rotate(L.cache_heads(cfg, h @ p["wk"], e, ce), *rope)
+    return q, k, L.cache_heads(cfg, h @ p["wv"], e, ce)
 
 
 def _attn_finish(cfg, p, x, attn):
     B, S, _ = x.shape
-    y = x + (attn.reshape(B, S, cfg.q_dim) @ p["wo"]).to(x.dtype)
-    return y + _mlp(p, y).to(y.dtype)
+    o = attn.reshape(B, S, -1) @ p["wo"]
+    y = x + L.reduce_rows(o, p["wo"], cfg.q_dim).to(x.dtype)
+    return y + _mlp(cfg, p, y).to(y.dtype)
 
 
-def _attn_block_full(cfg, p, x, rope):
-    """Full-sequence windowed MQA (prefill): returns (y, (k, v))."""
+def _attn_block_full(cfg, p, prefix, x, rope, e: int = 1):
+    """Full-sequence windowed MQA (prefill): returns (y, (k, v)), k and v
+    in the cache's heads (the KV head ``e`` times, the rank's share);
+    ``prefix`` as ``_rec_block``'s."""
+    p = L.fsdp_whole(p, prefix, layer=True)
     S = x.shape[1]
     win = cfg.recurrent.window
-    q, k, v = _qkv(cfg, p, x, rope)
+    q, k, v = _qkv(cfg, p, x, rope, e)
     if S > ATTN_CHUNK_THRESHOLD:       # long sequence: chunked windowed attn
         attn = L.chunked_attention(q, k, v, causal=True, window=win)
     else:
@@ -227,13 +268,12 @@ def _attn_block_full(cfg, p, x, rope):
 
 def _attn_block_decode(cfg, p, x, ck, cv, kpos, pos: int, rope):
     """One-token windowed MQA against a ring-buffer cache, in place: ck,
-    cv (B, window, KV, dh) and kpos (B, window) absolute positions (-1
-    empty) of this layer; the token at ``pos`` lands in slot pos % window.
+    cv (B, window, cache heads, dh) and kpos (B, window) absolute
+    positions (-1 empty) of this layer; the token at ``pos`` lands in slot
+    pos % window.
     """
     win = cfg.recurrent.window
-    q, k, v = _qkv(cfg, p, x, rope)
-    e = ck.shape[2] // cfg.num_kv_heads        # the cache's KV expansion
-    k, v = L.expand_kv(k, e), L.expand_kv(v, e)
+    q, k, v = _qkv(cfg, p, x, rope, L.kv_expansion(cfg, ck.shape[2]))
     slot = pos % win
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
@@ -250,15 +290,16 @@ def _attn_block_decode(cfg, p, x, ck, cv, kpos, pos: int, rope):
 class GriffinState:
     conv: torch.Tensor      # (n_rec, B, cw-1, W)
     h: torch.Tensor         # (n_rec, B, W) f32
-    k: torch.Tensor         # (n_attn, B, window, KV, dh)
+    k: torch.Tensor         # (n_attn, B, window, cache heads, dh)
     v: torch.Tensor
     kpos: torch.Tensor      # (n_attn, B, window) int32, -1 = empty
     pos: int                # tokens consumed (lockstep over the batch)
 
 
 def _rec_state(cfg, batch_size: int, dtype, dev):
+    """Zero (conv, h) of the rank's channels (all of them at one rank)."""
     n_rec, _ = _state_counts(cfg)
-    W = cfg.recurrent.lru_width or cfg.d_model
+    W = (cfg.recurrent.lru_width or cfg.d_model) // L.tp_size()
     cw = cfg.recurrent.conv_width
     return (torch.zeros((n_rec, batch_size, cw - 1, W), dtype=dtype,
                         device=dev),
@@ -267,17 +308,20 @@ def _rec_state(cfg, batch_size: int, dtype, dev):
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
-                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      dtype=None, device="cuda",
                       kv_expand: int = 1) -> GriffinState:
     """Zero state for ``batch_size`` sequences (``cache_len`` is unused:
     the ring holds ``window`` slots; each KV head stored ``kv_expand``
-    times), on the card unless ``device`` says otherwise."""
+    times), in ``dtype`` (the compute dtype by default), on the card
+    unless ``device`` says otherwise. Under an installed mesh, this
+    rank's part: its channels and its cache heads."""
     dev = resolve_device(device)
+    dtype = dtype or L.COMPUTE_DTYPE
     _, n_attn = _state_counts(cfg)
     win = cfg.recurrent.window
     conv, h = _rec_state(cfg, batch_size, dtype, dev)
-    shape = (n_attn, batch_size, win, cfg.num_kv_heads * kv_expand,
-             cfg.head_dim)
+    shape = (n_attn, batch_size, win,
+             L.cache_head_count(cfg, kv_expand), cfg.head_dim)
     return GriffinState(
         conv=conv, h=h,
         k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -289,14 +333,12 @@ def init_decode_state(cfg, batch_size: int, cache_len: int = 0,
 
 # --- forward / prefill ----------------------------------------------------------------
 
-def _embed(cfg, params, tokens):
-    L.single_rank_family(cfg)
-    return params["embed"][tokens.long()]
-
-
-def _head(params, x):
+def _head(cfg, params, x):
+    """f32 logits: the rank's vocabulary columns under tensor
+    parallelism."""
     h = L.rmsnorm(x, params["ln_f"].to(L.COMPUTE_DTYPE))
-    return (h @ params["lm_head"]).float()
+    return L.head_logits(h, L.fsdp_leaf(params["lm_head"], "lm_head"),
+                         cfg.vocab_size)
 
 
 def _rope(cfg, positions):
@@ -304,47 +346,55 @@ def _rope(cfg, positions):
 
 
 def _super_scan(cfg, params, x, conv, h, length=None, *, advance=True,
-                remat=False):
+                remat=False, e: int = 1):
     """Every layer over the whole sequence from the recurrent state
     (conv, h), which is advanced in place unless ``advance`` is False
     (the training forward, which writes nothing in place). ``length``
     gates the recurrent updates past the live prompt, so a bucket-padded
     prefill carries the state at position length - 1 (pad keys/values are
     masked or overwritten by the reader). ``remat`` recomputes each layer
-    in the backward. Returns (hidden, (k, v) each (n_attn, B, S, KV,
-    dh))."""
+    in the backward. Returns (hidden, (k, v) each (n_attn, B, S, cache
+    heads, dh), the KV head stored ``e`` times)."""
     B, S, _ = x.shape
     rope = _rope(cfg, torch.arange(S, device=x.device).expand(B, S))
     ks, vs = [], []
-    for kind, p, i in _layers(cfg, params):
+    for kind, p, i, prefix in _layers(cfg, params):
         if kind == "rec":
-            x, c, hh = L.checkpointed(_rec_block, p, x, conv[i], h[i],
-                                      length, remat=remat)
+            x, c, hh = L.checkpointed(_rec_block, cfg, p, prefix, x,
+                                      conv[i], h[i], length, remat=remat)
             if advance:
                 conv[i].copy_(c)
                 h[i].copy_(hh)
         else:
-            x, (k, v) = L.checkpointed(_attn_block_full, cfg, p, x, rope,
-                                       remat=remat)
+            x, (k, v) = L.checkpointed(_attn_block_full, cfg, p, prefix,
+                                       x, rope, e, remat=remat)
             ks.append(k)
             vs.append(v)
+    if not ks:                  # cut below one period: rec layers only
+        ks = vs = [x.new_empty((0, B, S, L.cache_head_count(cfg, e),
+                                cfg.head_dim), dtype=L.COMPUTE_DTYPE)]
+        return x, (torch.cat(ks), torch.cat(vs))
     return x, (torch.stack(ks), torch.stack(vs))
 
 
 def forward(cfg, params, batch, *, remat=False):
-    """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state."""
+    """Logits (B, S, V) f32 for batch["tokens"] (B, S) from a zero state
+    (B, S, V / tp under tensor parallelism, the KV head expanded as
+    serving expands it)."""
     tokens = batch["tokens"]
     conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
-    x, _ = _super_scan(cfg, params, _embed(cfg, params, tokens), conv, h,
-                       advance=False, remat=remat)
-    return _head(params, x)
+    x, _ = _super_scan(cfg, params, L.embed_tokens(cfg, params, tokens), conv, h,
+                       advance=False, remat=remat,
+                       e=L.serve_kv_expand(cfg, L.tp_size()))
+    return _head(cfg, params, x)
 
 
 def loss_fn(cfg, params, batch, *, remat=True):
     """Mean cross-entropy (with the z-loss) of the next tokens: the
-    reference's training loss."""
+    reference's training loss (vocabulary-parallel under tensor
+    parallelism)."""
     logits = forward(cfg, params, batch, remat=remat)
-    return torch.mean(L.softmax_xent(logits, batch["labels"]))
+    return L.mean_xent(logits, batch["labels"], cfg.vocab_size)
 
 
 def prefill(cfg, params, batch, cache_len: int = 0, kv_expand: int = 1):
@@ -358,10 +408,8 @@ def prefill(cfg, params, batch, cache_len: int = 0, kv_expand: int = 1):
     state = init_decode_state(cfg, B, device=tokens.device,
                               kv_expand=kv_expand)
     x, (k_all, v_all) = _super_scan(
-        cfg, params, _embed(cfg, params, tokens), state.conv, state.h)
-    if kv_expand > 1:                     # expand on the head axis (3)
-        k_all = torch.repeat_interleave(k_all, kv_expand, dim=3)
-        v_all = torch.repeat_interleave(v_all, kv_expand, dim=3)
+        cfg, params, L.embed_tokens(cfg, params, tokens), state.conv, state.h,
+        e=kv_expand)
     n_attn = k_all.shape[0]
     dev = tokens.device
     if S >= win:
@@ -375,7 +423,7 @@ def prefill(cfg, params, batch, cache_len: int = 0, kv_expand: int = 1):
         state.v[:, :, :S] = v_all
         state.kpos[:, :, :S] = torch.arange(S, dtype=torch.int32, device=dev)
     state.pos = S
-    return _head(params, x[:, -1:])[:, 0], state
+    return _head(cfg, params, x[:, -1:])[:, 0], state
 
 
 def decode_step(cfg, params, state: GriffinState, tokens):
@@ -384,17 +432,18 @@ def decode_step(cfg, params, state: GriffinState, tokens):
     B = tokens.shape[0]
     pos = state.pos
     rope = _rope(cfg, torch.full((B, 1), pos, device=tokens.device))
-    x = _embed(cfg, params, tokens[:, None])
-    for kind, p, i in _layers(cfg, params):
+    x = L.embed_tokens(cfg, params, tokens[:, None])
+    for kind, p, i, prefix in _layers(cfg, params):
         if kind == "rec":
-            x, c, hh = _rec_block(p, x, state.conv[i], state.h[i])
+            x, c, hh = _rec_block(cfg, p, prefix, x, state.conv[i],
+                                  state.h[i])
             state.conv[i].copy_(c)
             state.h[i].copy_(hh)
         else:
             x = _attn_block_decode(cfg, p, x, state.k[i], state.v[i],
                                    state.kpos[i], pos, rope)
     state.pos = pos + 1
-    return _head(params, x)[:, 0], state
+    return _head(cfg, params, x)[:, 0], state
 
 
 # --- paged-window decode (continuous batching) ------------------------------------
@@ -423,29 +472,38 @@ class GriffinPagedState:
 
 
 def init_paged_decode_state(cfg, num_slots: int, num_pages: int,
-                            page_size: int, dtype=L.COMPUTE_DTYPE,
-                            device="cuda") -> GriffinPagedState:
+                            page_size: int, dtype=None, device="cuda",
+                            kv_expand: int = 1) -> GriffinPagedState:
+    """Per-slot recurrent state and page pools of the cache heads (the KV
+    head stored ``kv_expand`` times), in ``dtype`` (the compute dtype by
+    default); under an installed mesh this rank's part: its channels and
+    its cache heads."""
     dev = resolve_device(device)
+    dtype = dtype or L.COMPUTE_DTYPE
     _, n_attn = _state_counts(cfg)
     conv, h = _rec_state(cfg, num_slots, dtype, dev)
     k, v = L.paged_cache_init(n_attn, num_pages, page_size,
-                              cfg.num_kv_heads, cfg.head_dim, dtype, dev)
+                              L.cache_head_count(cfg, kv_expand),
+                              cfg.head_dim, dtype, dev)
     return GriffinPagedState(conv=conv, h=h, k_pages=k, v_pages=v)
 
 
-def paged_prefill(cfg, params, batch, length):
+def paged_prefill(cfg, params, batch, length, kv_expand: int = 1):
     """Forward a (bucket-padded) B = 1 prompt; return the last live
-    token's logits (1, V), the raw per-position attention KV for the page
-    scatter ((k, v) each (n_attn, 1, S, KV, dh)) and the recurrent state
-    at ``length`` (conv (n_rec, 1, cw - 1, W), h (n_rec, 1, W) f32):
-    pad tokens past the live prompt leave conv and h untouched, and their
-    KV is masked or overwritten by the paged reader."""
+    token's logits (1, V) (the whole vocabulary's: the engine samples
+    them), the raw per-position attention KV for the page scatter ((k, v)
+    each (n_attn, 1, S, cache heads, dh), the KV head stored
+    ``kv_expand`` times, the rank's share) and the recurrent state at
+    ``length`` (conv (n_rec, 1, cw - 1, W), h (n_rec, 1, W) f32): pad
+    tokens past the live prompt leave conv and h untouched, and their KV
+    is masked or overwritten by the paged reader."""
     tokens = batch["tokens"]
     conv, h = _rec_state(cfg, tokens.shape[0], L.COMPUTE_DTYPE, tokens.device)
-    x, kv = _super_scan(cfg, params, _embed(cfg, params, tokens), conv, h,
-                        length=length)
+    x, (k, v) = _super_scan(cfg, params, L.embed_tokens(cfg, params, tokens), conv,
+                            h, length=length, e=kv_expand)
     idx = (length.reshape(()).long() - 1).reshape(1)
-    return _head(params, x.index_select(1, idx))[:, 0], kv, conv, h
+    last = _head(cfg, params, x.index_select(1, idx))[:, 0]
+    return L.whole_vocab(last, cfg.vocab_size), (k, v), conv, h
 
 
 def write_prefill_state(cfg, state: GriffinPagedState, kv, conv, h,
@@ -473,9 +531,9 @@ def _attn_block_paged(cfg, p, x, kp, vp, pt, pos, active, rope):
     """
     B = x.shape[0]
     win = cfg.recurrent.window
-    KV, _, page, dh = kp.shape
+    KV, _, page, dh = kp.shape                  # the pool's heads
     R = pt.shape[1]
-    q, k, v = _qkv(cfg, p, x, rope)
+    q, k, v = _qkv(cfg, p, x, rope, L.kv_expansion(cfg, KV))
     cp = pos // page                            # current page number
     page_ids = torch.gather(pt, 1, (cp % R)[:, None].long())[:, 0]
     page_ids = torch.where(active, page_ids, 0)     # inactive -> trash
@@ -509,7 +567,9 @@ def paged_decode_step(cfg, params, state: GriffinPagedState, tokens,
     tokens (B,) int; page_table (B, M) int32 whose first R columns are
     the window ring; lengths (B,) the decoding position per slot; active
     (B,) bool: inactive slots write to the trash page and freeze their
-    recurrent state. The caller advances lengths."""
+    recurrent state. The caller advances lengths. The logits are the
+    whole vocabulary's (gathered under tensor parallelism): the engine
+    samples them."""
     page = state.k_pages.shape[3]
     R = ring_rows(cfg.recurrent.window, page)
     pt = page_table[:, :R]
@@ -517,17 +577,17 @@ def paged_decode_step(cfg, params, state: GriffinPagedState, tokens,
     pos = torch.where(active, lengths.to(torch.int32), 0)
     rope = _rope(cfg, pos[:, None])
     keep = active[:, None]
-    x = _embed(cfg, params, tokens[:, None])
-    for kind, p, i in _layers(cfg, params):
+    x = L.embed_tokens(cfg, params, tokens[:, None])
+    for kind, p, i, prefix in _layers(cfg, params):
         if kind == "rec":
             conv, h = state.conv[i], state.h[i]
-            x, c, hh = _rec_block(p, x, conv, h)
+            x, c, hh = _rec_block(cfg, p, prefix, x, conv, h)
             conv.copy_(torch.where(keep[:, :, None], c, conv))
             h.copy_(torch.where(keep, hh, h))
         else:
             x = _attn_block_paged(cfg, p, x, state.k_pages[i],
                                   state.v_pages[i], pt, pos, active, rope)
-    return _head(params, x)[:, 0]
+    return L.whole_vocab(_head(cfg, params, x)[:, 0], cfg.vocab_size)
 
 
 def paged_decode_multi(cfg, params, state: GriffinPagedState, pending,

@@ -79,15 +79,82 @@ def tp_rank() -> int:
 
 
 def single_rank_family(cfg) -> None:
-    """Only the dense family is sharded so far: any other family under a
-    mesh of more than one rank raises."""
+    """Every family but MoE is sharded: a MoE model (expert parallelism
+    over ``_MOE_EP``, head-parallel MLA over ``_HEAD_EP``) under a mesh
+    of more than one rank raises."""
     ctx = _SHARD_CTX.get()
-    if ctx and ctx["tp_size"] * ctx["dp_size"] > 1 \
-            and cfg.family != "dense":
+    if ctx and ctx["tp_size"] * ctx["dp_size"] > 1 and cfg.family == "moe":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not sharded yet; its "
-            f"tensor parallelism comes with a later slice of the mesh port "
-            f"(ROADMAP, Queue 1, item 4)")
+            f"expert parallelism comes with a later slice of the mesh port "
+            f"(ROADMAP, Queue 1, item 2)")
+
+
+def _cuts_a_head(cfg, detail: str):
+    raise NotImplementedError(
+        f"{cfg.name}: {tp_size()}-way tensor parallelism cuts a head "
+        f"({detail}); such cells wait for a later slice of the mesh port")
+
+
+def whole_heads(cfg, cols: int, what: str) -> int:
+    """The heads of head dim ``cfg.head_dim`` in ``cols`` columns of a
+    rank's slice of ``what``; raises where the model axis' split cuts a
+    head."""
+    if cols % cfg.head_dim:
+        _cuts_a_head(cfg, f"{what} {cols} columns a rank, dh "
+                          f"{cfg.head_dim}")
+    return cols // cfg.head_dim
+
+
+def rank_heads(cfg, q_cols: int, e: int) -> tuple[int, int]:
+    """This rank's (q heads, cache heads) from the ``q_cols`` columns of
+    its wq slice and the KV expansion ``e``; raises where the split cuts
+    a head or leaves the rank's q heads without their whole KV heads."""
+    tp = tp_size()
+    hl, kve = whole_heads(cfg, q_cols, "wq"), cfg.num_kv_heads * e
+    if kve % tp:
+        _cuts_a_head(cfg, f"{kve} cache heads")
+    if tp > 1 and q_cols * tp != cfg.q_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: wq is not split over the {tp} model ranks; the "
+            f"rank-local executor runs split heads only")
+    ce = kve // tp
+    if hl % ce:
+        raise NotImplementedError(
+            f"{cfg.name}: {hl} q heads a rank do not group over {ce} "
+            f"cache heads")
+    return hl, ce
+
+
+def cache_heads(cfg, t, e: int, ce: int):
+    """(B, S, columns) from this rank's wk or wv slice -> the rank's
+    ``ce`` cache heads (B, S, ce, dh): its own heads where the slice holds
+    whole heads and nothing is expanded, else the whole KV projection
+    (gathered over the model axis where the slice cuts a head), expanded
+    e times and cut to the rank's heads."""
+    B, S, cols = t.shape
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    if e == 1 and cols == ce * dh:
+        return t.view(B, S, ce, dh)
+    if cols != kv * dh:
+        t = gather_from_tp(t, -1)
+    full = expand_kv(t.view(B, S, kv, dh), e)
+    if full.shape[2] == ce:
+        return full
+    r = tp_rank()
+    return full[:, :, r * ce:(r + 1) * ce].contiguous()
+
+
+def kv_expansion(cfg, heads: int) -> int:
+    """The KV expansion of a cache (or page pool) holding ``heads`` heads
+    on each of the model axis' ranks."""
+    return heads * tp_size() // cfg.num_kv_heads
+
+
+def cache_head_count(cfg, e: int) -> int:
+    """The cache heads a rank holds with each KV head stored ``e``
+    times."""
+    return cfg.num_kv_heads * e // tp_size()
 
 
 def serve_kv_expand(cfg, tp: int) -> int:
@@ -157,7 +224,10 @@ def shard_mesh():
 # passed to each rank's part); ``gather_from_tp`` concatenates the model
 # ranks' slices of a tensor each rank then uses in part (its gradient,
 # partial on each rank, is summed and cut back to the rank's slice: a
-# reduce-scatter). Each is the identity on a model axis of size 1, or with
+# reduce-scatter); ``gather_whole`` concatenates the slices of a tensor
+# every rank then uses whole, in the same replicated computation (its
+# gradient, the same on every rank, is cut back to the rank's slice).
+# Each is the identity on a model axis of size 1, or with
 # no mesh installed; with grad mode off each is serving's collective
 # (``tp_all_reduce``, ``tp_all_gather``), so the serving path and its
 # CUDA graphs are unchanged. The mesh's reductions run in place, so each
@@ -227,6 +297,31 @@ def gather_from_tp(x, dim: int = -1):
     if ctx is None or not torch.is_grad_enabled():
         return tp_all_gather(x, dim)
     return _GatherFromTP.apply(x, dim % x.dim(), ctx["mesh"], (ctx["tp"],))
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.dim, ctx.n, ctx.r = dim, x.shape[dim], tp_rank()
+        return mesh.all_gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n).contiguous(), \
+            None, None, None
+
+
+def gather_whole(x, dim: int = -1):
+    """Forward an all-gather over the model axis along ``dim``, backward
+    this rank's slice of the gradient: a tensor every rank then uses
+    whole in the same replicated computation (a column-parallel output
+    joining the replicated stream), whose gradient is the same on every
+    rank. ``gather_from_tp`` where each rank uses the whole in its own
+    part."""
+    ctx = _tp_ctx()
+    if ctx is None or not torch.is_grad_enabled():
+        return tp_all_gather(x, dim)
+    return _GatherWhole.apply(x, dim % x.dim(), ctx["mesh"], (ctx["tp"],))
 
 
 # --- FSDP ---------------------------------------------------------------------------
@@ -342,6 +437,76 @@ def vocab_parallel_xent(logits_local, labels, *, z_loss=1e-4):
                                     ctx["mesh"], ctx["tp"], tp_rank())
 
 
+# --- tensor-parallel pieces the families share ------------------------------------
+
+def embed_tokens(cfg, params, tokens):
+    """The embedding rows of ``tokens`` from params["embed"] (``embed_rows``;
+    an FSDP slice gathered at the lookup)."""
+    single_rank_family(cfg)
+    return embed_rows(fsdp_leaf(params["embed"], "embed"), tokens,
+                      cfg.vocab_size)
+
+
+def embed_rows(w, tokens, vocab: int):
+    """The rows of ``tokens`` in the embedding ``w``. Where ``w`` holds
+    this rank's slice of the ``vocab`` rows, it looks the tokens up in
+    its slice, zeros the others and sums over the model axis (exact: one
+    nonzero a token)."""
+    rows = w.shape[0]
+    if rows == vocab:
+        return w[tokens.long()]
+    idx = tokens.long() - tp_rank() * rows
+    hit = (idx >= 0) & (idx < rows)
+    x = w[idx.clamp(0, rows - 1)] * hit[..., None].to(w.dtype)
+    return reduce_from_tp(x)
+
+
+def head_logits(h, w, vocab: int):
+    """f32 logits of ``h`` through the head ``w`` (d, V): this rank's
+    vocabulary columns where ``w`` holds a slice of the ``vocab``."""
+    if w.shape[-1] != vocab:                 # column-parallel: a V slice
+        h = copy_to_tp(h)
+    return (h @ w).float()
+
+
+def whole_vocab(logits, vocab: int):
+    """``logits`` over the whole vocabulary on every rank, for a sampler:
+    gathered over the model axis where they hold this rank's slice of the
+    ``vocab`` columns; as they are where the head was left whole (a
+    vocabulary the model axis does not divide)."""
+    if logits.shape[-1] == vocab:
+        return logits
+    return tp_all_gather(logits, -1)
+
+
+def reduce_rows(t, w, full: int):
+    """A product through a row-parallel weight: its partial sums are
+    summed over the model axis where ``w`` holds a slice of its ``full``
+    input rows."""
+    return reduce_from_tp(t) if w.shape[0] != full else t
+
+
+def mean_xent(logits, labels, vocab: int):
+    """The mean ``softmax_xent`` of ``logits``, vocabulary-parallel where
+    they hold a rank's slice of the ``vocab`` columns."""
+    if logits.shape[-1] != vocab:
+        return torch.mean(vocab_parallel_xent(logits, labels))
+    return torch.mean(softmax_xent(logits, labels))
+
+
+def tp_part(x, dim: int = -1):
+    """This rank's slice along ``dim`` of a tensor every model rank holds
+    whole (a recurrent register's part, a replicated weight's columns);
+    its gradient is this rank's part alone, so a replicated input is
+    passed through ``copy_to_tp`` first. ``x`` itself on a model axis of
+    size 1."""
+    n = tp_size()
+    if n == 1:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, tp_rank() * size, size)
+
+
 # --- paged KV cache ---------------------------------------------------------------
 # Page 0 of every pool is the pager's trash page: dead table slots and
 # inactive decode slots point there, and attention lengths gate it out.
@@ -396,7 +561,8 @@ def trunc_normal_(t, gen, std=0.02):
 def stack_layers(make_layer, n: int, device) -> dict:
     """``n`` draws of ``make_layer()`` (a nested dict of tensors) stacked
     on a leading layer axis, drawn one layer at a time so that only one
-    layer's f32 temporaries are alive at once."""
+    layer's f32 temporaries are alive at once (n = 0: empty leaves of the
+    layer's shapes)."""
     def empty_like(tree):
         return {k: empty_like(v) if isinstance(v, dict) else
                 torch.empty((n, *v.shape), dtype=v.dtype, device=device)
@@ -411,7 +577,8 @@ def stack_layers(make_layer, n: int, device) -> dict:
 
     first = make_layer()
     out = empty_like(first)
-    put(out, first, 0)
+    if n:
+        put(out, first, 0)
     del first
     for i in range(1, n):
         put(out, make_layer(), i)
@@ -596,9 +763,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def gelu_mlp(x, w_up, b_up, w_down, b_down):
-    """Whisper's MLP: tanh-approximate GELU between two biased products."""
-    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
+def gelu_mlp(x, w_up, b_up, w_down, b_down, d_ff: int | None = None):
+    """Whisper's MLP: tanh-approximate GELU between two biased products;
+    where ``w_down`` holds a slice of its ``d_ff`` input rows (row-parallel)
+    its partial sums are summed over the model axis before its bias."""
+    f = F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down
+    return reduce_rows(f, w_down, d_ff or w_down.shape[0]) + b_down
 
 
 # --- MoE (capacity-based dispatch) ------------------------------------------------

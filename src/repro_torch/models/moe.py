@@ -41,7 +41,7 @@ import torch
 from .. import resolve_device
 from ..kernels import ops
 from . import layers as L
-from .transformer import _embed, _head, _last, _qkv
+from .transformer import _head, _last, _qkv
 
 ATTN_CHUNK_THRESHOLD = 2048     # longer prompts attend in query chunks
 
@@ -249,7 +249,7 @@ def _trunk(cfg, params, batch, *, route_capacity=None, route_keep=None,
     dims = L.moe_dims(cfg, B * S)
     if route_capacity is not None:
         dims = dataclasses.replace(dims, capacity=route_capacity)
-    x = _embed(cfg, params, tokens)
+    x = L.embed_tokens(cfg, params, tokens)
     kvs, keeps, auxs = [], [], []
     for i, p in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         x, kv, keep, aux = L.checkpointed(
@@ -354,7 +354,7 @@ def decode_step(cfg, params, state: MoEDecodeState, tokens):
     rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
     lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     dims = L.moe_dims_dropless(cfg, B)
-    x = _embed(cfg, params, tokens[:, None])
+    x = L.embed_tokens(cfg, params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         if cfg.mla is None:
@@ -460,7 +460,7 @@ def paged_decode_step(cfg, params, state: MoEPagedState, tokens,
     page = state.kv_pages.shape[2]
     active = active.to(torch.bool)
     pos = torch.where(active, lengths.to(torch.int32), 0)
-    x = _embed(cfg, params, tokens[:, None])
+    x = L.embed_tokens(cfg, params, tokens[:, None])
     slot = (pos // page)[:, None].long()
     page_ids = torch.where(active, torch.gather(page_table, 1, slot)[:, 0], 0)
     offsets = torch.where(active, pos % page, 0)

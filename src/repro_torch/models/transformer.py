@@ -35,8 +35,8 @@ divides the model axis of a mesh; q head h then reads expanded head
 h // (G/e). ``prefill`` and ``init_decode_state`` take e, and every
 decode reads it back from its cache's head count.
 
-Tensor parallelism (the dense family, under a mesh installed by
-``layers.set_shard_ctx``): each rank holds its slices of the params
+Tensor parallelism (the dense and vlm families, under a mesh installed
+by ``layers.set_shard_ctx``): each rank holds its slices of the params
 (``launch.sharding.param_pspecs``) and runs Megatron style. The
 column-parallel wq/wk/wv/w_gate/w_up give the rank's heads and FFN
 columns, the row-parallel wo/w_down give partial sums that
@@ -46,7 +46,10 @@ head yields the logits of the rank's vocabulary columns: ``prefill`` and
 ``decode_step`` return them so (the reference's ``_logits_spec``), the
 paged functions, whose logits the engine samples, gather them. Every local size comes from the local weights (and the
 cache's head count), never from the config unchanged; a split that cuts
-a head raises. Where wk/wv are cut within a head (fewer KV heads than
+a head raises. qwen2-vl's column-parallel patch_proj gives the rank's
+D columns of the patch embeddings, gathered whole (``gather_whole``)
+before they join the replicated stream; M-RoPE turns each of the rank's
+heads as one rank does. Where wk/wv are cut within a head (fewer KV heads than
 model ranks), the rank gathers them and keeps its expanded heads. The
 collectives are ``layers``' differentiable ones (the replicated input of
 every column-parallel product through ``copy_to_tp``, the gather through
@@ -144,58 +147,16 @@ def _layer(params, i: int) -> dict:
 
 # --- block -----------------------------------------------------------------------
 
-def _heads(cfg, p, e: int) -> tuple[int, int]:
-    """This rank's (q heads, cache heads) from its wq slice and the KV
-    expansion ``e``; raises where the split cuts a head or leaves the
-    rank's q heads without their whole KV heads."""
-    tp, dh = L.tp_size(), cfg.head_dim
-    q_cols = p["wq"].shape[-1]
-    kve = cfg.num_kv_heads * e
-    if q_cols % dh or kve % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {tp}-way tensor parallelism cuts a head (wq "
-            f"{q_cols} columns a rank, dh {dh}; {kve} cache heads); such "
-            f"cells wait for a later slice of the mesh port")
-    if tp > 1 and q_cols * tp != cfg.q_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: wq is not split over the {tp} model ranks; the "
-            f"rank-local executor runs split heads only")
-    hl, ce = q_cols // dh, kve // tp
-    if hl % ce:
-        raise NotImplementedError(
-            f"{cfg.name}: {hl} q heads a rank do not group over {ce} "
-            f"cache heads")
-    return hl, ce
-
-
-def _cache_heads(cfg, t, e: int, ce: int):
-    """(B, S, columns) from this rank's wk or wv slice -> the rank's
-    ``ce`` cache heads (B, S, ce, dh): its own heads where the slice holds
-    whole heads and nothing is expanded, else the whole KV projection
-    (gathered over the model axis where the slice cuts a head), expanded
-    e times and cut to the rank's heads."""
-    B, S, cols = t.shape
-    kv, dh = cfg.num_kv_heads, cfg.head_dim
-    if e == 1 and cols == ce * dh:
-        return t.view(B, S, ce, dh)
-    if cols != kv * dh:
-        t = L.gather_from_tp(t, -1)
-    full = L.expand_kv(t.view(B, S, kv, dh), e)
-    if full.shape[2] == ce:
-        return full
-    r = L.tp_rank()
-    return full[:, :, r * ce:(r + 1) * ce].contiguous()
-
-
 def _qkv(cfg, p, x, rope, e: int = 1):
     """Pre-norm, projections, bias and RoPE: q (B, S, heads, dh) and k, v
     in the cache's (B, S, cache heads, dh), each KV head expanded ``e``
-    times; under a mesh the rank's heads (``_heads``). ``rope`` is the
-    forward's (cos, sin) from ``layers.rope_cos_sin``."""
+    times; under a mesh the rank's heads (``layers.rank_heads``).
+    ``rope`` is the forward's (cos, sin) from ``layers.rope_cos_sin``."""
     _, norm = L.make_norm(cfg)
     B, S, _ = x.shape
     one = e == 1 and L.tp_size() == 1
-    hl, ce = (cfg.num_heads, cfg.num_kv_heads) if one else _heads(cfg, p, e)
+    hl, ce = (cfg.num_heads, cfg.num_kv_heads) if one \
+        else L.rank_heads(cfg, p["wq"].shape[-1], e)
     h = L.copy_to_tp(norm(x, p["ln1"]).to(L.COMPUTE_DTYPE))
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if cfg.qkv_bias:
@@ -205,15 +166,8 @@ def _qkv(cfg, p, x, rope, e: int = 1):
         return (L.rotate(q.view(B, S, hl, dh), *rope),
                 L.rotate(k.view(B, S, ce, dh), *rope), v.view(B, S, ce, dh))
     q = L.rotate(q.view(B, S, hl, cfg.head_dim), *rope)
-    k = L.rotate(_cache_heads(cfg, k, e, ce), *rope)
-    return q, k, _cache_heads(cfg, v, e, ce)
-
-
-def _row_parallel(t, w, full: int):
-    """A product through a row-parallel weight: its partial sums are
-    summed over the model axis where ``w`` holds a slice of its ``full``
-    input rows."""
-    return L.reduce_from_tp(t) if w.shape[0] != full else t
+    k = L.rotate(L.cache_heads(cfg, k, e, ce), *rope)
+    return q, k, L.cache_heads(cfg, v, e, ce)
 
 
 def _finish(cfg, p, x, attn):
@@ -223,40 +177,30 @@ def _finish(cfg, p, x, attn):
     sharded = L.tp_size() > 1
     o = attn.reshape(B, S, -1) @ p["wo"]
     if sharded:
-        o = _row_parallel(o, p["wo"], cfg.q_dim)
+        o = L.reduce_rows(o, p["wo"], cfg.q_dim)
     y = x + o.to(x.dtype)
     h2 = L.copy_to_tp(norm(y, p["ln2"]).to(L.COMPUTE_DTYPE))
     f = L.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
     if sharded:
-        f = _row_parallel(f, p["w_down"], cfg.d_ff)
+        f = L.reduce_rows(f, p["w_down"], cfg.d_ff)
     return y + f.to(x.dtype)
 
 
 # --- embedding / head ---------------------------------------------------------------
 
-def _embed(cfg, params, tokens):
-    """The embedding rows of ``tokens``. Where this rank holds a slice of
-    the vocabulary's rows, it looks up the tokens in its slice, zeros the
-    others and sums over the model axis (exact: one nonzero a token)."""
-    L.single_rank_family(cfg)
-    w = L.fsdp_leaf(params["embed"], "embed")
-    rows = w.shape[0]
-    if rows == cfg.vocab_size:
-        return w[tokens.long()]
-    idx = tokens.long() - L.tp_rank() * rows
-    hit = (idx >= 0) & (idx < rows)
-    x = w[idx.clamp(0, rows - 1)] * hit[..., None].to(w.dtype)
-    return L.reduce_from_tp(x)
-
-
 def _embed_batch(cfg, params, batch):
     """Embeddings of batch["tokens"]; for the vlm family the first P rows
     become batch["patch_embeds"] (B, P, D) projected through
-    ``patch_proj`` in bf16, where the batch carries them."""
-    x = _embed(cfg, params, batch["tokens"])
+    ``patch_proj`` in bf16, where the batch carries them (under tensor
+    parallelism the rank's D columns of the projection, gathered whole
+    before they join the replicated residual stream)."""
+    x = L.embed_tokens(cfg, params, batch["tokens"])
     pe = batch.get("patch_embeds")
     if cfg.family == "vlm" and pe is not None:
-        pe = pe.to(L.COMPUTE_DTYPE) @ params["patch_proj"]
+        w = L.fsdp_leaf(params["patch_proj"], "patch_proj")
+        pe = L.copy_to_tp(pe.to(L.COMPUTE_DTYPE)) @ w
+        if w.shape[-1] != cfg.d_model:      # column-parallel: a D slice
+            pe = L.gather_whole(pe, -1)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     return x
 
@@ -268,9 +212,7 @@ def _head(cfg, params, x):
     h = norm(x, params["ln_f"]).to(L.COMPUTE_DTYPE)
     w = L.fsdp_leaf(params["embed"], "embed").T if cfg.tie_embeddings \
         else L.fsdp_leaf(params["lm_head"], "lm_head")
-    if w.shape[-1] != cfg.vocab_size:        # column-parallel: a V slice
-        h = L.copy_to_tp(h)
-    return (h @ w).float()
+    return L.head_logits(h, w, cfg.vocab_size)
 
 
 def _rope(cfg, positions, pos3=None):
@@ -339,9 +281,7 @@ def loss_fn(cfg, params, batch, *, remat=True):
     tied ``embed.T`` as well as ``lm_head``), the vocabulary-parallel
     cross-entropy computes the same loss on every rank."""
     logits = forward(cfg, params, batch, remat=remat)
-    if logits.shape[-1] != cfg.vocab_size:
-        return torch.mean(L.vocab_parallel_xent(logits, batch["labels"]))
-    return torch.mean(L.softmax_xent(logits, batch["labels"]))
+    return L.mean_xent(logits, batch["labels"], cfg.vocab_size)
 
 
 # --- static decode -------------------------------------------------------------------
@@ -367,12 +307,6 @@ def init_decode_state(cfg, batch_size: int, cache_len: int,
                        v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
 
 
-def _expansion(cfg, cache_heads: int) -> int:
-    """The KV expansion of a cache (or page pool) holding ``cache_heads``
-    heads on each of the model axis' ranks."""
-    return cache_heads * L.tp_size() // cfg.num_kv_heads
-
-
 def prefill(cfg, params, batch, cache_len: int, kv_expand: int = 1):
     """Run the full prompt, materialize the dense KV cache (each KV head
     stored ``kv_expand`` times), return the last position's logits (B, V)
@@ -394,10 +328,10 @@ def decode_step(cfg, params, state: DecodeState, tokens):
     B = tokens.shape[0]
     pos = state.pos
     dev = tokens.device
-    e = _expansion(cfg, state.k.shape[3])
+    e = L.kv_expansion(cfg, state.k.shape[3])
     rope = _rope(cfg, torch.full((B, 1), pos, device=dev))
     lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
-    x = _embed(cfg, params, tokens[:, None])
+    x = L.embed_tokens(cfg, params, tokens[:, None])
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         q, k, v = _qkv(cfg, p, x, rope, e)
@@ -420,20 +354,19 @@ class PagedDecodeState:
 
 def init_paged_decode_state(cfg, num_pages: int, page_size: int,
                             dtype=L.COMPUTE_DTYPE, device="cuda",
-                            kv_heads: int | None = None
-                            ) -> PagedDecodeState:
-    """Page pools of ``kv_heads`` heads (default the config's KV heads;
-    a rank's cache heads under a mesh)."""
+                            kv_expand: int = 1) -> PagedDecodeState:
+    """Page pools of the cache heads, each KV head stored ``kv_expand``
+    times: under an installed mesh this rank's share of them."""
     k, v = L.paged_cache_init(cfg.num_layers, num_pages, page_size,
-                              kv_heads or cfg.num_kv_heads, cfg.head_dim,
-                              dtype, device)
+                              L.cache_head_count(cfg, kv_expand),
+                              cfg.head_dim, dtype, device)
     return PagedDecodeState(k_pages=k, v_pages=v)
 
 
 def _sampled_logits(cfg, params, x):
     """The head's logits of x for a sampler: the whole vocabulary on
     every rank (gathered over its split under a mesh)."""
-    return L.tp_all_gather(_head(cfg, params, x), -1)
+    return L.whole_vocab(_head(cfg, params, x), cfg.vocab_size)
 
 
 def paged_prefill(cfg, params, batch, lengths, kv_expand: int = 1):
@@ -481,11 +414,11 @@ def paged_prefill_shared(cfg, params, state: PagedDecodeState, batch,
     Mp = prefix_pages.shape[1]
     Tp = Mp * page
     KV, dh = state.k_pages.shape[1], cfg.head_dim     # the pool's heads
-    e = _expansion(cfg, KV)
+    e = L.kv_expansion(cfg, KV)
     dev = tokens.device
     prefix_len = prefix_len.long()
     rope = _rope(cfg, prefix_len[:, None] + torch.arange(S, device=dev))
-    x = _embed(cfg, params, tokens)
+    x = L.embed_tokens(cfg, params, tokens)
 
     # keys per layer: [gathered prefix (Tp) | suffix (S)]; prefix entries
     # valid below prefix_len, suffix causal
@@ -535,10 +468,10 @@ def paged_decode_step(cfg, params, state: PagedDecodeState, tokens,
     trash page and read zero-length caches. The caller advances lengths.
     """
     page = state.k_pages.shape[3]
-    e = _expansion(cfg, state.k_pages.shape[1])
+    e = L.kv_expansion(cfg, state.k_pages.shape[1])
     lengths = lengths.to(torch.int32)
     active = active.to(torch.bool)
-    x = _embed(cfg, params, tokens[:, None])
+    x = L.embed_tokens(cfg, params, tokens[:, None])
     slot = (lengths // page)[:, None].long()
     page_ids = torch.gather(page_table, 1, slot)[:, 0]
     page_ids = torch.where(active, page_ids, 0)              # trash page

@@ -19,6 +19,21 @@ prefill"); the port computes what that code computes.
 Weights: as the other models, bf16 matrices, embeddings, positions and
 biases (the reference casts each to bf16 at use), f32 layernorm scales
 and biases (added in f32).
+
+Tensor parallelism (under a mesh installed by ``layers.set_shard_ctx``;
+each rank holds its slices of the params by the reference's rules,
+``launch.sharding.param_pspecs``): the encoder's and the decoder's
+self-attention and MLP take the dense split (column-parallel wq/wk/wv
+with their biases bq/bv and w_up with b_up, row-parallel wo and w_down
+summed over the model axis before their replicated biases bo and
+b_down), the cross attention too (x_wq/x_wk/x_wv column-parallel over
+the replicated encoder output, x_wo row-parallel). The positions are
+replicated, the tied embedding vocabulary-parallel where its rows divide
+the model axis (``prefill`` and ``decode_step`` then return the rank's
+vocabulary columns). A split that cuts a head raises (whisper-tiny's six
+heads over four ranks): the cache holds the rank's whole heads, as the
+reference's ``kv_expand`` is accepted and unused. At one rank every
+collective is the identity and the code is the one device's.
 """
 
 from __future__ import annotations
@@ -37,12 +52,15 @@ DEC_POS_ROWS = 8192
 
 # --- params ----------------------------------------------------------------------
 
-def init_params(cfg, seed: int = 0, device="cuda"):
+def init_params(cfg, seed: int = 0, device="cuda", local=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     the reference's shapes and distributions (truncated normal, std
     1/sqrt(d_in) for matrices, 0.02 for the embedding, 0.01 for the
-    position tables; zero biases, unit layernorm scales), on ``device``."""
+    position tables; zero biases, unit layernorm scales), on ``device``.
+    ``local(path, t)`` (``launch.sharding.local_init``) keeps a rank's
+    slice of each drawn leaf, equal to the one-rank draw's bit for bit."""
     dev = resolve_device(device)
+    keep = local or (lambda path, t: t)
     gen = L.seeded_generator(dev, seed)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     Q, KV = cfg.q_dim, cfg.kv_dim
@@ -74,14 +92,18 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         return {"w_up": dense(D, F), "b_up": zeros(F),
                 "w_down": dense(F, D), "b_down": zeros(D)}
 
-    enc = L.stack_layers(lambda: {**norms("ln1", "ln2"), **attn(), **mlp()},
-                         cfg.encoder.num_layers, dev)
-    dec = L.stack_layers(lambda: {**norms("ln1", "ln_x", "ln2"), **attn(),
-                                  **attn("x_"), **mlp()},
-                         cfg.num_layers, dev)
+    def kept(name, tree):
+        return {k: keep((name, k), t) for k, t in tree.items()}
+
+    enc = L.stack_layers(lambda: kept("enc_blocks", {
+        **norms("ln1", "ln2"), **attn(), **mlp()}), cfg.encoder.num_layers,
+        dev)
+    dec = L.stack_layers(lambda: kept("dec_blocks", {
+        **norms("ln1", "ln_x", "ln2"), **attn(), **attn("x_"), **mlp()}),
+        cfg.num_layers, dev)
     return {"enc_pos": normal((cfg.encoder.seq_len, D), 0.01),
             "enc_blocks": enc, **norms("enc_ln"),
-            "embed": normal((V, D), 0.02),
+            "embed": keep(("embed",), normal((V, D), 0.02)),
             "dec_pos": normal((DEC_POS_ROWS, D), 0.01),
             "dec_blocks": dec, **norms("dec_ln")}
 
@@ -92,28 +114,37 @@ def _layer(blocks, i: int) -> dict:
 
 # --- attention pieces --------------------------------------------------------------
 
-def _heads(cfg, t):
-    """(B, S, n * dh) -> (B, S, n, dh)."""
-    return t.view(*t.shape[:2], -1, cfg.head_dim)
+def _heads(cfg, t, what: str):
+    """(B, S, n * dh) -> (B, S, n, dh): the rank's whole heads of the
+    projection ``what`` (raises where its split cuts a head)."""
+    return t.view(*t.shape[:2], L.whole_heads(cfg, t.shape[-1], what),
+                  cfg.head_dim)
 
 
 def _q(cfg, p, h, prefix=""):
-    return _heads(cfg, h @ p[prefix + "wq"] + p[prefix + "bq"])
+    return _heads(cfg, h @ p[prefix + "wq"] + p[prefix + "bq"],
+                  prefix + "wq")
 
 
 def _kv(cfg, p, h, prefix=""):
     """Keys carry no bias in whisper; values do."""
-    return (_heads(cfg, h @ p[prefix + "wk"]),
-            _heads(cfg, h @ p[prefix + "wv"] + p[prefix + "bv"]))
+    return (_heads(cfg, h @ p[prefix + "wk"], prefix + "wk"),
+            _heads(cfg, h @ p[prefix + "wv"] + p[prefix + "bv"],
+                   prefix + "wv"))
 
 
 def _out(cfg, p, attn, prefix=""):
+    """The output projection, summed over the model axis where it is
+    row-parallel, then its bias."""
     B, S = attn.shape[:2]
-    return attn.reshape(B, S, cfg.q_dim) @ p[prefix + "wo"] + p[prefix + "bo"]
+    w = p[prefix + "wo"]
+    return L.reduce_rows(attn.reshape(B, S, -1) @ w, w, cfg.q_dim) \
+        + p[prefix + "bo"]
 
 
-def _mlp(p, h):
-    return L.gelu_mlp(h, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+def _mlp(cfg, p, h):
+    return L.gelu_mlp(h, p["w_up"], p["b_up"], p["w_down"], p["b_down"],
+                      cfg.d_ff)
 
 
 # --- encoder / decoder -----------------------------------------------------------
@@ -121,12 +152,13 @@ def _mlp(p, h):
 def _enc_block(cfg, p, x):
     """One encoder block: bidirectional self-attention, MLP."""
     cd = L.COMPUTE_DTYPE
-    h = L.layernorm(x, p["ln1"], p["ln1b"]).to(cd)
+    p = L.fsdp_whole(p, "enc_blocks/", layer=True)
+    h = L.copy_to_tp(L.layernorm(x, p["ln1"], p["ln1b"]).to(cd))
     k, v = _kv(cfg, p, h)
     attn = ops.flash_attention(_q(cfg, p, h), k, v, causal=False)
     x = x + _out(cfg, p, attn).to(x.dtype)
-    h2 = L.layernorm(x, p["ln2"], p["ln2b"]).to(cd)
-    return x + _mlp(p, h2).to(x.dtype)
+    h2 = L.copy_to_tp(L.layernorm(x, p["ln2"], p["ln2b"]).to(cd))
+    return x + _mlp(cfg, p, h2).to(x.dtype)
 
 
 def encode(cfg, params, frames, remat=False):
@@ -148,7 +180,8 @@ def _dec_block(cfg, p, x, enc_out, cache=None):
     dh) at ``pos`` in place, and both attentions take the decode kernel.
     Returns (x, (k, v)) with this call's self-attention K/V."""
     cd = L.COMPUTE_DTYPE
-    h = L.layernorm(x, p["ln1"], p["ln1b"]).to(cd)
+    p = L.fsdp_whole(p, "dec_blocks/", layer=True)
+    h = L.copy_to_tp(L.layernorm(x, p["ln1"], p["ln1b"]).to(cd))
     q, (k, v) = _q(cfg, p, h), _kv(cfg, p, h)
     if cache is None:
         attn = ops.flash_attention(q, k, v, causal=True)
@@ -159,30 +192,32 @@ def _dec_block(cfg, p, x, enc_out, cache=None):
         attn = ops.decode_attention(q[:, 0], ck, cv, lengths)[:, None]
     x = x + _out(cfg, p, attn).to(x.dtype)
     # cross-attention: K/V from the encoder output, at every call
-    hx = L.layernorm(x, p["ln_x"], p["ln_xb"]).to(cd)
-    qx, (kx, vx) = _q(cfg, p, hx, "x_"), _kv(cfg, p, enc_out, "x_")
+    hx = L.copy_to_tp(L.layernorm(x, p["ln_x"], p["ln_xb"]).to(cd))
+    qx, (kx, vx) = _q(cfg, p, hx, "x_"), _kv(cfg, p, L.copy_to_tp(enc_out),
+                                              "x_")
     if cache is None:
         ax = ops.flash_attention(qx, kx, vx, causal=False)
     else:
         ax = ops.decode_attention(qx[:, 0], kx, vx, enc_lengths)[:, None]
     x = x + _out(cfg, p, ax, "x_").to(x.dtype)
-    h2 = L.layernorm(x, p["ln2"], p["ln2b"]).to(cd)
-    return x + _mlp(p, h2).to(x.dtype), (k, v)
+    h2 = L.copy_to_tp(L.layernorm(x, p["ln2"], p["ln2b"]).to(cd))
+    return x + _mlp(cfg, p, h2).to(x.dtype), (k, v)
 
 
-def _head(params, x):
-    """Final layernorm and the tied embedding: f32 logits."""
+def _head(cfg, params, x):
+    """Final layernorm and the tied embedding: f32 logits (the rank's
+    vocabulary columns where the embedding is split)."""
     h = L.layernorm(x, params["dec_ln"], params["dec_lnb"]).to(L.COMPUTE_DTYPE)
-    return (h @ params["embed"].T).float()
+    return L.head_logits(h, L.fsdp_leaf(params["embed"], "embed").T,
+                         cfg.vocab_size)
 
 
 def _decoder(cfg, params, tokens, enc_out, return_kv: bool, remat=False):
     """The decoder over whole sequences: (hidden (B, S, D), (k, v) each
     (L, B, S, KV, dh) or None)."""
-    L.single_rank_family(cfg)
     S = tokens.shape[1]
     pos_ids = torch.arange(S, device=tokens.device) % DEC_POS_ROWS
-    x = params["embed"][tokens.long()] + params["dec_pos"][pos_ids][None]
+    x = L.embed_tokens(cfg, params, tokens) + params["dec_pos"][pos_ids][None]
     ks, vs = [], []
     for p in L.layer_views(params["dec_blocks"], cfg.num_layers):
         x, (k, v) = L.checkpointed(_dec_block, cfg, p, x, enc_out,
@@ -199,14 +234,14 @@ def forward(cfg, params, batch, *, remat=False):
     enc_out = encode(cfg, params, batch["frames"], remat=remat)
     x, _ = _decoder(cfg, params, batch["tokens"], enc_out, return_kv=False,
                     remat=remat)
-    return _head(params, x)
+    return _head(cfg, params, x)
 
 
 def loss_fn(cfg, params, batch, *, remat=True):
     """Mean cross-entropy (with the z-loss) of the decoder's next tokens:
     the reference's training loss."""
     logits = forward(cfg, params, batch, remat=remat)
-    return torch.mean(L.softmax_xent(logits, batch["labels"]))
+    return L.mean_xent(logits, batch["labels"], cfg.vocab_size)
 
 
 # --- static decode -------------------------------------------------------------------
@@ -220,14 +255,16 @@ class WhisperState:
 
 
 def init_decode_state(cfg, batch_size: int, cache_len: int,
-                      dtype=L.COMPUTE_DTYPE, device="cuda",
+                      dtype=None, device="cuda",
                       kv_expand: int = 1) -> WhisperState:
     """An empty cache of ``cache_len`` positions and a zero encoder
-    output; ``kv_expand`` is accepted and unused, as in the
-    reference."""
+    output, in ``dtype`` (the compute dtype by default); ``kv_expand`` is
+    accepted and unused, as in the reference. Under an installed mesh,
+    the rank's KV heads."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
-             cfg.head_dim)
+    dtype = dtype or L.COMPUTE_DTYPE
+    shape = (cfg.num_layers, batch_size, cache_len,
+             cfg.num_kv_heads // L.tp_size(), cfg.head_dim)
     return WhisperState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -245,7 +282,7 @@ def prefill(cfg, params, batch, cache_len: int, kv_expand: int = 1):
     enc_out = encode(cfg, params, batch["frames"])
     x, (k, v) = _decoder(cfg, params, tokens, enc_out, return_kv=True)
     pad = (0, 0, 0, 0, 0, cache_len - S)        # pad the position axis
-    return _head(params, x[:, -1:])[:, 0], WhisperState(
+    return _head(cfg, params, x[:, -1:])[:, 0], WhisperState(
         k=torch.nn.functional.pad(k, pad), v=torch.nn.functional.pad(v, pad),
         enc_out=enc_out, pos=S)
 
@@ -257,18 +294,17 @@ def decode_step(cfg, params, state: WhisperState, tokens):
     ``ops.decode_attention`` with lengths filled on the device. Writes
     the new K/V in place and advances ``state.pos``; returns (logits
     (B, V), state)."""
-    L.single_rank_family(cfg)
     B = tokens.shape[0]
     pos = state.pos
     dev = tokens.device
     lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     enc_lengths = torch.full((B,), state.enc_out.shape[1],
                              dtype=torch.int32, device=dev)
-    x = params["embed"][tokens.long()[:, None]] \
+    x = L.embed_tokens(cfg, params, tokens[:, None]) \
         + params["dec_pos"][pos % DEC_POS_ROWS][None, None]
     for i in range(cfg.num_layers):
         x, _ = _dec_block(cfg, _layer(params["dec_blocks"], i), x,
                           state.enc_out, (state.k[i], state.v[i], pos,
                                           lengths, enc_lengths))
     state.pos = pos + 1
-    return _head(params, x)[:, 0], state
+    return _head(cfg, params, x)[:, 0], state

@@ -343,7 +343,7 @@ class _Backend:
             raise NotImplementedError(
                 "the engine under a data axis of more than one rank: its "
                 "slots are one replica's; data-parallel serving comes with "
-                "a later slice of the mesh port (ROADMAP, Queue 1, item 4)")
+                "a later slice of the mesh port (ROADMAP, Queue 1, item 2)")
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = params["embed"].device
         self.graph: DecodeGraph | None = None   # the card's fused horizon
@@ -433,7 +433,7 @@ class PagedTransformerBackend(_PagedBackend):
     patch embeddings ride along as extras), prefix sharing with
     copy-on-write for the dense family only.
 
-    Under a mesh (the dense family, tensor parallel) every rank runs the
+    Under a mesh (tensor parallel) every rank runs the
     engine's same host schedule: its pools hold its own cache heads (the
     KV heads expanded by ``layers.serve_kv_expand`` and split over the
     model axis), ``page_bytes`` counts those, and the model's paged
@@ -444,14 +444,12 @@ class PagedTransformerBackend(_PagedBackend):
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
         super().__init__(cfg, params, ecfg)
-        tp = L.tp_size()
-        self.kv_expand = L.serve_kv_expand(cfg, tp)
-        heads = cfg.num_kv_heads * self.kv_expand // tp
-        self.page_bytes = ecfg.pager.page_bytes(cfg) * heads \
-            // cfg.num_kv_heads
+        self.kv_expand = L.serve_kv_expand(cfg, L.tp_size())
         self.state = T.init_paged_decode_state(
             cfg, ecfg.num_pages, ecfg.page_size, device=self.device,
-            kv_heads=heads)
+            kv_expand=self.kv_expand)
+        self.page_bytes = ecfg.pager.page_bytes(cfg) \
+            * self.state.k_pages.shape[1] // cfg.num_kv_heads
         # vlm stays out: M-RoPE position triples and per-request patch
         # embeds make "same token ids" insufficient for "same KV"
         self.prefix_sharing = cfg.family == "dense"
@@ -576,7 +574,10 @@ class RecurrentBackend(_Backend):
     and the next admission overwrites it. The fused horizon is the same
     ``DecodeGraph`` over a dummy (B, 1) page table, the reference's; its
     step updates the state's tensors in place, whose addresses the graph
-    holds."""
+    holds. Under a mesh (tensor parallel) every rank runs the same host
+    schedule on its part of each slot's state (its heads' WKV matrices,
+    its D slice of the registers), which ``slot_state_bytes`` counts, and
+    samples from the whole vocabulary's logits."""
 
     paged = False
 
@@ -598,12 +599,14 @@ class RecurrentBackend(_Backend):
         for name in ("att_prev", "ffn_prev", "wkv"):
             getattr(self.state, name)[:, slot].copy_(
                 getattr(single, name)[:, 0])
-        return _host(logits[0])
+        return _host(L.whole_vocab(logits[0], self.cfg.vocab_size))
 
     def decode_step(self, tokens, page_table, lengths, active):
         """One step of every slot (inactive ones feed token 0); returns
-        logits (B, V)."""
-        return R.decode_step(self.cfg, self.params, self.state, tokens)[0]
+        logits (B, V), the whole vocabulary's."""
+        return L.whole_vocab(
+            R.decode_step(self.cfg, self.params, self.state, tokens)[0],
+            self.cfg.vocab_size)
 
     def decode_fused(self, pending, lengths, remaining, page_table, mask,
                      h: int, teacher=None):
@@ -630,7 +633,11 @@ class HybridBackend(_PagedBackend):
     bounded page count (only its last window of KV is paged). Inactive
     slots freeze their recurrent state; the fused horizon clamps at page
     boundaries, which are the ring's wrap points, so the table is constant
-    inside a graph replay."""
+    inside a graph replay. Under a mesh (tensor parallel) every rank runs
+    the same host schedule: its pools hold its cache heads (the KV head
+    expanded by ``layers.serve_kv_expand`` and split over the model
+    axis), its recurrent state its channels, and the model's paged
+    functions return the whole vocabulary's logits."""
 
     model = G
 
@@ -652,11 +659,12 @@ class HybridBackend(_PagedBackend):
                 f"but max_pages_per_seq={ecfg.max_pages_per_seq} and "
                 f"the pool holds {ecfg.num_pages - 1} usable pages")
         _, n_attn = G._state_counts(cfg)
-        self.page_bytes = (2 * n_attn * ecfg.page_size * cfg.num_kv_heads
-                           * cfg.head_dim * 2)
+        self.kv_expand = L.serve_kv_expand(cfg, L.tp_size())
         self.state = G.init_paged_decode_state(
             cfg, ecfg.num_slots, ecfg.num_pages, ecfg.page_size,
-            device=self.device)
+            device=self.device, kv_expand=self.kv_expand)
+        self.page_bytes = (2 * n_attn * ecfg.page_size
+                           * self.state.k_pages.shape[1] * cfg.head_dim * 2)
         # constant per-slot recurrence bytes, reported beside the paged
         # window, as the static path's state holds the same conv/h arrays
         self.slot_state_bytes = _state_bytes((self.state.conv, self.state.h))
@@ -690,7 +698,7 @@ class HybridBackend(_PagedBackend):
                                     first_page=n_lo)
         last, (k, v), conv, h = G.paged_prefill(
             self.cfg, self.params, {"tokens": self._tensor(toks)},
-            self._tensor([len(ctx)]))
+            self._tensor([len(ctx)]), kv_expand=self.kv_expand)
         G.write_prefill_state(self.cfg, self.state, (k[:, 0], v[:, 0]),
                               conv, h, self._tensor(pids), slot)
         return _host(last[0])
@@ -2007,7 +2015,7 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
             for k in extra_keys})
         t0 = time.monotonic()
         logits, state = api.prefill(cfg, params, batch, cache_len)
-        toks0 = sample_batch(_host(L.tp_all_gather(logits, -1)))
+        toks0 = sample_batch(_host(L.whole_vocab(logits, cfg.vocab_size)))
         rep.prefill_wall_s += time.monotonic() - t0
         for b, r in enumerate(group):
             r.admitted_step = step
@@ -2021,7 +2029,7 @@ def run_static(cfg, params, requests: list[Request], *, num_slots: int = 8,
                                   dtype=torch.int32, device=dev)
             t0 = time.monotonic()
             logits, state = api.decode_step(cfg, params, state, tok)
-            logits = _host(L.tp_all_gather(logits, -1))
+            logits = _host(L.whole_vocab(logits, cfg.vocab_size))
             _charge_wall(rep, dispatched, ("static", cache_len, len(group)),
                          time.monotonic() - t0)
             rep.decode_steps += 1

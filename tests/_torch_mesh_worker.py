@@ -5,21 +5,33 @@
 
 Joins the process group through the file store STORE (a 60 s timeout),
 builds the mesh the job names (its shape over ``axes``, by default
-(data, model)), runs each arch's tasks (on its reduced config) with the
-mesh installed and writes its results by arch to OUT.RANK
-(``torch.save``). Serving tasks run without grad:
-  ("draw", seed)   this rank's slices of ``transformer.init_params``;
-  ("static", params, tokens, teacher, cache_len)
+(data, model)), runs each arch's tasks (on its reduced config, through
+its family's model) with the mesh installed and writes its results by
+arch to OUT.RANK (``torch.save``). Serving tasks run without grad:
+  ("draw", seed)   this rank's slices of the model's ``init_params``;
+  ("static", params, tokens, teacher, cache_len[, opts])
                    the whole params sharded by ``param_pspecs``, the
                    batch's rows by its spec; the prefill's and each
                    decode step's logits gathered over the vocabulary and
-                   the data axes, decoding the ``teacher`` tokens;
+                   the data axes, decoding the ``teacher`` tokens. opts:
+                   "extras" (the batch's frames or patch embeddings,
+                   whole), "f32" (the port's compute dtypes f32 for the
+                   task, the params f32), "name" (the result's key,
+                   default "static") and "state" (the decode state after
+                   the last step, each leaf gathered whole over the axes
+                   ``state_pspecs`` splits it on);
   ("engine", params, trace, ecfg)
                    the engine's report on the trace with the sharded
                    params;
   ("refuse", argvs)
                    ``launch.serve.serve`` of each argv on the mesh: the
-                   message of the NotImplementedError it raises, or None.
+                   message of the NotImplementedError it raises, or None;
+  ("sample", argv, opts)
+                   ``launch.serve``'s static mode of argv on the mesh:
+                   this rank's ``init_params`` draw, then the tokens of
+                   ``static_decode`` (opts "f32" as the static task's).
+An arch's key may name a config of its own: job["configs"][key] is
+(arch, fields of its reduced config to replace).
 Training tasks (``run_train``), each with a case dict (its results
 stored under its "name"): the reference's
 master params (numpy), the batches (numpy, global), "f32" (both
@@ -52,7 +64,9 @@ the one-rank port; the others wait at a barrier):
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import sys
 import weakref
 from datetime import timedelta
@@ -74,14 +88,15 @@ def main(rank: int, world: int, store: str, job_path: str, out: str):
     mesh = make_mesh(job["mesh"], job.get("axes", ("data", "model")),
                      device="cpu")
     out_all = {"coords": dict(mesh.coords)}
-    for arch, tasks in job["archs"].items():
-        cfg = get_config(arch).reduced()
+    for key, tasks in job["archs"].items():
+        arch, fields = job.get("configs", {}).get(key, (key, {}))
+        cfg = dataclasses.replace(get_config(arch).reduced(), **fields)
         serving = [t for t in tasks if t[0] not in TRAIN_TASKS]
         with installed(mesh), torch.no_grad():
-            out_all[arch] = run(cfg, serving, mesh)
+            out_all[key] = run(cfg, serving, mesh)
         for task in tasks:
             if task[0] in TRAIN_TASKS:
-                out_all[arch][task[1]["name"]] = run_train(cfg, task, mesh)
+                out_all[key][task[1]["name"]] = run_train(cfg, task, mesh)
     torch.save(out_all, f"{out}.{rank}")
     dist.barrier()
     mesh.close()
@@ -90,39 +105,30 @@ def main(rank: int, world: int, store: str, job_path: str, out: str):
 
 def run(cfg, tasks, mesh) -> dict:
     from repro_torch.launch import sharding as sh
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.runtime import Engine, EngineConfig
 
-    specs = sh.param_pspecs(T.init_params(cfg, device="meta"), mesh)
+    api = get_model(cfg)
+    specs = sh.param_pspecs(api.init_params(cfg, device="meta"), mesh)
     results = {}
     for task in tasks:
         kind = task[0]
         if kind == "draw":
-            results["draw"] = T.init_params(
+            results["draw"] = api.init_params(
                 cfg, task[1], device="cpu",
                 local=sh.local_init(specs, mesh))
         elif kind == "static":
-            _, params, tokens, teacher, cache_len = task
-            params = sh.shard_tree(params, specs, mesh)
-            rows = sh.P(sh.batch_dim_spec(tokens.shape[0], mesh))
-            e = L.serve_kv_expand(cfg, mesh.shape["model"])
-
-            def full(logits):
-                return L.dp_all_gather(L.tp_all_gather(logits, -1), 0)
-            logits, state = T.prefill(
-                cfg, params, {"tokens": sh.local_slice(tokens, rows,
-                                                       mesh)},
-                cache_len, kv_expand=e)
-            steps = [full(logits)]
-            for j in range(teacher.shape[1]):
-                logits, state = T.decode_step(
-                    cfg, params, state,
-                    sh.local_slice(teacher[:, j], rows, mesh))
-                steps.append(full(logits))
-            results["static"] = {"logits": torch.stack(steps),
-                                 "cache_heads": state.k.shape[3],
-                                 "cache_rows": state.k.shape[1]}
+            opts = task[5] if len(task) > 5 else {}
+            with compute_dtype(opts.get("f32")):
+                results[opts.get("name", "static")] = _static(
+                    cfg, api, specs, mesh, *task[1:5], opts)
+        elif kind == "sample":
+            from repro_torch.launch import serve
+            _, argv, opts = task
+            args = serve.parse_args(argv)
+            with compute_dtype(opts.get("f32")):
+                results["sample"] = serve.static_decode(
+                    cfg, serve.init_params(cfg, args, mesh), args, mesh)[0]
         elif kind == "engine":
             _, params, trace, ecfg = task
             results["engine"] = Engine(
@@ -138,6 +144,43 @@ def run(cfg, tasks, mesh) -> dict:
                 except NotImplementedError as e:
                     results["refuse"].append(str(e))
     return results
+
+
+def _static(cfg, api, specs, mesh, params, tokens, teacher, cache_len,
+            opts) -> dict:
+    """The "static" task: prefill and teacher-forced decode steps on the
+    rank's slices and rows."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import layers as L
+    params = sh.shard_tree(params, specs, mesh)
+    rows = sh.P(sh.batch_dim_spec(tokens.shape[0], mesh))
+    e = L.serve_kv_expand(cfg, mesh.shape["model"])
+
+    def full(logits):
+        return L.dp_all_gather(L.whole_vocab(logits, cfg.vocab_size), 0)
+    batch = {"tokens": tokens, **opts.get("extras", {})}
+    logits, state = api.prefill(
+        cfg, params, {k: sh.local_slice(torch.as_tensor(v), rows, mesh)
+                      for k, v in batch.items()}, cache_len, kv_expand=e)
+    steps = [full(logits)]
+    for j in range(teacher.shape[1]):
+        logits, state = api.decode_step(
+            cfg, params, state, sh.local_slice(teacher[:, j], rows, mesh))
+        steps.append(full(logits))
+    out = {"logits": torch.stack(steps)}
+    if hasattr(state, "k"):
+        out.update(cache_heads=state.k.shape[3], cache_rows=state.k.shape[1])
+    if opts.get("state"):
+        token = L.set_shard_ctx(None, None)     # the whole state's shapes
+        try:
+            whole = api.init_decode_state(cfg, tokens.shape[0], cache_len,
+                                          kv_expand=e, device="meta")
+        finally:
+            L.reset_shard_ctx(token)
+        st_specs = sh.state_pspecs(whole, mesh)
+        out["state"] = sh.tree_map(lambda path, leaf: sh.gather_leaf(
+            leaf, sh.leaf_at(st_specs, path), mesh), state)
+    return out
 
 
 TRAIN_TASKS = ("train", "ckpt", "fault", "entry", "refuse_train")
@@ -162,32 +205,33 @@ def run_train(cfg, task, mesh):
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.launch import train
 
-        def twice():
-            with installed(mesh):
-                return [train.train(train.parse_args(case["argv"]), mesh)
-                        for _ in range(2)]
-        losses = _with_dtype(case, twice)
+        with installed(mesh), compute_dtype(case.get("f32")):
+            losses = [train.train(train.parse_args(case["argv"]), mesh)
+                      for _ in range(2)]
         return {"losses": losses,
                 "steps": CheckpointManager(case["dir"]).steps()}
     if case.get("solo"):
         out = None
         if mesh.coords == dict.fromkeys(mesh.coords, 0):
-            out = _with_dtype(case, lambda: _train(cfg, kind, case, None))
+            with compute_dtype(case.get("f32")):
+                out = _train(cfg, kind, case, None)
         dist.barrier()
         return out
-    with installed(mesh):
-        return _with_dtype(case, lambda: _train(cfg, kind, case, mesh))
+    with installed(mesh), compute_dtype(case.get("f32")):
+        return _train(cfg, kind, case, mesh)
 
 
-def _with_dtype(case, fn):
-    """``fn()`` with the port's compute dtype f32 where case["f32"]."""
+@contextlib.contextmanager
+def compute_dtype(f32):
+    """The port's compute dtypes (``layers`` and ``convert``) f32 inside,
+    where ``f32`` is true; restored after."""
     import repro_torch.convert as CV
     import repro_torch.models.layers as TL
     saved = TL.COMPUTE_DTYPE, CV.COMPUTE_DTYPE
-    if case.get("f32"):
+    if f32:
         TL.COMPUTE_DTYPE = CV.COMPUTE_DTYPE = torch.float32
     try:
-        return fn()
+        yield
     finally:
         TL.COMPUTE_DTYPE, CV.COMPUTE_DTYPE = saved
 
