@@ -53,7 +53,9 @@ into build/repro_torch/), then:
       bf16 at 200), and each activation on a small layout; times each against its bound and, where one
       PyTorch call computes the same function, that call (at codeqwen
       ``torch.matmul`` over the dense plane, and the per-matrix cuBLAS
-      loop beside it);
+      loop beside it); each case runs the kernel twice and the plain
+      version twice on the same inputs and prints whether each side's
+      bits repeat, and a digest of each side's first output;
   (d2) runs the packing entry point ``repro_torch.launch.pack`` on the
       card (the paper's case studies, the canvas rows and end-to-end
       passes through all four packed-canvas kernels) and its check(),
@@ -201,6 +203,15 @@ into build/repro_torch/), then:
       --mesh host`` trains rwkv6-7b at full width cut to 2 layers for 3
       steps of B 8 x 512, and its step-1 loss must equal the same cut
       run's without a mesh (``build_config``) bit for bit;
+  (p) the mesh slice of the MoE family (expert-parallel experts,
+      head-parallel MLA, group-local dispatch) the same way: olmoe-1b-7b
+      static (B 4 x 512 + 128: 16 flash launches at its prefill, 16
+      dense decode a step, 48 grouped products a step and at the
+      prefill) and deepseek-v2-lite-16b on the engine (4 slots, prompts
+      256-512, generations 32-128: 81 grouped products a decode step and
+      a prefill), each at full width and depth, the card freed between
+      them, each against its unsharded twin bit for bit, tokens/s beside
+      the card's name and power limit;
   (l0) holds the flash backward (the row-dot pre-pass, the dK/dV kernel
       and the dQ kernel) against its plain versions on the card, each
       launch on the same inputs and the whole against autograd through
@@ -900,8 +911,13 @@ def canvas_case(torch, ops, ref, label, x, w, meta, *, precision=None,
     run = runner(ops)
     got = run()
     want = run("ref")
+    again, plain_again = run(), run("ref")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all(), f"{label}: non-finite output"
+    repeats = (torch.equal(got, again), torch.equal(want, plain_again))
+    print(f"  {label}: bits repeat: kernel {repeats[0]}, plain "
+          f"{repeats[1]}; digests kernel {digest(torch, got)} plain "
+          f"{digest(torch, want)}", flush=True)
     tol = tol or (TOL if x.dtype == torch.bfloat16 else TOL_F32)
     err = compare(torch, got, want, label, tol)
     # device times: the host's enqueue of a launch (tensor maps, plan
@@ -926,7 +942,14 @@ def canvas_case(torch, ops, ref, label, x, w, meta, *, precision=None,
           f"{plain:.4f} ms  library {lib_txt}  bound {b_ms:.4f} ms "
           f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, max_abs_err=err)
+                library_ms=lib, max_abs_err=err, repeats=repeats)
+
+
+def digest(torch, t) -> str:
+    """A short digest of ``t``'s bits, to compare outputs across calls."""
+    import hashlib
+    return hashlib.sha1(t.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes()).hexdigest()[:12]
 
 
 # (d1)'s batches on the codeqwen layer: decode (1, 8), a batch off every
@@ -1048,6 +1071,11 @@ def phase_canvas(torch, ops, ref, pack, WM, pack_canvas, get_config,
             torch, ops, ref, f"int8 epilogue {act} rwkv6 mixers B=8", xp, q8,
             meta, precision="int8", scales=s8, bias=bias, activation=act))
 
+    repeats = [r.pop("repeats") for rs in rec.values() for r in rs]
+    moved = [sum(not r[i] for r in repeats) for i in (0, 1)]
+    print(f"  (d1) bits repeat within the call: the kernel's moved in "
+          f"{moved[0]} of {len(repeats)} cases, the plain version's in "
+          f"{moved[1]}", flush=True)
     out = []
     for (key, name, replaces), counter in zip((
             ("fp", "packed_canvas_matmul",
@@ -2784,28 +2812,46 @@ def recording(serve, api, rec: _Recorded):
     return undo
 
 
-def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
-                      smi: str) -> dict:
-    """(o) the mesh slice of the vlm, ssm, hybrid and encoder-decoder
-    families on one card: ``launch.serve.main --mesh host --full`` (a
-    1x1 DeviceMesh on nccl) serves qwen2-vl-7b, rwkv6-7b and
-    recurrentgemma-9b through the engine and whisper-tiny static, 4
-    greedy requests each, every kernel counter zeroed just before and
-    read just after (the families' own launches: qwen2-vl's paged decode
-    a layer a step and flash a layer a prefill, whisper's dense decode
-    twice a layer a step and flash at its prefill, none for rwkv6 and
-    recurrentgemma); the same params and prompts through the unsharded
-    path (no mesh installed) must give the same tokens bit for bit, as
-    every collective at 1x1 is the identity. (o') ``launch.train.main
-    --mesh host`` on rwkv6-7b at full width cut to 2 layers, 3 steps:
-    its step-1 loss must equal the cut run's without a mesh
-    (``build_config``) bit for bit. Returns the launch counts by
-    kernel."""
-    print("== (o) launch.serve --mesh host, the vlm, ssm, hybrid and "
-          "encdec families at full width", flush=True)
+def mesh_launches(cfg, mode: str, rep=None, steps: int = 0) -> dict:
+    """The kernel launches a ``serve.main --mesh host`` run of ``cfg``
+    makes: an engine run's from its report ``rep`` (qwen2-vl's paged
+    decode a layer a step and flash a layer a prefill; deepseek's three
+    grouped products a layer a step and a prefill; none for rwkv6 and
+    recurrentgemma), a static run's from its ``steps`` decode steps
+    (whisper's dense decode twice a layer a step and flash at its
+    encoder and prefill; olmoe's dense decode a layer a step, flash a
+    layer at its prefill and three grouped products a layer a step and
+    at the prefill)."""
+    Lc = cfg.num_layers
+    if mode == "engine":
+        if cfg.family == "vlm":
+            return {"paged_decode_attention": Lc * rep.decode_steps,
+                    "flash_attention": Lc * rep.prefill_calls}
+        if cfg.family == "moe":
+            return {"grouped_mvm": 3 * Lc * (rep.decode_steps
+                                             + rep.prefill_calls)}
+        return {}
+    if cfg.family == "encdec":
+        return {"decode_attention": 2 * Lc * steps,
+                "flash_attention": cfg.encoder.num_layers + 2 * Lc}
+    return {"decode_attention": Lc * steps, "flash_attention": Lc,
+            "grouped_mvm": 3 * Lc * (steps + 1)}
+
+
+def serve_mesh_runs(torch, serve, rt, ops, get_config, get_model, smi: str,
+                    runs) -> dict:
+    """``launch.serve.main --mesh host --full`` (a 1x1 DeviceMesh on
+    nccl) of each (arch, mode, prompt, gen) of ``runs``, 4 greedy
+    requests and 4 slots (4 rows) each, every kernel counter zeroed just
+    before and read just after and held to ``mesh_launches``; the same
+    params and prompts through the unsharded path (no mesh installed)
+    must give the same tokens bit for bit, as every collective at 1x1 is
+    the identity. Prints decode tokens/s beside the card's name and
+    power limit; frees the card after each arch. Returns the launch
+    counts by kernel."""
     counters = ops.launch_counters()
     launches = {c.__name__: 0 for c in counters}
-    for arch, mode, prompt, gen in FAMILY_MESH:
+    for arch, mode, prompt, gen in runs:
         argv = family_argv(arch, mode, prompt, gen)
         args = serve.parse_args(argv)
         cfg = get_config(arch)
@@ -2830,11 +2876,7 @@ def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
                   f"included), {summary['new_tokens']} tokens in "
                   f"{summary['decode_steps']} decode steps, decode "
                   f"tokens/s {summary['tokens_per_s']}; {smi}", flush=True)
-            want = {}
-            if cfg.family == "vlm":
-                want = {"paged_decode_attention":
-                        cfg.num_layers * rep.decode_steps,
-                        "flash_attention": cfg.num_layers * rep.prefill_calls}
+            want = mesh_launches(cfg, mode, rep=rep)
             ecfg, trace = serve.engine_setup(cfg, args)
             twin = rt.Engine(cfg, rec.params, rec.ecfg).run(trace)
             got = {r.rid: r.generated for r in rep.completed}
@@ -2853,10 +2895,10 @@ def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
                   flush=True)
             for line in out:
                 if line.startswith("prefill:"):
-                    print(f"  {line}", flush=True)
-            want = {"decode_attention": 2 * cfg.num_layers * steps,
-                    "flash_attention": cfg.encoder.num_layers
-                    + 2 * cfg.num_layers}
+                    ms = float(line.split("decode:")[1].split("ms")[0])
+                    print(f"  {line}: decode tokens/s "
+                          f"{args.batch * 1e3 / ms:.1f}; {smi}", flush=True)
+            want = mesh_launches(cfg, mode, steps=steps)
             twin = _Recorded()
             undo = recording(serve, api, twin)
             try:
@@ -2873,8 +2915,45 @@ def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
             launches[k] += n
         del rec, twin
         free_card(torch)
+    return launches
+
+
+def phase_family_mesh(torch, serve, train, rt, ops, get_config, get_model,
+                      smi: str) -> dict:
+    """(o) the mesh slice of the vlm, ssm, hybrid and encoder-decoder
+    families on one card (``serve_mesh_runs``): qwen2-vl-7b, rwkv6-7b
+    and recurrentgemma-9b through the engine and whisper-tiny static.
+    (o') ``launch.train.main --mesh host`` on rwkv6-7b at full width cut
+    to 2 layers, 3 steps: its step-1 loss must equal the cut run's
+    without a mesh (``build_config``) bit for bit. Returns the launch
+    counts by kernel."""
+    print("== (o) launch.serve --mesh host, the vlm, ssm, hybrid and "
+          "encdec families at full width", flush=True)
+    launches = serve_mesh_runs(torch, serve, rt, ops, get_config, get_model,
+                               smi, FAMILY_MESH)
     family_train(torch, train, get_config, smi)
     return launches
+
+
+# (p)'s runs: olmoe static at B 4 x 512 + 128, deepseek on the engine
+# (4 slots, prompts 256-512, generations 32-128)
+MOE_MESH = [("olmoe-1b-7b", "static", 512, 128),
+            ("deepseek-v2-lite-16b", "engine", 512, 128)]
+
+
+def phase_moe_mesh(torch, serve, rt, ops, get_config, get_model,
+                   smi: str) -> dict:
+    """(p) the mesh slice of the MoE family (expert-parallel experts,
+    head-parallel MLA, group-local dispatch; identities at 1x1) on one
+    card at full width and depth (``serve_mesh_runs``): olmoe-1b-7b
+    static (row 2's flash at its prefill, row 8's dense decode and row
+    7's grouped products) and deepseek-v2-lite-16b on the engine (row 7),
+    each against its unsharded twin bit for bit. Returns the launch
+    counts by kernel."""
+    print("== (p) launch.serve --mesh host, the MoE family at full width "
+          "and depth", flush=True)
+    return serve_mesh_runs(torch, serve, rt, ops, get_config, get_model,
+                           smi, MOE_MESH)
 
 
 def family_train(torch, train, get_config, smi: str) -> None:
@@ -3870,6 +3949,13 @@ def main(argv=None) -> int:
                                       get_config, get_model, smi)
     print(f"  launches in (o): {family_counts}", flush=True)
     lap("(o)")
+    moe_counts = phase_moe_mesh(torch, serve, rt, ops, get_config,
+                                get_model, smi)
+    print(f"  launches in (p): flash_attention (row 2) "
+          f"{moe_counts['flash_attention']}, grouped_mvm (row 7) "
+          f"{moe_counts['grouped_mvm']}, decode_attention (row 8) "
+          f"{moe_counts['decode_attention']}", flush=True)
+    lap("(p)")
 
     bwd = phase_flash_bwd(torch, fa, ref, parent)
     lap("(l0)")

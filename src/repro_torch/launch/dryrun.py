@@ -30,8 +30,10 @@ blocks run theirs again) and the backward, the FSDP gathers and
 reduce-scatters, and the gradients' and scalars' all-reduces over the
 data axes. A cell the slice does not run is written with ``ok: false``
 and the reason, as the reference writes a failing cell: the MoE family's
-(train cells included), and the cells whose split cuts a head
-(qwen2-vl-7b's 28 heads and whisper-tiny's 6 over 16 model ranks).
+train cells (its serving cells run: expert parallelism, head-parallel
+MLA, group-local dispatch), and the cells whose split cuts a head
+(qwen2-vl-7b's 28 heads and whisper-tiny's 6 over 16 model ranks). A
+decode cell is one token against a cache whose last row it writes.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -43,6 +45,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       --arch qwen2-vl-7b,rwkv6-7b,recurrentgemma-9b,whisper-tiny \\
       --shape all --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch olmoe-1b-7b,deepseek-v2-lite-16b \\
+      --shape prefill_32k,decode_32k --mesh both
 """
 
 from __future__ import annotations

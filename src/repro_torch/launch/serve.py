@@ -56,14 +56,16 @@ bf16 weights and does not fit one H100, so name a smaller ``--zoo``.
 fleet, one rank's zoo, without one); ``--mesh pod``
 builds the reference's (16, 16) data x model mesh, which needs a world of
 256 ranks (``torchrun``; a world of another size raises). Under a mesh of
-more than one rank the dense, vlm, ssm, hybrid and encoder-decoder
-families serve tensor parallel (``--mode static|engine|auto``): every
+more than one rank every family serves tensor parallel (``--mode
+static|engine|auto``; the MoE family with expert-parallel experts,
+head-parallel MLA and group-local dispatch over the data axes): every
 rank draws the params layer by layer from ``--seed`` and keeps only its
 slices (``param_pspecs``), runs the same host schedule and samples from
 logits gathered over the vocabulary's split, so every rank picks the
-same tokens; the static batch is split over the data axes, the engine
-needs data axes of one rank. Pool and fleet, the MoE family and a split
-that cuts a head raise there. Rank 0 prints.
+same tokens; the static batch is split over the data axes (its caches'
+KV heads expanded as ``serve_kv_expand`` says), the engine needs data
+axes of one rank. Pool and fleet and a split that cuts a head raise
+there. Rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --full
@@ -214,7 +216,9 @@ def static_decode(cfg, params, args, mesh=None):
 
     sync()
     t0 = time.monotonic()
-    logits, state = api.prefill(cfg, params, batch, cache_len)
+    logits, state = api.prefill(cfg, params, batch, cache_len,
+                                kv_expand=L.serve_kv_expand(cfg,
+                                                            L.tp_size()))
     sync()
     t_prefill = time.monotonic() - t0
 
@@ -458,13 +462,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def init_params(cfg, args, mesh=None):
     """Random weights from ``--seed`` on ``--device``; under a mesh of
     more than one rank only this rank's slices of the params
-    (``param_pspecs``; every family but MoE), drawn one matrix or layer at
-    a time: no rank holds the whole model, and each slice equals the
-    one-rank draw's."""
+    (``param_pspecs``), drawn one matrix or layer at a time: no rank
+    holds the whole model, and each slice equals the one-rank draw's."""
     api = get_model(cfg)
     if mesh is None or mesh.size == 1:
         return api.init_params(cfg, args.seed, device=args.device)
-    L.single_rank_family(cfg)
     specs = sh.param_pspecs(api.init_params(cfg, device="meta"), mesh)
     return api.init_params(cfg, args.seed, device=args.device,
                            local=sh.local_init(specs, mesh))
@@ -499,7 +501,7 @@ def serve(args, mesh):
             raise NotImplementedError(
                 f"--mode {args.mode} under a mesh of {mesh.size} ranks: the "
                 f"pool and the fleet are sharded in a later slice of the "
-                f"mesh port (ROADMAP, Queue 1, item 2)")
+                f"mesh port (ROADMAP, Queue 1, item 2.3)")
         return run_pool(args) if args.mode == "pool" else run_fleet(args)
     cfg = get_config(args.arch)
     if not args.full:

@@ -26,8 +26,8 @@ counted, not run), and returns what the dry run records (local argument
 and output bytes, FLOPs, a peak of live tensor bytes, collective bytes
 by kind). A train cell's trace runs the forward, the backward (each
 remat block's forward again, its collectives with it) and AdamW. Every
-family's cells run but the MoE family's and those whose split cuts a
-head, which raise.
+family's cells run but the MoE family's train cells and those whose
+split cuts a head, which raise.
 """
 
 from __future__ import annotations
@@ -276,9 +276,13 @@ def abstract_cell(cfg: ModelConfig, shape_name: str, mesh, *,
                     (_logits_spec(out[0].shape, mesh),
                      sh.state_pspecs(out[1], mesh)), out)
 
-    # decode: one token against a seq_len cache
+    # decode: one token against a seq_len cache, written at its last row
+    # (a state's position, where it has one), so that a step that attends
+    # its cache's prefix alone (MLA's) attends the whole of it
     state_s = api.init_decode_state(cfg, B, shape.seq_len, kv_expand=kv_e,
                                     device="meta")
+    if hasattr(state_s, "pos"):
+        state_s = dataclasses.replace(state_s, pos=shape.seq_len - 1)
     tok_s = torch.empty((B,), dtype=torch.int32, device="meta")
     step = make_serve_step(cfg)
     out = step(params_s, dataclasses.replace(state_s), tok_s)
@@ -397,7 +401,8 @@ def lower_cell(cell: Cell, mesh) -> Lowered:
     args = tuple(local(a, s) for a, s in zip(cell.args, cell.in_pspecs))
     dry = DryMesh(tuple(mesh.shape.values()), mesh.axis_names)
     with installed(dry):
-        L.single_rank_family(cell.cfg)
+        if cell.kind == "train":
+            L.single_rank_family(cell.cfg)
         with FlopCounterMode(display=False) as fc, \
                 LiveBytes(_tensors(args)) as live:
             out = cell.step_fn(*args)

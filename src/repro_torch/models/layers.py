@@ -3,7 +3,8 @@ the one-hot MoE oracle ``moe_router`` / ``moe_ffn_dense``: dense, vlm,
 MoE, ssm and encoder-decoder serving, training: the loss, the MoE
 load-balance loss, remat; and the shard context with the collectives
 that tensor-parallel serving and training call, the vocabulary-parallel
-loss among them), in PyTorch.
+loss among them, and the MoE dispatch's data-parallel groups and expert
+parallelism), in PyTorch.
 
 Conventions kept from the reference: compute in bf16, norms and biases
 in f32 at use, logits in f32; shapes polymorphic over batch and sequence.
@@ -79,15 +80,41 @@ def tp_rank() -> int:
 
 
 def single_rank_family(cfg) -> None:
-    """Every family but MoE is sharded: a MoE model (expert parallelism
-    over ``_MOE_EP``, head-parallel MLA over ``_HEAD_EP``) under a mesh
-    of more than one rank raises."""
+    """Every family but MoE trains sharded; the MoE family serves sharded
+    (expert-parallel experts, head-parallel MLA) but trains on one rank:
+    a MoE training step under a mesh of more than one rank raises (its
+    gradients through the expert-parallel all-reduce and the
+    load-balance loss under groups come with a later slice)."""
     ctx = _SHARD_CTX.get()
     if ctx and ctx["tp_size"] * ctx["dp_size"] > 1 and cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not sharded yet; its "
-            f"expert parallelism comes with a later slice of the mesh port "
-            f"(ROADMAP, Queue 1, item 2)")
+            f"{cfg.name}: the {cfg.family} family trains on one rank only; "
+            f"its sharded training comes with a later slice of the mesh "
+            f"port (ROADMAP, Queue 1, item 2.1, the training half)")
+
+
+def global_tokens(n: int) -> int:
+    """The tokens of the whole batch of which this rank holds ``n``: n
+    times the data-parallel ranks under an installed mesh (each holds its
+    rows of the batch, split over the data axes), n without one."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx["mesh"] is None:
+        return n
+    return n * int(ctx["dp_size"])
+
+
+def dp_rank() -> int:
+    """This rank's index over the data-parallel axes, the outermost
+    major (the order ``dp_all_gather`` concatenates in); 0 without a
+    mesh and in a dry run."""
+    mesh = shard_mesh()
+    if mesh is None:
+        return 0
+    idx = 0
+    for a in mesh.axis_names:
+        if a in ("pod", "data"):
+            idx = idx * mesh.shape[a] + mesh.coords.get(a, 0)
+    return idx
 
 
 def _cuts_a_head(cfg, detail: str):
@@ -96,14 +123,14 @@ def _cuts_a_head(cfg, detail: str):
         f"({detail}); such cells wait for a later slice of the mesh port")
 
 
-def whole_heads(cfg, cols: int, what: str) -> int:
-    """The heads of head dim ``cfg.head_dim`` in ``cols`` columns of a
-    rank's slice of ``what``; raises where the model axis' split cuts a
-    head."""
-    if cols % cfg.head_dim:
-        _cuts_a_head(cfg, f"{what} {cols} columns a rank, dh "
-                          f"{cfg.head_dim}")
-    return cols // cfg.head_dim
+def whole_heads(cfg, cols: int, what: str, dh: int | None = None) -> int:
+    """The heads of head dim ``dh`` (``cfg.head_dim``) in ``cols`` columns
+    of a rank's slice of ``what``; raises where the model axis' split
+    cuts a head."""
+    dh = dh or cfg.head_dim
+    if cols % dh:
+        _cuts_a_head(cfg, f"{what} {cols} columns a rank, dh {dh}")
+    return cols // dh
 
 
 def rank_heads(cfg, q_cols: int, e: int) -> tuple[int, int]:
@@ -200,9 +227,10 @@ def tp_all_gather(x, dim: int = -1):
 
 def dp_all_gather(x, dim: int = 0):
     """Concatenate every data-parallel rank's ``x`` along ``dim``, the
-    outermost axis (pod) major, as the batch specs split it."""
+    outermost axis (pod) major, as the batch specs split it; ``x``
+    itself without a mesh, whose process holds every row."""
     ctx = _SHARD_CTX.get()
-    if ctx is None or ctx["dp_size"] == 1:
+    if ctx is None or ctx["dp_size"] == 1 or ctx["mesh"] is None:
         return x
     mesh = ctx["mesh"]
     return mesh.all_gather(x, dim, tuple(a for a in mesh.axis_names
@@ -442,7 +470,6 @@ def vocab_parallel_xent(logits_local, labels, *, z_loss=1e-4):
 def embed_tokens(cfg, params, tokens):
     """The embedding rows of ``tokens`` from params["embed"] (``embed_rows``;
     an FSDP slice gathered at the lookup)."""
-    single_rank_family(cfg)
     return embed_rows(fsdp_leaf(params["embed"], "embed"), tokens,
                       cfg.vocab_size)
 
@@ -866,12 +893,12 @@ def load_balance_loss(probs, gate_idx, num_experts: int):
 
 def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
             return_keep=False, return_aux=False):
-    """Sort/scatter dispatch -> grouped SwiGLU -> combine, on one device
-    (the reference's ``moe_ffn`` with one data-parallel group).
+    """Sort/scatter dispatch -> grouped SwiGLU -> combine: the reference's
+    ``moe_ffn``, its data-parallel groups and its expert parallelism.
 
     Top-k softmax routing over ``p["router"]`` (rounded weights, f32
     product); each (token, slot) claim takes the next queue position of
-    its expert in token order, and claims past ``dims.capacity`` drop.
+    its expert in token order, and claims past the capacity drop.
     ``keep_override`` ((N, k) bool) replays a recorded drop population:
     forced-drop claims never queue, forced-keep claims take positions
     counted over the forced-keep claims only. ``return_keep`` appends the
@@ -879,24 +906,79 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     ``load_balance_loss`` of this routing (training asks for it; serving
     does not, so its device work is unchanged).
 
+    Groups: with G = ``dp_group_count()`` > 1 the tokens dispatch within
+    G groups of N/G rows at capacity ``dims.capacity`` / G each, as the
+    reference's group-local dispatch does, unless the tokens or the
+    capacity do not divide into G (then one group, the reference's
+    fallback). Under an installed mesh ``x2d`` holds this data rank's
+    rows, which are its group, and ``dims`` are the whole batch's
+    (``global_tokens``); in the fallback every data rank dispatches the
+    whole batch, gathered over the data axes, and keeps its rows. Without
+    a mesh ``x2d`` holds every group's rows, one after the other.
+
+    Expert parallelism: where ``p``'s expert weights hold this rank's
+    slice of the experts (E / tp of them, split over the model axis),
+    every model rank routes the same tokens with the replicated router,
+    builds the (E / tp, C, D) batch of its own experts and combines its
+    experts' weighted outputs alone: the output is this rank's part of
+    the sum, which the caller sums over the model axis
+    (``tp_all_reduce``, with its other row-parallel parts).
+
     Every step stays on the device with no host read: expert counts come
     from a ``scatter_add_`` (``bincount`` would read its max back), the
     expert sort is a stable argsort, and each token's k weighted expert
     outputs are summed in ascending expert order in x's dtype — the
     reference's scatter-add order and rounding — instead of through
-    ``index_add_``'s atomics. The (E, C, D) expert batch runs through
+    ``index_add_``'s atomics. The expert batch runs through
     ``ops.moe_expert_ffn``, three grouped-GEMM launches, told each
     expert's kept claims (a ``scatter_add_`` of the keep mask): the kept
     claims of an expert fill rows 0 .. n - 1 of its batch, the rows past
     them are zeros and stay zeros through the SwiGLU, so the products
     skip them (and an expert with none) without changing the result.
     """
-    N, D = x2d.shape
+    N = x2d.shape[0]
     E, K, C = dims.num_experts, dims.top_k, dims.capacity
-    dev = x2d.device
+    G = dp_group_count()
+    local = G > 1 and shard_mesh() is not None     # x2d: one group's rows
+    if (N * G if local else N) % G or C % G:
+        G = 1
     probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
     gate_vals, gate_idx = torch.topk(probs, K, dim=-1)          # (N, K)
+    if G == 1 and local:
+        # the capacity is the whole batch's: dispatch it as one group
+        x_all = dp_all_gather(x2d, 0)
+        ko = None if keep_override is None else dp_all_gather(keep_override,
+                                                              0)
+        vals, idx = torch.topk(torch.softmax(
+            x_all.float() @ p["router"].float(), dim=-1), K, dim=-1)
+        y, keep_nk = _dispatch_ffn(x_all, p, E, C, vals, idx, ko)
+        rows = slice(dp_rank() * N, (dp_rank() + 1) * N)
+        y, keep_nk = y[rows], keep_nk[rows]
+    elif G == 1 or local:
+        y, keep_nk = _dispatch_ffn(x2d, p, E, C // G, gate_vals, gate_idx,
+                                   keep_override)
+    else:                               # every group's rows in this process
+        n = N // G
+        parts = [_dispatch_ffn(
+            x2d[g * n:(g + 1) * n], p, E, C // G,
+            gate_vals[g * n:(g + 1) * n], gate_idx[g * n:(g + 1) * n],
+            None if keep_override is None
+            else keep_override[g * n:(g + 1) * n]) for g in range(G)]
+        y = torch.cat([y for y, _ in parts])
+        keep_nk = torch.cat([k for _, k in parts])
+    out = (y, *((keep_nk,) if return_keep else ()),
+           *((load_balance_loss(probs, gate_idx, E),) if return_aux else ()))
+    return out if len(out) > 1 else y
 
+
+def _dispatch_ffn(x2d, p, E: int, C: int, gate_vals, gate_idx,
+                  keep_override):
+    """One group's dispatch at capacity ``C``, its experts' SwiGLU and the
+    combine (``moe_ffn``): (y (N, D), the keep mask (N, k)); y is this
+    rank's part where ``p`` holds a slice of the experts."""
+    N, D = x2d.shape
+    K = gate_idx.shape[1]
+    dev = x2d.device
     e_flat = gate_idx.reshape(N * K)
     t_flat = torch.arange(N * K, device=dev) // K
     order = torch.argsort(e_flat, stable=True)
@@ -918,16 +1000,24 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     # row e * C + pos of the flat (E * C + 1, D) batch; dropped claims go
     # to the trash row E * C, which the expert batch never sees
     row = torch.where(keep, e_sorted * C + pos, E * C)
-    inv = torch.argsort(order)
-    row_nk = row[inv].reshape(N, K)             # (token, slot) order
-    xe = _Dispatch.apply(x2d, t_flat[order], row, row_nk, E * C + 1)
     rows = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
         0, e_sorted, keep.to(torch.int32))
-    ye = ops.moe_expert_ffn(xe[:E * C].view(E, C, D), p["w_gate"],
-                            p["w_up"], p["w_down"], rows)       # (E, C, D)
+    El = p["w_gate"].shape[0]
+    if El != E:
+        # this rank's experts lo .. lo + El - 1 alone: the other claims go
+        # to the trash row, whose output reads zeros
+        lo = tp_rank() * El
+        mine = (row >= lo * C) & (row < (lo + El) * C)
+        row = torch.where(mine, row - lo * C, El * C)
+        rows = rows[lo:lo + El]
+    inv = torch.argsort(order)
+    row_nk = row[inv].reshape(N, K)             # (token, slot) order
+    xe = _Dispatch.apply(x2d, t_flat[order], row, row_nk, El * C + 1)
+    ye = ops.moe_expert_ffn(xe[:El * C].view(El, C, D), p["w_gate"],
+                            p["w_up"], p["w_down"], rows)       # (El, C, D)
     # back to (token, slot) order, then each token's slots by expert id
     keep_nk = keep[inv].reshape(N, K)
-    y_nk = _Combine.apply(ye.view(E * C, D), row_nk)
+    y_nk = _Combine.apply(ye.view(El * C, D), row_nk)
     w_nk = (gate_vals * keep_nk).to(x2d.dtype)
     by_expert = torch.argsort(gate_idx, dim=-1)
     contrib = torch.gather(y_nk * w_nk[..., None], 1,
@@ -935,9 +1025,7 @@ def moe_ffn(x2d, p, dims: MoEDims, *, keep_override=None,
     y = contrib[:, 0]
     for k in range(1, K):
         y = y + contrib[:, k]
-    out = (y, *((keep_nk,) if return_keep else ()),
-           *((load_balance_loss(probs, gate_idx, E),) if return_aux else ()))
-    return out if len(out) > 1 else y
+    return y, keep_nk
 
 
 def init_moe_params(cfg, d_model: int, gen, device):

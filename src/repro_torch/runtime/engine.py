@@ -343,7 +343,8 @@ class _Backend:
             raise NotImplementedError(
                 "the engine under a data axis of more than one rank: its "
                 "slots are one replica's; data-parallel serving comes with "
-                "a later slice of the mesh port (ROADMAP, Queue 1, item 2)")
+                "a later slice of the mesh port (ROADMAP, Queue 1, item "
+                "2.3)")
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = params["embed"].device
         self.graph: DecodeGraph | None = None   # the card's fused horizon
@@ -505,7 +506,14 @@ class LatentBackend(_PagedBackend):
     rope head), not per-head K/V, so ``page_bytes`` is latent-width. The
     table grows linearly as in the dense backend. Prompts prefill at the
     exact-length expert capacity, and the realized drop masks are kept
-    (``last_route_trace``) for replay after preemption."""
+    (``last_route_trace``) for replay after preemption.
+
+    Under a mesh (tensor parallel, data axes of one rank) every rank runs
+    the same host schedule: its pages hold its channels of the latent
+    row (``moe.cache_width``), which ``page_bytes`` counts, every rank
+    routes the same tokens to its own experts, so the recorded routes are
+    one rank's, and the model's paged functions return the whole
+    vocabulary's logits."""
 
     model = MoE
     routed = True
@@ -518,10 +526,10 @@ class LatentBackend(_PagedBackend):
         assert cfg.mla is not None, \
             "LatentBackend pages the MLA latent cache"
         super().__init__(cfg, params, ecfg)
-        self.page_bytes = (cfg.num_layers * ecfg.page_size
-                           * MoE.latent_width(cfg) * 2)
         self.state = MoE.init_paged_decode_state(
             cfg, ecfg.num_pages, ecfg.page_size, device=self.device)
+        self.page_bytes = (cfg.num_layers * ecfg.page_size
+                           * self.state.kv_pages.shape[-1] * 2)
         self.last_route_trace: dict | None = None
 
     def prefill(self, ctx: np.ndarray, extras, slot: int,

@@ -17,9 +17,15 @@ arch to OUT.RANK (``torch.save``). Serving tasks run without grad:
                    "extras" (the batch's frames or patch embeddings,
                    whole), "f32" (the port's compute dtypes f32 for the
                    task, the params f32), "name" (the result's key,
-                   default "static") and "state" (the decode state after
+                   default "static"), "state" (the decode state after
                    the last step, each leaf gathered whole over the axes
-                   ``state_pspecs`` splits it on);
+                   ``state_pspecs`` splits it on), "keeps" (the MoE
+                   family: the route keep masks of the prompt's
+                   ``forward(return_route_keep=True)``, gathered over the
+                   data axes) and "routes" (the MoE family: each
+                   ``layers.moe_ffn`` call's router probabilities and
+                   expert choices, as ``_torch_parity.port_routes``
+                   records them, gathered over the data axes);
   ("engine", params, trace, ecfg)
                    the engine's report on the trace with the sharded
                    params;
@@ -159,15 +165,24 @@ def _static(cfg, api, specs, mesh, params, tokens, teacher, cache_len,
     def full(logits):
         return L.dp_all_gather(L.whole_vocab(logits, cfg.vocab_size), 0)
     batch = {"tokens": tokens, **opts.get("extras", {})}
-    logits, state = api.prefill(
-        cfg, params, {k: sh.local_slice(torch.as_tensor(v), rows, mesh)
-                      for k, v in batch.items()}, cache_len, kv_expand=e)
-    steps = [full(logits)]
-    for j in range(teacher.shape[1]):
-        logits, state = api.decode_step(
-            cfg, params, state, sh.local_slice(teacher[:, j], rows, mesh))
-        steps.append(full(logits))
-    out = {"logits": torch.stack(steps)}
+    batch = {k: sh.local_slice(torch.as_tensor(v), rows, mesh)
+             for k, v in batch.items()}
+    out = {}
+    if opts.get("keeps"):
+        out["keeps"] = L.dp_all_gather(api.forward(
+            cfg, params, batch, return_route_keep=True)[1], 1)
+    with _routes(opts.get("routes")) as routes:
+        logits, state = api.prefill(cfg, params, batch, cache_len,
+                                    kv_expand=e)
+        steps = [full(logits)]
+        for j in range(teacher.shape[1]):
+            logits, state = api.decode_step(
+                cfg, params, state, sh.local_slice(teacher[:, j], rows,
+                                                   mesh))
+            steps.append(full(logits))
+    out["logits"] = torch.stack(steps)
+    if routes is not None:
+        out["routes"] = routes
     if hasattr(state, "k"):
         out.update(cache_heads=state.k.shape[3], cache_rows=state.k.shape[1])
     if opts.get("state"):
@@ -181,6 +196,30 @@ def _static(cfg, api, specs, mesh, params, tokens, teacher, cache_len,
         out["state"] = sh.tree_map(lambda path, leaf: sh.gather_leaf(
             leaf, sh.leaf_at(st_specs, path), mesh), state)
     return out
+
+
+@contextlib.contextmanager
+def _routes(record):
+    """Where ``record``, each ``layers.moe_ffn`` call's (router
+    probabilities (N, E), expert choices (N, k)) over the whole batch
+    (gathered over the data axes), as numpy, in call order; else None."""
+    import repro_torch.models.layers as TL
+    if not record:
+        yield None
+        return
+    seen, moe_ffn = [], TL.moe_ffn
+
+    def recorded(x2d, p, dims, **kw):
+        probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+        idx = torch.topk(probs, dims.top_k, dim=-1)[1]
+        seen.append((TL.dp_all_gather(probs, 0).numpy(),
+                     TL.dp_all_gather(idx, 0).numpy()))
+        return moe_ffn(x2d, p, dims, **kw)
+    TL.moe_ffn = recorded
+    try:
+        yield seen
+    finally:
+        TL.moe_ffn = moe_ffn
 
 
 TRAIN_TASKS = ("train", "ckpt", "fault", "entry", "refuse_train")

@@ -158,8 +158,6 @@ CPU = ["--device", "cpu", "--batch", "4", "--prompt-len", "8", "--gen", "2"]
 # what a mesh of more than one rank refuses, and a word its reason names
 REFUSED = [(["--mode", "pool", *CPU], "pool"),
            (["--mode", "fleet", *CPU], "fleet"),
-           (["--arch", "olmoe-1b-7b", "--mode", "static", *CPU],
-            "moe family"),
            (["--mode", "engine", *CPU], "data axis")]
 # reduced whisper-tiny's 2 KV heads over 4 model ranks: the split cuts a
 # head (whisper stores no expanded heads)
@@ -169,10 +167,11 @@ REFUSED_AT = {(2, 2): REFUSED, (1, 4): REFUSED_CUT}
 
 
 def test_multi_rank_meshes_refuse_what_is_not_sharded(tmp_path_factory):
-    """Under the (2, 2) mesh, pool, fleet, the MoE family and the engine
-    over a data axis of two raise NotImplementedError by name, and under
-    (1, 4) whisper-tiny, whose split there cuts a head: no fallback to
-    one rank or to replication."""
+    """Under the (2, 2) mesh, pool, fleet and the engine over a data
+    axis of two raise NotImplementedError by name, and under (1, 4)
+    whisper-tiny, whose split there cuts a head: no fallback to one rank
+    or to replication. (The MoE family serves sharded:
+    ``test_torch_mesh_moe.py``.)"""
     for mesh, refused in REFUSED_AT.items():
         for r in _launched(mesh, tmp_path_factory):
             got = r[ARCHS[0]]["refuse"]
